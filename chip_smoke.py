@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU, end to end.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,11 @@ exits non-zero without printing a result:
               ``deeplearning4j_tpu_torch/kernels/csrc`` (one nvcc each, in
               parallel) and print the build seconds.
 3. parity   — each kernel against its plain PyTorch version on the card,
-              in bf16, at the serving shapes (tolerances below).
+              in bf16, at the serving shapes and, for the three flash
+              kernels (forward, dq, dk/dv), at BERT's training shape
+              (B=128, T=128, 12 heads of 64) and longest position
+              (B=32, T=512), gradients against autograd through the
+              plain version (tolerances below).
 4. serve    — the full-width CausalLM (vocab 32000, hidden 768, 12 layers,
               bf16, random weights from a seed) behind
               ``DecodeEngine(slots=8, max_ctx=1024, kv_block_size=16)``:
@@ -28,10 +32,26 @@ exits non-zero without printing a result:
    step     — where one full-width decode step's time goes (host clock,
               and device time by kernel from ``torch.profiler``), for the
               bf16 model and its int8 twin.
-7. kernels  — launches on phases 4-6 (counts set to 0 just before phase
-              4), max error against the plain version, and the kernel's,
-              plain version's and one PyTorch library call's times at the
-              serving shapes beside the card's bound for the same work.
+7. train    — BERT-base masked-LM training (vocab 30522, hidden 768, 12
+              layers, bf16, random weights from a seed) at B=128, T=128:
+              ``make_scanned_train_step(n_steps=10, use_flash=True,
+              remat=False)`` after one warm call, through the three flash
+              kernels; the same step with ``use_flash=False`` from the
+              same params and batch for its first loss.
+   train_step — where one train step's device time goes, by kernel.
+   bert_forward — one BERT-base forward (encode + MLM head) through the
+              kernel against the plain attention, B=8, T=128.
+   causal   — the full-width CausalLM ``forward(use_flash=True)`` against
+              ``use_flash=False``, B=4, T=1024.
+8. kernels  — launches on each kernel's own main path (the serving
+              phases 4-6 for the paged and dequant kernels, counts set to
+              0 just before phase 4; the train phase's timed run for the
+              flash kernels, counts set to 0 just before it), max error
+              against the plain version, and the kernel's, plain
+              version's and one PyTorch library call's device times
+              (``torch.profiler``: the card's own work, not the host's
+              gaps between launches) at the main path's shapes beside the
+              card's bound for the same work.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -61,30 +81,67 @@ DEQ_F32_RTOL, DEQ_F32_ATOL = 1e-4, 1e-4
 # read, same weights and pool: the per-layer bf16 disagreement above goes
 # through 12 layers and the tied head; logits are O(1).
 STEP_LOGIT_ATOL = 0.25
+# flash kernels vs autograd through the plain version, bf16, for o, dq,
+# dk and dv alike: the kernels round p and ds to bf16 before their
+# products (as the Pallas kernels do), the plain version keeps them f32,
+# and each result is rounded once to bf16. Elementwise, rtol 1e-2 (about
+# two bf16 ulps) plus atol 3e-2 for entries near 0 (unit-scale inputs);
+# over the whole tensor, the error's RMS within 2e-2 of the reference's
+# RMS, which a systematic error on some rows would break.
+FLASH_ATOL, FLASH_RTOL, FLASH_REL_RMS = 3e-2, 1e-2, 2e-2
+# BERT-base, flash kernels vs the plain attention branch, bf16: the two
+# round the probabilities at other places; the per-layer disagreement
+# goes through 12 layers and the tied head, logits are O(1). The first
+# MLM loss (about ln 30522 = 10.3) is a mean over ~2,500 positions.
+BERT_LOGIT_ATOL = 0.25
+BERT_ARGMAX_MIN = 0.9
+LOSS_ATOL = 0.02
 
 L_FULL, SLOTS, MAX_CTX, BS = 12, 8, 1024, 16
 MB = MAX_CTX // BS
+# BERT-base training: the bench headline's batch (bench.py bench_bert)
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 128, 128, 10
+# flash shapes held against the plain version: the train shape and
+# BERT's longest position
+FLASH_SHAPES = ((128, 128), (32, 512))
+FLASH_H, FLASH_D = 12, 64
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def device_ms_by_kernel(fn, iters):
+    """{kernel name: ms per ``fn()`` call} of the card's own work
+    (kernels, copies, fills) that ``torch.profiler`` records over
+    ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.device_time_total / 1e3 / iters
+    if sum(by_name.values()) <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return by_name
+
+
 def time_ms(fn, iters=30, warm=3):
-    """Mean device time of ``fn()`` in ms over ``iters`` calls (CUDA
-    events around the run, after ``warm`` calls)."""
+    """Device time of one ``fn()`` call in ms, after ``warm`` calls: the
+    summed duration of the work it puts on the card, over ``iters``
+    calls. The gaps between launches, which the host sets, do not count,
+    so a chain of library launches is timed like one kernel."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def phase_device():
@@ -213,8 +270,94 @@ def phase_parity():
                                    f" atol {atol}")
             if dtype == torch.bfloat16:
                 errs["dequant_matmul"] = max(errs["dequant_matmul"], err)
+    flash_parity(errs, out)
     emit(out)
     return errs
+
+
+def flash_module():
+    """The flash wrapper module (its launch counters live on its three
+    launch functions)."""
+    import importlib
+    return importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.flash_attention")
+
+
+def flash_counters():
+    fl = flash_module()
+    return {"flash_attention_fwd": fl._flash_fwd,
+            "flash_attention_dq": fl._flash_bwd_dq,
+            "flash_attention_dkv": fl._flash_bwd_dkv}
+
+
+def flash_inputs(B, T, seed):
+    """bf16 q, k, v and a cotangent [B, T, 12, 64] of unit scale, and an
+    all-ones int32 key mask [B, T], as BERT's batches pass one."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, T, FLASH_H, FLASH_D), generator=g,
+                               device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    return q, k, v, do, mask
+
+
+def flash_grads(fn, q, k, v, do, mask):
+    """(o, dq, dk, dv) of ``fn`` with the cotangent ``do``."""
+    import torch
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*ts, mask=mask)
+    return (o.detach(),) + torch.autograd.grad(o, ts, do)
+
+
+def flash_parity(errs, out):
+    """The forward, dq and dk/dv kernels against autograd through the
+    plain version, at the train shape and at T=512; the last batch row
+    hides its last quarter of keys, so the masked path runs too."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import (flash_attention,
+                                                  flash_attention_plain)
+    counters = flash_counters()
+    out["flash"] = []
+    for name in counters:
+        errs[name] = 0.0
+    for i, (B, T) in enumerate(FLASH_SHAPES):
+        q, k, v, do, mask = flash_inputs(B, T, seed=30 + i)
+        mask[-1, T * 3 // 4:] = 0
+        n0 = {n: f.launches for n, f in counters.items()}
+        got = flash_grads(flash_attention, q, k, v, do, mask)
+        ref = flash_grads(flash_attention_plain, q, k, v, do, mask)
+        torch.cuda.synchronize()
+        for n, f in counters.items():
+            if f.launches != n0[n] + 1:
+                raise RuntimeError(f"{n} did not count its launch")
+        names = ("o", "dq", "dk", "dv")
+        got = [a.float() for a in got]
+        ref = [b.float() for b in ref]
+        err = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+        rms = [b.pow(2).mean().sqrt().item() for b in ref]
+        err_rms = [(a - b).pow(2).mean().sqrt().item()
+                   for a, b in zip(got, ref)]
+        close = [torch.allclose(a, b, atol=FLASH_ATOL, rtol=FLASH_RTOL)
+                 for a, b in zip(got, ref)]
+        rec = {"B": B, "T": T,
+               "max_abs_err": dict(zip(names, err)),
+               "ref_rms": dict(zip(names, rms)),
+               "err_rms": dict(zip(names, err_rms)),
+               "ref_max_abs": {n: b.abs().max().item()
+                               for n, b in zip(names, ref)},
+               "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+        out["flash"].append(rec)
+        ok = rec["finite"] and all(close) and all(
+            e <= FLASH_REL_RMS * r for e, r in zip(err_rms, rms))
+        if not ok:
+            raise RuntimeError(f"flash kernels B={B} T={T}: {rec}")
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                          err[0])
+        errs["flash_attention_dq"] = max(errs["flash_attention_dq"], err[1])
+        errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"],
+                                          err[2], err[3])
+        del q, k, v, do, got, ref
 
 
 def serve(engine, prompts, sampling, max_tokens=64, timeout=600):
@@ -402,7 +545,6 @@ def phase_step(model, twin):
     the device time per step, split by kernel, comes from
     ``torch.profiler`` over 5 more; the busy share is their ratio."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch.models import causal_lm
     N = SLOTS * MB + 1
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -427,19 +569,8 @@ def phase_step(model, twin):
             step()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / 10
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) \
-                    + e.device_time_total / 1e3 / 5
+        by_name = device_ms_by_kernel(step, 5)
         device_ms = sum(by_name.values())
-        if device_ms <= 0:
-            raise RuntimeError("the profiler saw no device time")
 
         def share(fragment):
             return sum(v for k, v in by_name.items() if fragment in k)
@@ -548,8 +679,260 @@ def phase_kernels(twin, launches, errs):
                     **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}})
             del wbf
-    emit({"phase": "kernel_shapes", "shapes": shapes})
-    return rows
+    return rows, shapes
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def bert_batch(cfg, B, T, seed=0):
+    """The bench's masked-LM batch: ids, 15 % of positions labelled, an
+    all-ones attention mask."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (B, T))
+    labels = np.where(rng.rand(B, T) < 0.15,
+                      rng.randint(0, cfg.vocab_size, (B, T)), -100)
+    return {"input_ids": torch.as_tensor(ids, device="cuda"),
+            "labels": torch.as_tensor(labels, device="cuda"),
+            "attention_mask": torch.ones((B, T), dtype=torch.int32,
+                                         device="cuda")}
+
+
+def phase_train():
+    """BERT-base MLM training through the flash kernels. Returns the
+    kernels' launch counts on the timed run and what later phases
+    reuse."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    params = bert.init_params(cfg, seed=0, device="cuda")
+    opt = bert.init_opt_state(params)
+    batch = bert_batch(cfg, TRAIN_B, TRAIN_T)
+    step = bert.make_scanned_train_step(cfg, TRAIN_STEPS, learning_rate=1e-4,
+                                        remat=False, use_flash=True)
+    t0 = time.perf_counter()
+    params, opt, warm = step(params, opt, batch, 0)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    before = (clone_tree(params), clone_tree(opt))
+    counters = flash_counters()
+    # the training path: every flash launch count starts at 0 here
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, losses = step(params, opt, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    traj = losses.float().cpu().numpy()
+    changed = int(np.count_nonzero(np.diff(traj)))
+    # the same step through the plain attention branch, same start
+    plain_step = bert.make_scanned_train_step(cfg, 1, learning_rate=1e-4,
+                                              remat=False, use_flash=False)
+    _, _, plain_loss = plain_step(before[0], before[1], batch, TRAIN_STEPS)
+    plain_first = float(plain_loss[0])
+    del before
+    want = cfg.num_layers * TRAIN_STEPS
+    rec = {"phase": "train", "model": "bert-base", "B": TRAIN_B,
+           "T": TRAIN_T, "n_steps": TRAIN_STEPS,
+           "warm_call_s": round(t_warm, 3), "wall_s": wall,
+           "step_ms": wall * 1e3 / TRAIN_STEPS,
+           "samples_per_s": TRAIN_STEPS * TRAIN_B / wall,
+           "peak_memory_gib": peak_gb,
+           "warm_losses": warm.float().cpu().tolist(),
+           "losses": traj.tolist(), "adjacent_changed":
+               f"{changed}/{len(traj) - 1}",
+           "first_loss_plain_attention": plain_first,
+           "first_loss_abs_diff": abs(plain_first - float(traj[0])),
+           "launches": launches}
+    emit(rec)
+    if not np.all(np.isfinite(traj)):
+        raise RuntimeError("non-finite loss in the train trajectory")
+    if changed < 0.8 * (len(traj) - 1):
+        raise RuntimeError(f"loss trajectory mostly flat: {traj}")
+    if abs(plain_first - float(traj[0])) > LOSS_ATOL:
+        raise RuntimeError(f"first loss {traj[0]} (flash) vs {plain_first}"
+                           f" (plain attention) differ by more than "
+                           f"{LOSS_ATOL}")
+    for n, c in launches.items():
+        if c != want:
+            raise RuntimeError(f"{n} launched {c} times on the train run, "
+                               f"want {cfg.num_layers} layers x "
+                               f"{TRAIN_STEPS} steps = {want}")
+    return launches, params, opt, batch, rec["step_ms"]
+
+
+def phase_train_step(params, opt, batch, step_ms):
+    """Device time of one train step by kernel, from ``torch.profiler``
+    over a 2-step call; the busy share is that device time over the
+    timed run's host-clock step."""
+    from deeplearning4j_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    step = bert.make_scanned_train_step(cfg, 2, learning_rate=1e-4,
+                                        remat=False, use_flash=True)
+    # the 2-step call, counted per step
+    by_name = {k: v / 2 for k, v in device_ms_by_kernel(
+        lambda: step(params, opt, batch, 100), 1).items()}
+    device_ms = sum(by_name.values())
+
+    def share(fragment):
+        return sum(v for k, v in by_name.items() if fragment in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # cuBLAS's matrix products (nvjet, cutlass and xmma kernel names)
+    gemm = sum(v for k, v in by_name.items()
+               if any(f in k.lower() for f in ("gemm", "nvjet", "cutlass",
+                                               "xmma")))
+    emit({"phase": "train_step", "step_ms": step_ms,
+          "device_ms_per_step": device_ms,
+          "device_busy_share": device_ms / step_ms,
+          "flash_fwd_ms_per_step": share("flash_fwd_kernel"),
+          "flash_dq_ms_per_step": share("flash_dq_kernel"),
+          "flash_dkv_ms_per_step": share("flash_dkv_kernel"),
+          "gemm_ms_per_step": gemm,
+          "kernels_seen": len(by_name),
+          "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]})
+
+
+def phase_bert_forward():
+    """One BERT-base forward (encode + MLM head) at the shape of
+    ``__graft_entry__.entry`` (B=8, T=128), through the flash kernel and
+    through the plain attention branch, on the same weights."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    params = bert.init_params(cfg, seed=1, device="cuda")
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 128)), device="cuda")
+    mask = torch.ones((8, 128), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        out = [bert.mlm_logits(params, bert.encode(
+            params, ids, None, mask, config=cfg, use_flash=uf), cfg)
+            for uf in (True, False)]
+    err = (out[0] - out[1]).abs().max().item()
+    agree = (out[0].argmax(-1) == out[1].argmax(-1)).float().mean().item()
+    emit({"phase": "bert_forward", "B": 8, "T": 128,
+          "logits_shape": list(out[0].shape),
+          "logit_max_abs_err": err, "argmax_agree": agree,
+          "logit_max_abs": out[1].abs().max().item()})
+    if not (torch.isfinite(out[0]).all() and err <= BERT_LOGIT_ATOL
+            and agree >= BERT_ARGMAX_MIN):
+        raise RuntimeError(f"BERT forward through the flash kernel: max "
+                           f"logit err {err}, argmax agreement {agree}")
+
+
+def phase_causal(model):
+    """The full-width CausalLM forward through the causal flash kernel
+    against its plain causal attention, B=4, T=1024."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models import causal_lm
+    ids = torch.as_tensor(np.random.RandomState(3).randint(
+        0, model.config.vocab_size, (4, MAX_CTX)), device="cuda")
+    with torch.no_grad():
+        out = [causal_lm.forward(model.params, ids, model.config,
+                                 use_flash=uf) for uf in (True, False)]
+    err = (out[0] - out[1]).abs().max().item()
+    agree = (out[0].argmax(-1) == out[1].argmax(-1)).float().mean().item()
+    emit({"phase": "causal", "B": 4, "T": MAX_CTX,
+          "logit_max_abs_err": err, "argmax_agree": agree})
+    if not (torch.isfinite(out[0]).all() and err <= STEP_LOGIT_ATOL):
+        raise RuntimeError(f"causal flash forward: logits differ by {err}"
+                           f" > {STEP_LOGIT_ATOL}")
+
+
+def flash_work(B, T, H=FLASH_H, D=FLASH_D):
+    """(bytes, flops) of the forward, dq and dk/dv at an all-ones mask
+    (every (query, key) pair is needed): each input read once, each
+    output written once; 2*D flops per pair per product (forward: 2
+    products, dq: 3, dk/dv: 4)."""
+    x = B * T * H * D * 2            # one bf16 [B, T, H, D] tensor
+    row = B * H * T * 4              # one f32 [B, H, T] (lse, delta)
+    m = B * T * 4                    # the int32 mask
+    pairs = B * H * T * T
+    return {"flash_attention_fwd": (4 * x + row + m, 2 * 2 * D * pairs),
+            "flash_attention_dq": (5 * x + 2 * row + m, 3 * 2 * D * pairs),
+            "flash_attention_dkv": (6 * x + 2 * row + m,
+                                    4 * 2 * D * pairs)}
+
+
+def flash_rows(launches, errs):
+    """Kernel, plain and library times of the three flash kernels at the
+    train shape (the row) and at T=512 (a shape record). The plain and
+    library backward times are one whole backward (dq, dk and dv
+    together), reported on both backward rows."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import (
+        flash_attention_with_lse_plain)
+    fl = flash_module()
+    rows, shapes = [], []
+    for i, (B, T) in enumerate(FLASH_SHAPES):
+        q, k, v, do, mask = flash_inputs(B, T, seed=40 + i)
+        o, lse = fl._flash_fwd(q, k, v, mask, False, None)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        kern = {
+            "flash_attention_fwd":
+                lambda: fl._flash_fwd(q, k, v, mask, False, None),
+            "flash_attention_dq":
+                lambda: fl._flash_bwd_dq(q, k, v, do, lse, delta, mask,
+                                         False, None),
+            "flash_attention_dkv":
+                lambda: fl._flash_bwd_dkv(q, k, v, do, lse, delta, mask,
+                                          False, None)}
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.no_grad():
+            plain_fwd = time_ms(lambda: flash_attention_with_lse_plain(
+                q, k, v, mask), iters=10)
+        o_plain = flash_attention_with_lse_plain(*ts, mask=mask)[0]
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            o_plain, ts, do, retain_graph=True), iters=10)
+        del o_plain
+        qt, kt, vt = (t.transpose(1, 2) for t in ts)
+        am = mask.bool()[:, None, None, :]
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=am))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+        do_t = do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            o_lib, ts, do_t, retain_graph=True))
+        del o_lib
+        work = flash_work(B, T)
+        for name, fn in kern.items():
+            b_ms, b_by = bound_ms(*work[name])
+            fwd = name == "flash_attention_fwd"
+            rec = {"ms": time_ms(fn),
+                   "plain_ms": plain_fwd if fwd else plain_bwd,
+                   "library_ms": lib_fwd if fwd else lib_bwd,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            shapes.append({"name": name, "B": B, "T": T, **rec})
+            if i == 0:
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                              + ("flash_attention_fwd.cu" if fwd
+                                 else "flash_attention_bwd.cu"),
+                    "replaces": "deeplearning4j_tpu/kernels/"
+                                "flash_attention.py:" + {
+                                    "flash_attention_fwd": "120",
+                                    "flash_attention_dq": "260",
+                                    "flash_attention_dkv": "287"}[name],
+                    "launches": launches[name],
+                    "max_abs_err": errs[name], **rec})
+        del q, k, v, do, ts, o, lse, delta
+    return rows, shapes
 
 
 def main():
@@ -583,8 +966,17 @@ def main():
                                "main path")
     phase_checks(model, twin)
     phase_step(model, twin)
-    rows = phase_kernels(twin, launches, errs)
-    emit({"kernels": rows})
+    train_launches, params, opt, batch, step_ms = phase_train()
+    launches.update(train_launches)
+    phase_train_step(params, opt, batch, step_ms)
+    del params, opt
+    torch.cuda.empty_cache()
+    phase_bert_forward()
+    phase_causal(model)
+    rows, shapes = phase_kernels(twin, launches, errs)
+    flash, flash_shapes = flash_rows(launches, errs)
+    emit({"phase": "kernel_shapes", "shapes": shapes + flash_shapes})
+    emit({"kernels": flash + rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"ok": True, "device": {"platform": "gpu",

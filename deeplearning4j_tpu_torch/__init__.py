@@ -6,10 +6,12 @@ Hopper (``kernels/csrc/``), built at first use. Module paths mirror the
 JAX package's, so each part has an obvious counterpart there. The port
 imports neither JAX nor the JAX package.
 
-Ported so far: the CausalLM serving path — ``runtime.generation``'s
-``DecodeEngine`` over ``models.causal_lm``'s paged KV pool, its int8 twin
-(``quant.transforms.quantize_model``), the paged-flash decode kernel and
-the fused int8 dequant-matmul kernel::
+Ported so far:
+
+- the CausalLM serving path — ``runtime.generation``'s ``DecodeEngine``
+  over ``models.causal_lm``'s paged KV pool, its int8 twin
+  (``quant.transforms.quantize_model``), the paged-flash decode kernel
+  and the fused int8 dequant-matmul kernel::
 
     from deeplearning4j_tpu_torch.models.causal_lm import (CausalLM,
                                                            CausalLMConfig)
@@ -17,6 +19,19 @@ the fused int8 dequant-matmul kernel::
 
     engine = DecodeEngine(CausalLM(CausalLMConfig(), device="cuda"))
     engine.generate_sync([1, 2, 3], max_tokens=16)
+
+- BERT masked-LM training (``models.bert``: forward, loss, backward and
+  Adam) and its QA head, with the flash-attention forward, dq and dk/dv
+  kernels (``kernels.flash_attention``)::
+
+    from deeplearning4j_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    params = bert.init_params(cfg, seed=0)
+    opt = bert.init_opt_state(params)
+    step = bert.make_scanned_train_step(cfg, 10, use_flash=True,
+                                        remat=False)
+    params, opt, losses = step(params, opt, batch, 0)
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.

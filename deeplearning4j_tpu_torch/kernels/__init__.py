@@ -5,22 +5,32 @@ CUDA C++ under ``csrc/`` (built at first use by ``_build``) with a wrapper
 that launches it for CUDA tensors and a ``*_plain`` PyTorch version that
 runs for CPU tensors:
 
+- ``flash_attention`` / ``flash_attention_with_lse``: the forward kernel
+  (``csrc/flash_attention_fwd.cu``) and the dq and dk/dv backward kernels
+  (``csrc/flash_attention_bwd.cu``) behind ``torch.autograd.Function``s
+  — BERT attention with ``use_flash`` and the CausalLM's
+  ``forward(use_flash=True)``;
 - ``paged_flash_decode``: the paged-KV attention read of every decode and
   speculative-verify step (``models.causal_lm.paged_decode``);
 - ``quant.transforms.dequant_matmul``'s fused int8 branch
   (``csrc/dequant_matmul.cu``), the MLP matmuls of an int8 twin.
 
-The JAX package's flash-attention kernels (forward and backward) are not
-ported yet. There the path was decided once per traced executable; here
-every eager call decides, so the counters tick once per call.
+There the path was decided once per traced executable; here every eager
+call decides, so the counters tick once per call.
 """
 from typing import Dict, Optional
 
 from ..common.metrics import registry
+from .flash_attention import (flash_attention, flash_attention_plain,
+                              flash_attention_with_lse,
+                              flash_attention_with_lse_plain)
 from .paged_flash_decode import paged_flash_decode, paged_flash_decode_plain
 
-__all__ = ["paged_flash_decode", "paged_flash_decode_plain",
-           "attention_dispatch", "kernel_dispatch", "dispatch_snapshot"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_with_lse", "flash_attention_with_lse_plain",
+           "paged_flash_decode", "paged_flash_decode_plain",
+           "attention_dispatch", "record_attention", "kernel_dispatch",
+           "dispatch_snapshot"]
 
 #: last path decision per kernel family — what
 #: ``DecodeEngine.debug_snapshot`` reports
@@ -61,23 +71,33 @@ def _paged_path(pool):
     return "paged", f"{pool.device.type} pool (the kernel runs on CUDA)"
 
 
+def record_attention(path: str, reason: str = "",
+                     kernel: str = "attention") -> str:
+    """Record one attention path decision: ticks
+    ``dl4j_attn_dispatch_total{path}`` and
+    ``dl4j_kernel_dispatch_total{kernel,path}``. Returns ``path``."""
+    registry().counter(
+        "dl4j_attn_dispatch_total",
+        "Attention path decisions, one per call",
+        labels=("path",)).labels(path=path).inc()
+    return kernel_dispatch(kernel, path, reason)
+
+
 def attention_dispatch(seq_len: int, paged: bool = False, *,
                        pool=None) -> str:
-    """Attention path for one call: "paged_flash" or "paged" for the
-    paged-KV read (``paged=True``; decided by the pool's device, see
-    :func:`_paged_path`), "xla" for the dense slab/forward attention,
-    which stays plain PyTorch until the flash kernel is ported. Ticks
-    ``dl4j_attn_dispatch_total{path}`` and
-    ``dl4j_kernel_dispatch_total{kernel,path}``."""
+    """Attention path for one call that is not ``flash_attention``'s:
+    "paged_flash" or "paged" for the paged-KV read (``paged=True``;
+    decided by the pool's device, see :func:`_paged_path`), or "xla" for a
+    query of fewer than 2 rows (the decode pin, which keeps a caller's own
+    branch). A ``use_flash`` caller's dense attention over 2 or more rows
+    is recorded by ``flash_attention`` itself, which alone chooses between
+    the kernels and the plain version; asking here raises."""
     if paged:
         path, reason = _paged_path(pool)
     elif int(seq_len) < 2:
         path, reason = "xla", "seq_len<2 decode pin"
     else:
-        path, reason = "xla", "flash-attention kernel not ported"
-    registry().counter(
-        "dl4j_attn_dispatch_total",
-        "Attention path decisions, one per call",
-        labels=("path",)).labels(path=path).inc()
-    kernel_dispatch("paged_decode" if paged else "attention", path, reason)
-    return path
+        raise ValueError(f"attention_dispatch: dense attention over "
+                         f"{seq_len} rows is decided by flash_attention")
+    return record_attention(path, reason,
+                            "paged_decode" if paged else "attention")

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA C++ kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
-use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(it may include the shared ``csrc/*.cuh`` headers). At first use it is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``kernels/build/`` (git-ignored) and loaded with ``ctypes``; pointers and
 the stream cross as ``c_void_p``. The library's file name carries a hash
-of its source and flags, so an edited source never loads a stale build.
+of its source, the headers and the flags, so an edited source never
+loads a stale build.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
 
 Nothing here runs at import: the CPU tests import every kernel module on
@@ -24,7 +26,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("paged_flash_decode", "dequant_matmul")
+KERNELS = ("paged_flash_decode", "dequant_matmul", "flash_attention_fwd",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -46,10 +49,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    # the digest covers the shared headers too: a source may include any
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def ptxas_report(name: str) -> str:

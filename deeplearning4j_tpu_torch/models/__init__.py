@@ -1,1 +1,2 @@
-"""Models: the decoder-only causal LM (and BERT pieces it shares)."""
+"""Models: the decoder-only causal LM and BERT (masked-LM training and
+the QA head)."""

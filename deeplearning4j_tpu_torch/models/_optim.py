@@ -1,0 +1,71 @@
+"""Shared flat-Adam update for the model-level train steps.
+
+Counterpart of ``deeplearning4j_tpu/models/_optim.py``: the optimizer
+state is ``(u_list, m_list)`` aligned with :func:`tree_leaves` of the
+params, which walks dicts in sorted-key order and lists in order, as
+``jax.tree_util.tree_leaves`` does — so a state bridged from the JAX
+package lines up leaf for leaf.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import updater_ops
+
+
+def tree_leaves(tree):
+    """The tensors of a nested dict/list/tuple, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            seq = [build(v) for v in node]
+            return seq if isinstance(node, list) else tuple(seq)
+        return None if node is None else next(it)
+    return build(tree)
+
+
+@torch.no_grad()
+def adam_apply(params, grads, opt_state, learning_rate, iteration,
+               cast_f32: bool = True):
+    """One Adam step over a params tree, IN PLACE: each parameter and
+    each state tensor is overwritten, where the JAX package returns new
+    arrays and donates the old ones. ``grads`` is a tree like ``params``;
+    ``opt_state = (u_list, m_list)``. With ``cast_f32`` the update math runs in f32 and
+    the result is cast back to each parameter's dtype (bf16 masters).
+    Returns ``(params, opt_state)``, the same objects."""
+    flat_p = tree_leaves(params)
+    flat_g = tree_leaves(grads)
+    u, m = opt_state
+    for p, g, ui, mi in zip(flat_p, flat_g, u, m):
+        g_ = g.float() if cast_f32 else g
+        upd, u2, m2 = updater_ops.adam_updater(g_, ui, mi, lr=learning_rate,
+                                               iteration=iteration)
+        if cast_f32:
+            p.copy_((p.float() - upd).to(p.dtype))
+        else:
+            p.sub_(upd)
+        ui.copy_(u2)
+        mi.copy_(m2)
+    return params, opt_state
+
+
+def adam_init(params):
+    """Zero f32 moments ``(u_list, m_list)`` beside each parameter."""
+    flat = tree_leaves(params)
+    return ([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in flat],
+            [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in flat])

@@ -22,8 +22,10 @@ port writes the caches IN PLACE (``index_put_`` through the block table)
 and returns the same dict: the pool is never copied per step.
 ``paged_decode`` reads attention through ``kernels.paged_flash_decode``,
 which runs the Hopper kernel for a CUDA pool and the gather read for a
-CPU pool; the other matmuls stay ``torch.einsum``/``torch.matmul``, as the
-JAX package leaves them to XLA, except the int8 twin's MLP contractions
+CPU pool; ``forward(use_flash=True)`` runs its causal attention through
+``kernels.flash_attention``; the other matmuls stay
+``torch.einsum``/``torch.matmul``, as the JAX package leaves them to
+XLA, except the int8 twin's MLP contractions
 (``quant.transforms.dequant_matmul``).
 """
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import attention_dispatch, paged_flash_decode
+from ..kernels import (attention_dispatch, flash_attention,
+                       paged_flash_decode)
 from ..quant.transforms import (QuantizedTensor, dequant_matmul, dequantize,
                                 take_rows, tied_logits)
 from .bert import _ln
@@ -169,36 +172,44 @@ def _lm_logits(params, h):
     return tied_logits(h, params["embeddings"]["word"])
 
 
-def _causal_block(layer, h, c: CausalLMConfig):
-    """Full-sequence causal attention block (plain PyTorch; the flash
-    kernel is not ported yet). Returns (h, (k, v)) with k/v
+def _causal_block(layer, h, c: CausalLMConfig, use_flash: bool = False):
+    """Full-sequence causal attention block. With ``use_flash`` the
+    attention goes through ``kernels.flash_attention(causal=True)`` (the
+    Hopper kernels on CUDA, the plain version on the CPU); without it,
+    through the plain masked softmax. Returns (h, (k, v)) with k/v
     [B, T, H, Dh]."""
     a = layer["attn"]
     T = h.shape[1]
     q = _proj("bte,ehd->bthd", h, a["wq"], a["bq"])
     k = _proj("bte,ehd->bthd", h, a["wk"], a["bk"])
     v = _proj("bte,ehd->bthd", h, a["wv"], a["bv"])
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                   device=h.device))
-    logits = torch.where(causal[None, None], logits, _BIG_NEG)
-    probs = torch.softmax(logits, dim=-1).to(h.dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    if use_flash and T >= 2:        # a 1-row query keeps the plain branch
+        ctx = flash_attention(q, k, v, causal=True)
+    else:
+        scale = q.shape[-1] ** -0.5
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              k.float()) * scale
+        causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                       device=h.device))
+        logits = torch.where(causal[None, None], logits, _BIG_NEG)
+        probs = torch.softmax(logits, dim=-1).to(h.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     out = _proj("bqhd,hde->bqe", ctx, a["wo"], a["bo"])
     return _mlp_ln(layer, h, out, c), (k, v)
 
 
 # -- full forward and the slab cache ---------------------------------------
 
-def forward(params, input_ids, config: CausalLMConfig):
+def forward(params, input_ids, config: CausalLMConfig,
+            use_flash: bool = False):
     """Full causal forward: token ids [B, T] -> next-token logits
-    [B, T, V] (f32)."""
+    [B, T, V] (f32); ``use_flash`` routes attention through the flash
+    kernels."""
     T = input_ids.shape[1]
     h = _embed(params, input_ids,
                torch.arange(T, device=input_ids.device)[None, :], config)
     for layer in params["layers"]:
-        h, _ = _causal_block(layer, h, config)
+        h, _ = _causal_block(layer, h, config, use_flash)
     return _lm_logits(params, h)
 
 

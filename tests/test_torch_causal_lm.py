@@ -105,6 +105,17 @@ def test_forward_logits(pair):
     _same_logits(got, ref)
 
 
+def test_forward_with_flash_matches_jax_plain_forward(pair):
+    """The port's causal flash path (the plain flash version on the CPU)
+    against the JAX package's plain attention branch."""
+    jm, tm = pair
+    ids = np.random.RandomState(1).randint(0, 97, (2, 40)).astype(np.int32)
+    ref = _jit(jcl.forward, jm.config)(jm.params, jnp.asarray(ids))
+    got = tcl.forward(tm.params, torch.from_numpy(ids), tm.config,
+                      use_flash=True)
+    _same_logits(got, ref)
+
+
 def test_slab_prefill_then_decode(pair):
     """The slab cache's prefill and one decode step over both slots."""
     jm, tm = pair

@@ -13,12 +13,22 @@ Tolerances, each with its reason:
   absolute covers a few bf16 ulps at O(1).
 - bf16 dequant-matmul: one final rounding to bf16 on either side of an
   f32 sum; rtol 1e-2 (about two bf16 ulps) plus atol 1e-2 near 0.
+- flash attention, against autograd through the plain version: o, dq,
+  dk and dv elementwise within an atol plus an rtol, and the error's RMS
+  within a fraction of the reference's RMS (``FLASH_TOL``, reasons
+  there); lse atol 1e-4.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu_torch.kernels import (paged_flash_decode,
+from deeplearning4j_tpu_torch.kernels import (flash_attention,
+                                              flash_attention_plain,
+                                              flash_attention_with_lse,
+                                              flash_attention_with_lse_plain,
+                                              paged_flash_decode,
                                               paged_flash_decode_plain)
 from deeplearning4j_tpu_torch.quant.transforms import (
     _fused_dequant_matmul, dequant_matmul_plain, quantize_tensor)
@@ -120,3 +130,135 @@ def test_dequant_matmul_refuses_what_it_cannot_run(cuda):
     with pytest.raises(TypeError):
         _fused_dequant_matmul(torch.randn((4, 64), device=cuda).half(),
                               qt.q, qt.scale.reshape(-1))
+
+
+# -- flash attention: forward, dq and dk/dv kernels --------------------------
+
+# the module (the package exports its function under the same name)
+_flash = importlib.import_module(
+    "deeplearning4j_tpu_torch.kernels.flash_attention")
+# (atol, rtol, relative RMS) per dtype, for o, dq, dk and dv alike. f32:
+# the same f32 sums in another order (FMA tiles, no TF32). bf16: the
+# kernels round p and ds to bf16 before their products, as the Pallas
+# kernels do, where the plain version keeps them f32, and each result is
+# rounded once to bf16: rtol 1e-2 is about two bf16 ulps, atol 3e-2
+# covers entries near 0 (inputs of unit scale). The error's RMS over the
+# whole tensor must also stay under the last number times the reference's
+# RMS, which a systematic error on some rows would break.
+FLASH_TOL = {torch.float32: (2e-4, 1e-4, 1e-4),
+             torch.bfloat16: (3e-2, 1e-2, 2e-2)}
+
+
+def _flash_inputs(B, S, H, D, dtype, device, masked=False, seed=0):
+    """q, k, v [B, S, H, D], a cotangent g, and a key mask whose last
+    batch row hides its tail (None when not ``masked``)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(B, S, H, D).astype(
+        np.float32)).to(device, dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.ones((B, S), dtype=torch.int32, device=device)
+        mask[-1, S * 2 // 3:] = 0
+    return q, k, v, g, mask
+
+
+def _flash_grads(fn, q, k, v, g, **kw):
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*ts, **kw)
+    dq, dk, dv = torch.autograd.grad(o, ts, g)
+    return o.detach(), dq, dk, dv
+
+
+def _assert_flash_close(got, ref, tol):
+    atol, rtol, rel_rms = tol
+    assert got.dtype == ref.dtype and torch.isfinite(got).all()
+    got, ref = got.float(), ref.float()
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    err_rms = (got - ref).pow(2).mean().sqrt().item()
+    assert err_rms <= rel_rms * ref.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,D,causal,masked", [
+    (2, 128, 3, 64, False, False),    # BERT's tile shape
+    (2, 128, 3, 64, False, True),
+    (2, 200, 2, 64, True, False),     # odd S, causal
+    (1, 77, 2, 32, True, True),       # causal and masked together
+    (2, 150, 2, 128, False, True),
+    (1, 64, 2, 8, False, False),      # the narrowest head it takes
+])
+def test_flash_attention_matches_plain(cuda, dtype, B, S, H, D, causal,
+                                       masked):
+    q, k, v, g, mask = _flash_inputs(B, S, H, D, dtype, cuda, masked)
+    counts = [f.launches for f in (_flash._flash_fwd, _flash._flash_bwd_dq,
+                                   _flash._flash_bwd_dkv)]
+    got = _flash_grads(flash_attention, q, k, v, g, mask=mask,
+                       causal=causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (_flash._flash_fwd, _flash._flash_bwd_dq,
+                                 _flash._flash_bwd_dkv)] == \
+        [n + 1 for n in counts]
+    ref = _flash_grads(flash_attention_plain, q, k, v, g, mask=mask,
+                       causal=causal)
+    for a, b in zip(got, ref):
+        _assert_flash_close(a, b, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_with_lse_matches_plain(cuda, dtype):
+    """lse itself, and a loss that reads it (the lse cotangent)."""
+    q, k, v, g, mask = _flash_inputs(2, 100, 2, 64, dtype, cuda, True)
+    w = torch.randn((2, 2, 100), device=cuda)
+    res = []
+    for fn in (flash_attention_with_lse, flash_attention_with_lse_plain):
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o, lse = fn(*ts, mask=mask)
+        loss = (o.float() * g.float()).sum() + (lse * w).sum()
+        res.append((o.detach(), lse.detach()) + torch.autograd.grad(
+            loss, ts))
+    _assert_flash_close(res[0][0], res[1][0], FLASH_TOL[dtype])
+    torch.testing.assert_close(res[0][1], res[1][1], atol=1e-4, rtol=0)
+    for a, b in zip(res[0][2:], res[1][2:]):
+        _assert_flash_close(a, b, FLASH_TOL[dtype])
+
+
+def test_flash_attention_fully_masked_row(cuda):
+    """A batch row with no visible key: the uniform softmax over all S
+    keys forward, and the masked softmax's gradient backward."""
+    q, k, v, g, _ = _flash_inputs(2, 96, 2, 32, torch.float32, cuda)
+    mask = torch.ones((2, 96), dtype=torch.int32, device=cuda)
+    mask[1] = 0
+    got = _flash_grads(flash_attention, q, k, v, g, mask=mask)
+    ref = _flash_grads(flash_attention_plain, q, k, v, g, mask=mask)
+    torch.testing.assert_close(got[0][1], v[1].mean(0).expand(96, 2, 32),
+                               atol=1e-4, rtol=0)
+    for a, b in zip(got, ref):
+        _assert_flash_close(a, b, FLASH_TOL[torch.float32])
+
+
+def test_flash_attention_takes_strided_inputs(cuda):
+    """q, k, v as views of one packed [B, S, H, 3D] projection (strided,
+    d-stride 1): no copy is made and the result matches the plain one."""
+    qkv = torch.randn((2, 130, 4, 3 * 64), device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    _assert_flash_close(got, ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_refuses_what_it_cannot_run(cuda):
+    q, k, v, _, _ = _flash_inputs(1, 16, 2, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                  # D not a multiple of 8
+        flash_attention(q[..., :60], k[..., :60], v[..., :60])
+    wide = torch.zeros((1, 16, 1, 136), device=cuda)
+    with pytest.raises(ValueError):                  # D over 128
+        flash_attention(wide, wide, wide)
+    step2 = torch.zeros((1, 16, 2, 128), device=cuda)[..., ::2]
+    with pytest.raises(ValueError):                  # D stride not 1
+        flash_attention(step2, step2, step2)

@@ -5,8 +5,8 @@
 - Every public entry point runs on the card unless the caller passes
   ``device="cpu"``: the default is ``"cuda"``, and nothing falls back
   to the CPU.
-- The paged decode read of a CPU pool takes the plain path and says so
-  in the dispatch counters.
+- The paged decode read of a CPU pool, and the flash attention of a CPU
+  tensor, take the plain path and say so in the dispatch counters.
 """
 import ast
 import inspect
@@ -18,8 +18,10 @@ import torch
 from deeplearning4j_tpu_torch import bridge
 from deeplearning4j_tpu_torch.common.metrics import registry
 from deeplearning4j_tpu_torch.kernels import (attention_dispatch,
-                                              dispatch_snapshot)
-from deeplearning4j_tpu_torch.models import causal_lm
+                                              dispatch_snapshot,
+                                              flash_attention,
+                                              flash_attention_plain)
+from deeplearning4j_tpu_torch.models import bert, causal_lm
 from deeplearning4j_tpu_torch.quant import transforms
 from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
 
@@ -56,6 +58,8 @@ ENTRY_POINTS = [
     transforms.quantize_model,
     bridge.params_from_numpy,
     bridge.tensor_from_numpy,
+    bert.init_params,
+    bert.init_qa_params,
 ]
 
 
@@ -86,3 +90,32 @@ def test_cpu_pool_dispatches_to_the_plain_paged_read():
     assert child.value() == before + 2
     snap = dispatch_snapshot()["paged_decode"]
     assert snap["path"] == "paged" and "cpu" in snap["reason"]
+
+
+def test_cpu_tensor_dispatches_to_the_plain_flash_version():
+    """``flash_attention`` on CPU tensors takes the plain version, with
+    no sequence-length threshold, and records that choice itself; the
+    decode pin is the only dense decision left to ``attention_dispatch``."""
+    fam = registry().counter(
+        "dl4j_kernel_dispatch_total",
+        "Hand-written-kernel vs plain-version path decisions per "
+        "kernel family, one per call", labels=("kernel", "path"))
+    child = fam.labels(kernel="attention", path="plain")
+    before = child.value()
+    for seq_len in (2, 128, 1000):
+        q = torch.randn((1, seq_len, 1, 8))
+        assert torch.equal(flash_attention(q, q, q),
+                           flash_attention_plain(q, q, q))
+    assert child.value() == before + 3
+    snap = dispatch_snapshot()["attention"]
+    assert snap["path"] == "plain" and "cpu" in snap["reason"]
+    assert attention_dispatch(1) == "xla"
+    with pytest.raises(ValueError):
+        attention_dispatch(128)
+    # the BERT forward records its choice once per layer
+    cfg = bert.BertConfig.tiny()
+    params = bert.init_params(cfg, device="cpu")
+    before = child.value()
+    bert.encode(params, torch.zeros((1, 8), dtype=torch.long), config=cfg,
+                use_flash=True)
+    assert child.value() == before + cfg.num_layers
