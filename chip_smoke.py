@@ -12,11 +12,14 @@ exits non-zero without printing a result:
               ``deeplearning4j_tpu_torch/kernels/csrc`` (one nvcc each, in
               parallel) and print the build seconds.
 3. parity   — each kernel against its plain PyTorch version on the card,
-              in bf16, at the serving shapes and, for the three flash
-              kernels (forward, dq, dk/dv), at BERT's training shape
-              (B=128, T=128, 12 heads of 64) and longest position
-              (B=32, T=512), gradients against autograd through the
-              plain version (tolerances below).
+              in bf16, at the serving shapes (the paged read also at
+              lengths that end on and one past a split boundary; the
+              dequant-matmul at M = 8, 40, 4096 and around its
+              crossovers; two calls must give the same bits) and, for
+              the three flash kernels (forward, dq, dk/dv), at BERT's
+              training shape (B=128, T=128, 12 heads of 64) and longest
+              position (B=32, T=512), gradients against autograd
+              through the plain version (tolerances below).
 4. serve    — the full-width CausalLM (vocab 32000, hidden 768, 12 layers,
               bf16, random weights from a seed) behind
               ``DecodeEngine(slots=8, max_ctx=1024, kv_block_size=16)``:
@@ -31,7 +34,10 @@ exits non-zero without printing a result:
               twin's logit divergence from the bf16 model.
    step     — where one full-width decode step's time goes (host clock,
               and device time by kernel from ``torch.profiler``), for the
-              bf16 model and its int8 twin.
+              bf16 model and its int8 twin. A serving kernel's share sums
+              every ``__global__`` function of its source; a wrapper that
+              launched in the profiled steps with a share of 0 fails the
+              phase.
 7. train    — BERT-base masked-LM training (vocab 30522, hidden 768, 12
               layers, bf16, random weights from a seed) at B=128, T=128:
               ``make_scanned_train_step(n_steps=10, use_flash=True,
@@ -51,7 +57,12 @@ exits non-zero without printing a result:
               version's and one PyTorch library call's device times
               (``torch.profiler``: the card's own work, not the host's
               gaps between launches) at the main path's shapes beside the
-              card's bound for the same work.
+              card's bound for the same work. The dequant-matmul and
+              its library call are timed with the L2 flushed before
+              each call, as a decode step streams every layer's weights
+              (``ms``, ``library_ms``), and also warm, with the operands
+              left in L2 by the call before (``ms_warm``,
+              ``library_ms_warm``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -67,9 +78,11 @@ BF16_FLOPS_PER_S = 989e12
 
 # Tolerances, each with its reason:
 # paged-flash decode vs plain, bf16 out: the plain read rounds the softmax
-# probabilities to bf16 before the value product, the kernel keeps them
-# f32; with unit-scale inputs the context is O(1), where one bf16 ulp is
-# 2**-7, so a few ulps of disagreement stay under 3e-2.
+# probabilities to bf16 before the value product; the kernel keeps them
+# f32 at Q = 1 and rounds them too (after its own split-local max) on the
+# tensor-core path at Q > 1; with unit-scale inputs the context is O(1),
+# where one bf16 ulp is 2**-7, so a few ulps of disagreement stay under
+# 3e-2.
 PAGED_ATOL = 3e-2
 # dequant-matmul vs plain: both sum exact bf16 x int8 products in f32 (in
 # another order) and round once to bf16; the result may differ by one
@@ -97,6 +110,9 @@ BERT_LOGIT_ATOL = 0.25
 BERT_ARGMAX_MIN = 0.9
 LOSS_ATOL = 0.02
 
+# the kernel sources of the two serving wrappers
+PAGED_SOURCE, DEQUANT_SOURCE = "paged_flash_decode.cu", "dequant_matmul.cu"
+
 L_FULL, SLOTS, MAX_CTX, BS = 12, 8, 1024, 16
 MB = MAX_CTX // BS
 # BERT-base training: the bench headline's batch (bench.py bench_bert)
@@ -117,31 +133,50 @@ def device_ms_by_kernel(fn, iters):
     ``iters`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.device_time_total / 1e3 / iters
-    if sum(by_name.values()) <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return by_name
+    # a profiler window now and then records no device activity at all;
+    # such a window is taken again, up to twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.device_time_total / 1e3 / iters
+        if sum(by_name.values()) > 0:
+            return by_name
+    raise RuntimeError("the profiler saw no device time")
 
 
-def time_ms(fn, iters=30, warm=3):
+def time_ms(fn, iters=30, warm=3, skip=()):
     """Device time of one ``fn()`` call in ms, after ``warm`` calls: the
     summed duration of the work it puts on the card, over ``iters``
-    calls. The gaps between launches, which the host sets, do not count,
-    so a chain of library launches is timed like one kernel."""
+    calls, leaving out kernels whose names contain a fragment of
+    ``skip``. The gaps between launches, which the host sets, do not
+    count, so a chain of library launches is timed like one kernel."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    return sum(device_ms_by_kernel(fn, iters).values())
+    return sum(v for k, v in device_ms_by_kernel(fn, iters).items()
+               if not any(f in k for f in skip))
+
+
+# the kernel of l2_flusher's calls, left out of the times it precedes
+FLUSH_KERNEL = "bitwise_not"
+
+
+def l2_flusher():
+    """A function that overwrites a 64 MB buffer, more than the card's
+    50 MB L2, so that the next call reads its operands from device memory
+    as a decode step reads each layer's weights (the step streams all 12
+    layers' weights between two uses of one)."""
+    import torch
+    buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return lambda: torch.bitwise_not(buf, out=buf)
 
 
 def phase_device():
@@ -173,10 +208,10 @@ def phase_build():
           "ptxas": regs})
 
 
-def paged_inputs(Q, seed=0, layers=L_FULL):
+def paged_inputs(Q, seed=0, layers=L_FULL, lengths=None):
     """A real 5-D pool [N, L, Bs, H, D] in bf16 with a permuted table
-    (block 0 scratch) and mixed lengths: empty, tiny, block-aligned,
-    unaligned, and nearly full."""
+    (block 0 scratch) and mixed lengths (by default: empty, tiny,
+    block-aligned, unaligned, and nearly full)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     H, D = 12, 64
@@ -189,9 +224,21 @@ def paged_inputs(Q, seed=0, layers=L_FULL):
                     dtype=torch.bfloat16)
     tables = (torch.randperm(N - 1, generator=g, device="cuda") + 1).to(
         torch.int32).reshape(SLOTS, MB)
-    lengths = torch.tensor([0, 1, 15, 16, 100, 517, 900, MAX_CTX - Q],
-                           dtype=torch.int32, device="cuda")
+    if lengths is None:
+        lengths = [0, 1, 15, 16, 100, 517, 900, MAX_CTX - Q]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables, lengths
+
+
+def split_boundary_lengths(Q):
+    """Slot lengths whose visible rows end exactly on a split boundary of
+    the paged kernel and one row past it, for the last query row (len +
+    Q rows) and the first (len + 1 rows), at the first two boundaries."""
+    import importlib
+    sr = importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.paged_flash_decode").split_rows()
+    return [sr - Q, sr - Q + 1, sr - 1, sr, 2 * sr - Q, 2 * sr - Q + 1,
+            2 * sr - 1, 2 * sr]
 
 
 def paged_work(Q, lengths, H=12, D=64):
@@ -206,6 +253,22 @@ def paged_work(Q, lengths, H=12, D=64):
     return byt, 4 * vis * H * D
 
 
+def global_names(source):
+    """The ``__global__`` functions of one source in
+    ``deeplearning4j_tpu_torch/kernels/csrc``: the names under which the
+    profiler records the device work of that library's launches."""
+    import re
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "deeplearning4j_tpu_torch", "kernels", "csrc",
+                        source)
+    with open(path) as f:
+        names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                           r"\s*)?(\w+)\s*\(", f.read())
+    if not names:
+        raise RuntimeError(f"no __global__ function found in {path}")
+    return tuple(names)
+
+
 def bound_ms(byt, flops):
     t_b, t_f = byt / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
@@ -217,10 +280,13 @@ def phase_parity():
                                                   paged_flash_decode_plain)
     from deeplearning4j_tpu_torch.quant.transforms import (
         _fused_dequant_matmul, dequant_matmul_plain, quantize_tensor)
+    from deeplearning4j_tpu_torch.quant.transforms import (crossover_m,
+                                                           whole_k_max_m)
     out = {"phase": "parity", "paged": [], "dequant": []}
     errs = {"paged_flash_decode": 0.0, "dequant_matmul": 0.0}
-    for Q in (1, 5):
-        q, kp, vp, tables, lengths = paged_inputs(Q, seed=Q)
+    for Q, lens in ((1, None), (5, None), (1, split_boundary_lengths(1)),
+                    (5, split_boundary_lengths(5))):
+        q, kp, vp, tables, lengths = paged_inputs(Q, seed=Q, lengths=lens)
         n0 = paged_flash_decode.launches
         got = paged_flash_decode(q, kp[:, 5], vp[:, 5], tables, lengths)
         ref = paged_flash_decode_plain(q, kp[:, 5], vp[:, 5], tables,
@@ -232,19 +298,28 @@ def phase_parity():
             raise RuntimeError("paged_flash_decode did not count its launch")
         err = (got.float() - ref.float()).abs().max().item()
         err32 = (got.float() - ref32).abs().max().item()
-        out["paged"].append({"Q": Q, "max_abs_err": err,
+        again = paged_flash_decode(q, kp[:, 5], vp[:, 5], tables, lengths)
+        out["paged"].append({"Q": Q, "lengths": lengths.tolist(),
+                             "max_abs_err": err,
                              "max_abs_err_vs_f32": err32,
-                             "finite": bool(torch.isfinite(got).all())})
-        if not (err <= PAGED_ATOL and torch.isfinite(got).all()):
+                             "finite": bool(torch.isfinite(got).all()),
+                             "same_bits_twice": bool(torch.equal(got,
+                                                                 again))})
+        if not (err <= PAGED_ATOL and torch.isfinite(got).all()
+                and out["paged"][-1]["same_bits_twice"]):
             raise RuntimeError(f"paged_flash_decode Q={Q}: max abs err "
-                               f"{err} > {PAGED_ATOL}")
+                               f"{err} > {PAGED_ATOL}, or two calls "
+                               f"differ: {out['paged'][-1]}")
         errs["paged_flash_decode"] = max(errs["paged_flash_decode"], err)
         del kp, vp
     g = torch.Generator(device="cuda").manual_seed(7)
+    xm, wk = crossover_m(), whole_k_max_m()
     for dtype, rtol, atol, shapes in (
             (torch.bfloat16, DEQ_RTOL, DEQ_ATOL,
-             [(8, 768, 3072), (8, 3072, 768), (4096, 768, 3072),
-              (4096, 3072, 768)]),
+             [(8, 768, 3072), (8, 3072, 768), (40, 768, 3072),
+              (40, 3072, 768), (xm - 1, 768, 3072), (xm + 1, 3072, 768),
+              (xm, 1000, 3000), (wk, 768, 3072), (wk + 1, 768, 3072),
+              (4096, 768, 3072), (4096, 3072, 768)]),
             (torch.float32, DEQ_F32_RTOL, DEQ_F32_ATOL,
              [(8, 768, 3072), (100, 3072, 768)])):
         for M, K, N in shapes:
@@ -258,16 +333,19 @@ def phase_parity():
             torch.cuda.synchronize()
             if _fused_dequant_matmul.launches != n0 + 1:
                 raise RuntimeError("dequant_matmul did not count its launch")
+            same = torch.equal(got, _fused_dequant_matmul(x, qt.q, scale))
             err = (got.float() - ref.float()).abs().max().item()
             ok = torch.allclose(got.float(), ref.float(), rtol=rtol,
-                                atol=atol)
+                                atol=atol) and same
             out["dequant"].append({"dtype": str(dtype).split(".")[-1],
                                    "M": M, "K": K, "N": N,
-                                   "max_abs_err": err, "ok": bool(ok)})
+                                   "max_abs_err": err,
+                                   "same_bits_twice": bool(same),
+                                   "ok": bool(ok)})
             if not ok:
                 raise RuntimeError(f"dequant_matmul {dtype} {M}x{K}x{N}: "
                                    f"max abs err {err} outside rtol {rtol}"
-                                   f" atol {atol}")
+                                   f" atol {atol}, or two calls differ")
             if dtype == torch.bfloat16:
                 errs["dequant_matmul"] = max(errs["dequant_matmul"], err)
     flash_parity(errs, out)
@@ -545,7 +623,14 @@ def phase_step(model, twin):
     the device time per step, split by kernel, comes from
     ``torch.profiler`` over 5 more; the busy share is their ratio."""
     import torch
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
     from deeplearning4j_tpu_torch.models import causal_lm
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    names = {"paged_flash_decode": global_names(PAGED_SOURCE),
+             "dequant_matmul": global_names(DEQUANT_SOURCE)}
+    wrappers = {"paged_flash_decode": paged_flash_decode,
+                "dequant_matmul": _fused_dequant_matmul}
     N = SLOTS * MB + 1
     g = torch.Generator(device="cuda").manual_seed(13)
     tables = (torch.randperm(N - 1, generator=g, device="cuda") + 1).to(
@@ -569,19 +654,28 @@ def phase_step(model, twin):
             step()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / 10
+        n0 = {w: f.launches for w, f in wrappers.items()}
         by_name = device_ms_by_kernel(step, 5)
         device_ms = sum(by_name.values())
-
-        def share(fragment):
-            return sum(v for k, v in by_name.items() if fragment in k)
+        # each serving kernel's device ms per step, by __global__ function
+        split = {w: {n: sum(v for k, v in by_name.items() if n in k)
+                     for n in ns} for w, ns in names.items()}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         emit({"phase": "step", "model": label, "step_ms": step_ms,
               "device_ms_per_step": device_ms,
               "device_busy_share": device_ms / step_ms,
-              "paged_flash_decode_ms_per_step":
-                  share("paged_flash_decode_kernel"),
-              "dequant_matmul_ms_per_step": share("dequant_matmul"),
+              **{f"{w}_ms_per_step": sum(split[w].values()) for w in names},
+              **{f"{w}_launches_per_step": (f.launches - n0[w]) / 5
+                 for w, f in wrappers.items()},
+              "serving_kernels_ms_per_step": {
+                  n: v for d in split.values() for n, v in d.items() if v},
               "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]})
+        for w, f in wrappers.items():
+            if f.launches > n0[w] and not sum(split[w].values()) > 0:
+                raise RuntimeError(
+                    f"{label} step: {w} launched {f.launches - n0[w]} times "
+                    f"under the profiler, but no device time was found "
+                    f"under its kernels' names {names[w]}")
         del cache
 
 
@@ -640,10 +734,12 @@ def phase_kernels(twin, launches, errs):
                 **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}})
         del views, gathered, kp, vp
-    # dequant-matmul at decode (M = 8 slots) and prefill (M = 4 x 1024)
-    # rows, over the twin's own 12 layers' weights in turn
+    # dequant-matmul at decode (M = 8 slots), spec verify (M = 40) and
+    # prefill (M = 4 x 1024) rows, over the twin's own 12 layers' weights
+    # in turn, L2 flushed before each call (kernel and library alike)
     mlps = [lyr["mlp"] for lyr in twin.params["layers"]]
-    for M in (8, 4096):
+    flush = l2_flusher()
+    for M in (8, 40, 4096):
         for wname in ("w1", "w2"):
             ws = [m[wname] for m in mlps]
             K, N = ws[0].shape
@@ -653,18 +749,32 @@ def phase_kernels(twin, launches, errs):
 
             def kern():
                 w = ws[next(it) % L_FULL]
+                flush()
                 _fused_dequant_matmul(x, w.q, w.scale.reshape(-1))
 
             def plain():
                 w = ws[next(it) % L_FULL]
+                flush()
                 dequant_matmul_plain(x, w.q, w.scale.reshape(-1))
 
             def lib():
-                torch.matmul(x, wbf[next(it) % L_FULL])
+                w = wbf[next(it) % L_FULL]
+                flush()
+                torch.matmul(x, w)
+
+            def kern_warm():
+                _fused_dequant_matmul(x, ws[0].q, ws[0].scale.reshape(-1))
+
+            def lib_warm():
+                torch.matmul(x, wbf[0])
             byt = M * K * 2 + K * N + N * 4 + M * N * 2
             b_ms, b_by = bound_ms(byt, 2 * M * K * N)
-            rec = {"M": M, "K": K, "N": N, "ms": time_ms(kern),
-                   "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+            skip = (FLUSH_KERNEL,)
+            rec = {"M": M, "K": K, "N": N, "ms": time_ms(kern, skip=skip),
+                   "plain_ms": time_ms(plain, skip=skip),
+                   "library_ms": time_ms(lib, skip=skip),
+                   "ms_warm": time_ms(kern_warm),
+                   "library_ms_warm": time_ms(lib_warm),
                    "bound_ms": b_ms, "bound_by": b_by}
             shapes.append({"name": "dequant_matmul", **rec})
             if M == 8 and wname == "w1":

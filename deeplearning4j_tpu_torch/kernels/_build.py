@@ -9,6 +9,9 @@ of its source, the headers and the flags, so an edited source never
 loads a stale build.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
 
+:func:`counters` keeps the zeroed int32 buffers that kernels finishing a
+reduction in their last-arriving block count in.
+
 Nothing here runs at import: the CPU tests import every kernel module on
 a machine with no ``nvcc`` and no card.
 """
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_counters: Dict[tuple, object] = {}
 
 
 def nvcc() -> str:
@@ -119,3 +123,20 @@ def check(lib: ctypes.CDLL, status: int, name: str) -> None:
         msg = lib.dl4j_error_string(status).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} "
                            f"(error {status})")
+
+
+def counters(device, n: int):
+    """A zeroed int32 buffer of at least ``n`` entries on ``device`` for
+    the kernels whose last-arriving block finishes a reduction: a kernel
+    counts its blocks in, and the last one resets its counter to 0, so the
+    buffer is all zeros between launches and one buffer per stream serves
+    every launch on that stream. Made with ``torch.zeros`` once, and again
+    only when a launch needs more entries."""
+    import torch
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (torch.device(device).index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf

@@ -145,25 +145,74 @@ def dequant_matmul_plain(x2, q, scale):
     return (torch.matmul(x2.float(), q.float()) * scale).to(x2.dtype)
 
 
-_fn = None
+_lib = None
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
+    """The loaded ``csrc/dequant_matmul.cu`` library with its argument
+    types set (built at first use)."""
+    global _lib
+    if _lib is None:
         from ..kernels import _build
         lib = _build.load("dequant_matmul")
-        fn = lib.dequant_matmul
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, P]
-        fn.restype = I
-        _fn = (lib, fn)
-    return _fn
+        lib.dequant_matmul.argtypes = [P] * 5 + [I] * 4 + [P]
+        lib.dequant_matmul.restype = I
+        lib.dequant_matmul_workspace_bytes.argtypes = [I] * 4
+        lib.dequant_matmul_workspace_bytes.restype = ctypes.c_longlong
+        lib.dequant_matmul_crossover_m.restype = I
+        lib.dequant_matmul_whole_k_max_m.restype = I
+        _lib = lib
+    return _lib
+
+
+def _check_kernel_args(x2, q, scale):
+    if x2.dtype not in (torch.float32, torch.bfloat16) \
+            or q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"dequant_matmul: the kernel takes f32/bf16 x, "
+                        f"int8 q and f32 scale, got {x2.dtype}/{q.dtype}/"
+                        f"{scale.dtype}")
+
+
+def _launch(x2, q, scale):
+    """One launch of the kernel library (its split-K pass included) into a
+    new output, on the library's own plan by M. The f32 split-K workspace
+    comes from ``torch.empty``, sized by host arithmetic on the shapes, so
+    nothing waits on the device."""
+    from ..kernels import _build
+    x2, q, scale = x2.contiguous(), q.contiguous(), scale.contiguous()
+    M, K = x2.shape
+    N = q.shape[1]
+    bf16 = x2.dtype == torch.bfloat16
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    lib = _kernel()
+    nbytes = lib.dequant_matmul_workspace_bytes(M, K, N, int(bf16))
+    ws = torch.empty((nbytes + 3) // 4, dtype=torch.float32,
+                     device=x2.device) if nbytes > 0 else None
+    args = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    status = lib.dequant_matmul(*args, M, K, N, int(bf16), stream)
+    _build.check(lib, status, "dequant_matmul")
+    return out
+
+
+def crossover_m() -> int:
+    """The largest M the kernel library runs on its split-K small-M
+    design; larger M takes the 128 x 128 tiles (bf16) unless the whole-K
+    design takes it (see :func:`whole_k_max_m`)."""
+    return _kernel().dequant_matmul_crossover_m()
+
+
+def whole_k_max_m() -> int:
+    """The largest M the kernel library runs on its whole-K small-M
+    design, where N is wide enough for it."""
+    return _kernel().dequant_matmul_whole_k_max_m()
 
 
 def _fused_dequant_matmul(x2, q, scale):
     """The int8 weight-stationary ``[M,K] @ [K,N]`` with the per-channel
-    scale applied to the f32 sum after the last K tile. CUDA tensors
+    scale applied to the f32 sum after the last K slice. CUDA tensors
     launch ``csrc/dequant_matmul.cu`` (or raise); CPU tensors take
     :func:`dequant_matmul_plain`."""
     M, K = x2.shape
@@ -176,20 +225,8 @@ def _fused_dequant_matmul(x2, q, scale):
                          "device")
     if not x2.is_cuda:
         return dequant_matmul_plain(x2, q, scale)
-    if x2.dtype not in (torch.float32, torch.bfloat16) \
-            or q.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError(f"dequant_matmul: the kernel takes f32/bf16 x, "
-                        f"int8 q and f32 scale, got {x2.dtype}/{q.dtype}/"
-                        f"{scale.dtype}")
-    x2, q, scale = x2.contiguous(), q.contiguous(), scale.contiguous()
-    out = torch.empty((M, q.shape[1]), dtype=x2.dtype, device=x2.device)
-    from ..kernels import _build
-    lib, fn = _kernel()
-    status = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, K, q.shape[1],
-                1 if x2.dtype == torch.bfloat16 else 0,
-                torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(lib, status, "dequant_matmul")
+    _check_kernel_args(x2, q, scale)
+    out = _launch(x2, q, scale)
     _fused_dequant_matmul.launches += 1
     return out
 

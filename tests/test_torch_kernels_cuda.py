@@ -9,8 +9,9 @@ Tolerances, each with its reason:
 - f32: the kernels and the plain versions sum the same products in
   another order; 1e-4 absolute on O(1) outputs.
 - bf16 paged read: the plain version rounds the softmax probabilities to
-  bf16 before the value product, the kernel keeps them in f32; 3e-2
-  absolute covers a few bf16 ulps at O(1).
+  bf16 before the value product; the kernel keeps them in f32 at Q = 1
+  and rounds them after a split-local max on its tensor-core path (Q >
+  1); 3e-2 absolute covers a few bf16 ulps at O(1).
 - bf16 dequant-matmul: one final rounding to bf16 on either side of an
   f32 sum; rtol 1e-2 (about two bf16 ulps) plus atol 1e-2 near 0.
 - flash attention, against autograd through the plain version: o, dq,
@@ -31,9 +32,14 @@ from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                               paged_flash_decode,
                                               paged_flash_decode_plain)
 from deeplearning4j_tpu_torch.quant.transforms import (
-    _fused_dequant_matmul, dequant_matmul_plain, quantize_tensor)
+    _fused_dequant_matmul, crossover_m, dequant_matmul_plain,
+    quantize_tensor, whole_k_max_m)
 
 pytestmark = pytest.mark.cuda
+
+# the module (the package exports its function under the same name)
+_paged = importlib.import_module(
+    "deeplearning4j_tpu_torch.kernels.paged_flash_decode")
 
 
 @pytest.fixture
@@ -89,6 +95,47 @@ def test_paged_flash_decode_other_shapes(cuda, Q, Bs, D):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
+def _split_boundary_inputs(Q, Bs, D, dtype, device, seed=0):
+    """A table of about 320 rows (two and a half splits of the kernel's
+    128), and slot lengths around every edge: empty, one row, Bs-1, Bs,
+    the last query row ending exactly on the first split boundary and one
+    past it, the first query row ending on it and one past it, full."""
+    sr = _paged.split_rows()
+    MB = -(-320 // Bs)
+    C = MB * Bs
+    lens = [0, 1, Bs - 1, Bs, sr - Q, sr - Q + 1, sr - 1, sr, C - Q]
+    S, H, L = len(lens), 2, 2
+    rng = np.random.RandomState(seed)
+    N = S * MB + 1
+    pool = {k: torch.from_numpy(rng.randn(N, L, Bs, H, D).astype(
+        np.float32)).to(device, dtype) for k in "kv"}
+    q = torch.from_numpy(rng.randn(S, Q, H, D).astype(np.float32)).to(
+        device, dtype)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N)).reshape(
+        S, MB).astype(np.int32)).to(device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, pool["k"][:, 1], pool["v"][:, 1], tables, lengths
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Q", [1, 5, 16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Bs", [8, 16, 48])
+def test_paged_flash_decode_split_boundaries(cuda, Bs, D, Q, dtype, atol):
+    """Split-and-merge at the lengths where a split boundary matters:
+    the kernel against the plain read, and two calls bit for bit."""
+    args = _split_boundary_inputs(Q, Bs, D, dtype, cuda)
+    got = paged_flash_decode(*args)
+    again = paged_flash_decode(*args)
+    ref = paged_flash_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+
+
 def test_paged_flash_decode_masks_the_scratch_block(cuda):
     q, k, v, tables, lengths = _paged_inputs(1, torch.float32, cuda)
     tables[:, 3:] = 0
@@ -121,6 +168,45 @@ def test_dequant_matmul_matches_plain(cuda, dtype, rtol, atol, M, K, N):
     torch.cuda.synchronize()
     assert _fused_dequant_matmul.launches == before + 1
     assert got.dtype == dtype and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _resolve_m(M):
+    """An M of the sweep: an int, or "x-1" / "x" / "x+1" around the
+    library's split-K/tiled crossover, "w" / "w+1" around its whole-K one
+    (both read from the library, so only on the card)."""
+    if isinstance(M, int):
+        return M
+    base = whole_k_max_m() if M.startswith("w") else crossover_m()
+    return base + int(M[1:] or 0)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 0.0, 1e-4), (torch.bfloat16, 1e-2, 1e-2)],
+    ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,N", [(768, 3072), (3072, 768), (1000, 3000)])
+@pytest.mark.parametrize("M", [1, 7, 8, 40, "x-1", "x", "x+1", "w", "w+1",
+                               4096])
+def test_dequant_matmul_both_designs(cuda, M, K, N, dtype, rtol, atol):
+    """Every M of the serving path (decode 8, spec verify 40, prefill
+    4096) and the M around the crossover between the split-K and the
+    tiled design, at the MLP's shapes and a ragged one; two calls give
+    identical bits (the split-K sums run in a fixed order)."""
+    M = _resolve_m(M)
+    g = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
+    qt = quantize_tensor(0.02 * torch.randn((K, N), generator=g,
+                                            device=cuda))
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    scale = qt.scale.reshape(-1)
+    before = _fused_dequant_matmul.launches
+    got = _fused_dequant_matmul(x, qt.q, scale)
+    again = _fused_dequant_matmul(x, qt.q, scale)
+    ref = dequant_matmul_plain(x, qt.q, scale)
+    torch.cuda.synchronize()
+    assert _fused_dequant_matmul.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                atol=atol)
 

@@ -11,7 +11,15 @@ Tolerance: atol = rtol = 2e-5 in f32. Both sides compute the same masked
 softmax over the same rows; they differ only in summation order (online
 softmax in the kernel, one-shot in the gather), which at unit-scale
 inputs moves results by ~1e-7.
+
+``TestSplitAlgebra`` holds ``paged_flash_decode_split_plain`` (the CUDA
+kernel's split-and-merge written out in PyTorch) against the JAX kernel
+and the plain read at the lengths where a split boundary matters, at
+atol 1e-5 in f32: the merge rescales each split's sums by exp(m_split -
+m) once, a few f32 roundings more than the one-shot softmax.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +30,8 @@ from deeplearning4j_tpu.kernels.paged_flash_decode import \
     paged_flash_decode as jax_paged_flash_decode
 from deeplearning4j_tpu_torch.kernels import (paged_flash_decode,
                                               paged_flash_decode_plain)
+from deeplearning4j_tpu_torch.kernels.paged_flash_decode import \
+    paged_flash_decode_split_plain
 
 ATOL = RTOL = 2e-5
 
@@ -109,6 +119,68 @@ class TestAgainstReference:
         kp[0], vp[0] = 1e4, -1e4
         np.testing.assert_array_equal(_port(q, kp, vp, tables, lengths),
                                       clean)
+
+
+# the split tests' table: 6 blocks of 8 rows, 48 rows in all
+_SPLIT_MB, _SPLIT_BS = 6, 8
+
+
+def _split_lengths(Q, split_rows):
+    """Empty, one row, Bs-1, Bs, the last query row ending exactly on the
+    first split boundary and one row past it, and a full table."""
+    C = _SPLIT_MB * _SPLIT_BS
+    return np.asarray([0, 1, _SPLIT_BS - 1, _SPLIT_BS, split_rows - Q,
+                       split_rows - Q + 1, C - Q], np.int32).clip(0, C - Q)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(Q, split_rows):
+    q, kp, vp, tables, _ = _inputs(Q, S=7, MB=_SPLIT_MB, Bs=_SPLIT_BS,
+                                   seed=10 + Q)
+    return q, kp, vp, tables, _split_lengths(Q, split_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ref(Q, split_rows):
+    q, kp, vp, tables, lengths = _split_case(Q, split_rows)
+    return np.asarray(jax_paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lengths), interpret=True))
+
+
+class TestSplitAlgebra:
+    """The kernel's split-and-merge, emulated on the CPU: split sizes that
+    divide the 48-row table (16, 48: one split) and that do not (32)."""
+
+    @pytest.mark.parametrize("ref", ["jax_interpret", "plain"])
+    @pytest.mark.parametrize("split_rows", [16, 32, 48])
+    @pytest.mark.parametrize("Q", [1, 5])
+    def test_split_merge_matches(self, Q, split_rows, ref):
+        q, kp, vp, tables, lengths = _split_case(Q, split_rows)
+        t = torch.from_numpy
+        got = paged_flash_decode_split_plain(
+            t(q), t(kp), t(vp), t(tables), t(lengths), split_rows).numpy()
+        assert np.isfinite(got).all()
+        if ref == "jax_interpret":
+            want = _jax_ref(Q, split_rows)
+        else:
+            want = paged_flash_decode_plain(
+                t(q), t(kp), t(vp), t(tables), t(lengths)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+    def test_a_split_with_no_visible_row_adds_nothing(self):
+        """Slot 0 (length 0) sees row 0 only: its later splits hold no
+        visible row, so poisoning their rows changes nothing."""
+        q, kp, vp, tables, lengths = (np.array(a) for a in
+                                      _split_case(1, 16))
+        t = torch.from_numpy
+        clean = paged_flash_decode_split_plain(
+            t(q), t(kp), t(vp), t(tables), t(lengths), 16).numpy()
+        for blk in tables[0, 2:]:          # rows 16.. of slot 0
+            kp[blk], vp[blk] = 1e4, -1e4
+        got = paged_flash_decode_split_plain(
+            t(q), t(kp), t(vp), t(tables), t(lengths), 16).numpy()
+        np.testing.assert_array_equal(got[0], clean[0])
 
 
 class TestWrapperChecks:
