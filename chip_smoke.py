@@ -10,7 +10,8 @@ exits non-zero without printing a result:
               and power limit.
 2. build    — compile every CUDA kernel of the path from
               ``deeplearning4j_tpu_torch/kernels/csrc`` (one nvcc each, in
-              parallel) and print the build seconds.
+              parallel) and print the build seconds and what ``ptxas``
+              said; a kernel that spills registers fails the phase.
 3. parity   — each kernel against its plain PyTorch version on the card,
               in bf16, at the serving shapes (the paged read also at
               lengths that end on and one past a split boundary; the
@@ -19,7 +20,8 @@ exits non-zero without printing a result:
               the three flash kernels (forward, dq, dk/dv), at BERT's
               training shape (B=128, T=128, 12 heads of 64) and longest
               position (B=32, T=512), gradients against autograd
-              through the plain version (tolerances below).
+              through the plain version (tolerances below), and a
+              second kernel backward with the same dq, dk, dv bits.
 4. serve    — the full-width CausalLM (vocab 32000, hidden 768, 12 layers,
               bf16, random weights from a seed) behind
               ``DecodeEngine(slots=8, max_ctx=1024, kv_block_size=16)``:
@@ -44,7 +46,10 @@ exits non-zero without printing a result:
               remat=False)`` after one warm call, through the three flash
               kernels; the same step with ``use_flash=False`` from the
               same params and batch for its first loss.
-   train_step — where one train step's device time goes, by kernel.
+   train_step — where one train step's device time goes, by kernel;
+              each flash wrapper's share sums the ``__global__``
+              functions of its source, and a wrapper that launched with
+              a share of 0 fails the phase.
    bert_forward — one BERT-base forward (encode + MLM head) through the
               kernel against the plain attention, B=8, T=128.
    causal   — the full-width CausalLM ``forward(use_flash=True)`` against
@@ -63,6 +68,9 @@ exits non-zero without printing a result:
               (``ms``, ``library_ms``), and also warm, with the operands
               left in L2 by the call before (``ms_warm``,
               ``library_ms_warm``).
+   flash_backward — the whole port backward (``_flash_bwd``: the dq
+              kernel with its delta prologue, then dk/dv) beside SDPA's
+              whole backward, at both flash shapes.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -110,8 +118,10 @@ BERT_LOGIT_ATOL = 0.25
 BERT_ARGMAX_MIN = 0.9
 LOSS_ATOL = 0.02
 
-# the kernel sources of the two serving wrappers
+# the kernel sources of the two serving wrappers and the flash kernels
 PAGED_SOURCE, DEQUANT_SOURCE = "paged_flash_decode.cu", "dequant_matmul.cu"
+FLASH_FWD_SOURCE = "flash_attention_fwd.cu"
+FLASH_BWD_SOURCE = "flash_attention_bwd.cu"
 
 L_FULL, SLOTS, MAX_CTX, BS = 12, 8, 1024, 16
 MB = MAX_CTX // BS
@@ -206,6 +216,12 @@ def phase_build():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in per.items()},
           "ptxas": regs})
+    import re
+    spills = {name: [ln for ln in lines
+                     if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+              for name, lines in regs.items()}
+    if any(spills.values()):
+        raise RuntimeError(f"ptxas spilled registers: {spills}")
 
 
 def paged_inputs(Q, seed=0, layers=L_FULL, lengths=None):
@@ -391,7 +407,8 @@ def flash_grads(fn, q, k, v, do, mask):
 def flash_parity(errs, out):
     """The forward, dq and dk/dv kernels against autograd through the
     plain version, at the train shape and at T=512; the last batch row
-    hides its last quarter of keys, so the masked path runs too."""
+    hides its last quarter of keys, so the masked path runs too. A second
+    kernel backward must give the same dq, dk and dv bits."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                                   flash_attention_plain)
@@ -409,6 +426,10 @@ def flash_parity(errs, out):
         for n, f in counters.items():
             if f.launches != n0[n] + 1:
                 raise RuntimeError(f"{n} did not count its launch")
+        again = flash_grads(flash_attention, q, k, v, do, mask)
+        same = {n: bool(torch.equal(a, b)) for n, a, b in
+                zip(("dq", "dk", "dv"), got[1:], again[1:])}
+        del again
         names = ("o", "dq", "dk", "dv")
         got = [a.float() for a in got]
         ref = [b.float() for b in ref]
@@ -424,9 +445,10 @@ def flash_parity(errs, out):
                "err_rms": dict(zip(names, err_rms)),
                "ref_max_abs": {n: b.abs().max().item()
                                for n, b in zip(names, ref)},
-               "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+               "finite": all(bool(torch.isfinite(a).all()) for a in got),
+               "same_bits_twice": same}
         out["flash"].append(rec)
-        ok = rec["finite"] and all(close) and all(
+        ok = rec["finite"] and all(close) and all(same.values()) and all(
             e <= FLASH_REL_RMS * r for e, r in zip(err_rms, rms))
         if not ok:
             raise RuntimeError(f"flash kernels B={B} T={T}: {rec}")
@@ -882,21 +904,53 @@ def phase_train():
     return launches, params, opt, batch, rec["step_ms"]
 
 
+def flash_kernel_names():
+    """{wrapper: the ``__global__`` names its launches run under}, read
+    from the flash sources: the forward's, and the backward's split by
+    ``_dq_`` and ``_dkv_`` in the name."""
+    fwd = global_names(FLASH_FWD_SOURCE)
+    bwd = global_names(FLASH_BWD_SOURCE)
+    names = {"flash_attention_fwd": fwd,
+             "flash_attention_dq": tuple(n for n in bwd if "_dq_" in n),
+             "flash_attention_dkv": tuple(n for n in bwd if "_dkv_" in n)}
+    rest = set(bwd) - set(names["flash_attention_dq"]) \
+        - set(names["flash_attention_dkv"])
+    if rest or not all(names.values()):
+        raise RuntimeError(f"flash kernel names not split by wrapper: "
+                           f"{names}, left over {sorted(rest)}")
+    return names
+
+
+def ms_under(by_name, names):
+    """The ms of ``by_name`` (profiler kernel name -> ms) whose kernel is
+    one of ``names`` (a ``__global__`` function name, matched as a whole
+    word of the profiler's demangled name)."""
+    import re
+    pats = [re.compile(r"(?<!\w)" + re.escape(n) + r"(?!\w)")
+            for n in names]
+    return sum(v for k, v in by_name.items() if any(p.search(k)
+                                                    for p in pats))
+
+
 def phase_train_step(params, opt, batch, step_ms):
     """Device time of one train step by kernel, from ``torch.profiler``
     over a 2-step call; the busy share is that device time over the
-    timed run's host-clock step."""
+    timed run's host-clock step. Each flash wrapper's share sums the
+    ``__global__`` functions of its source; a wrapper that launched under
+    the profiler with a share of 0 fails the phase."""
     from deeplearning4j_tpu_torch.models import bert
     cfg = bert.BertConfig.base()
     step = bert.make_scanned_train_step(cfg, 2, learning_rate=1e-4,
                                         remat=False, use_flash=True)
+    names = flash_kernel_names()
+    counters = flash_counters()
+    n0 = {w: f.launches for w, f in counters.items()}
     # the 2-step call, counted per step
     by_name = {k: v / 2 for k, v in device_ms_by_kernel(
         lambda: step(params, opt, batch, 100), 1).items()}
+    launched = {w: f.launches - n0[w] for w, f in counters.items()}
     device_ms = sum(by_name.values())
-
-    def share(fragment):
-        return sum(v for k, v in by_name.items() if fragment in k)
+    split = {w: ms_under(by_name, ns) for w, ns in names.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # cuBLAS's matrix products (nvjet, cutlass and xmma kernel names)
     gemm = sum(v for k, v in by_name.items()
@@ -905,12 +959,20 @@ def phase_train_step(params, opt, batch, step_ms):
     emit({"phase": "train_step", "step_ms": step_ms,
           "device_ms_per_step": device_ms,
           "device_busy_share": device_ms / step_ms,
-          "flash_fwd_ms_per_step": share("flash_fwd_kernel"),
-          "flash_dq_ms_per_step": share("flash_dq_kernel"),
-          "flash_dkv_ms_per_step": share("flash_dkv_kernel"),
+          "flash_fwd_ms_per_step": split["flash_attention_fwd"],
+          "flash_dq_ms_per_step": split["flash_attention_dq"],
+          "flash_dkv_ms_per_step": split["flash_attention_dkv"],
+          "flash_launches_per_step": {w: n / 2 for w, n in launched.items()},
+          "flash_kernel_names": names,
           "gemm_ms_per_step": gemm,
           "kernels_seen": len(by_name),
           "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]})
+    for w, n in launched.items():
+        if n > 0 and not split[w] > 0:
+            raise RuntimeError(
+                f"train step: {w} launched {n} times under the profiler, "
+                f"but no device time was found under its kernels' names "
+                f"{names[w]}")
 
 
 def phase_bert_forward():
@@ -962,25 +1024,34 @@ def phase_causal(model):
 
 
 def flash_work(B, T, H=FLASH_H, D=FLASH_D):
-    """(bytes, flops) of the forward, dq and dk/dv at an all-ones mask
-    (every (query, key) pair is needed): each input read once, each
-    output written once; 2*D flops per pair per product (forward: 2
-    products, dq: 3, dk/dv: 4)."""
+    """(bytes, flops) of the forward, dq, dk/dv and the whole backward at
+    an all-ones mask (every (query, key) pair is needed): each input read
+    once, each output written once; 2*D flops per pair per product
+    (forward: 2 products, dq: 3, dk/dv: 4, as each kernel computes them).
+    The dq kernel also reads o and writes delta (its prologue's
+    rowsum(o * g)), which the dk/dv kernel reads; the whole backward
+    reads q, k, v, g, o, lse and the mask and writes dq, dk and dv. Its
+    function needs 5 products (S, dP, dV, dK, dQ: what SDPA's backward
+    runs); that the two kernels each recompute S and dP is the design's
+    cost, not the function's work, so the bound counts 5."""
     x = B * T * H * D * 2            # one bf16 [B, T, H, D] tensor
     row = B * H * T * 4              # one f32 [B, H, T] (lse, delta)
     m = B * T * 4                    # the int32 mask
     pairs = B * H * T * T
     return {"flash_attention_fwd": (4 * x + row + m, 2 * 2 * D * pairs),
-            "flash_attention_dq": (5 * x + 2 * row + m, 3 * 2 * D * pairs),
+            "flash_attention_dq": (6 * x + 2 * row + m, 3 * 2 * D * pairs),
             "flash_attention_dkv": (6 * x + 2 * row + m,
-                                    4 * 2 * D * pairs)}
+                                    4 * 2 * D * pairs),
+            "flash_attention_bwd": (8 * x + row + m, 5 * 2 * D * pairs)}
 
 
 def flash_rows(launches, errs):
     """Kernel, plain and library times of the three flash kernels at the
-    train shape (the row) and at T=512 (a shape record). The plain and
-    library backward times are one whole backward (dq, dk and dv
-    together), reported on both backward rows."""
+    train shape (the row) and at T=512 (a shape record), and of the whole
+    port backward (``_flash_bwd``: the dq kernel with its delta prologue,
+    then the dk/dv kernel) at both. The plain and library backward times
+    are one whole backward (dq, dk and dv together), reported on both
+    backward rows and on the whole-backward record."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import (
@@ -990,17 +1061,20 @@ def flash_rows(launches, errs):
     for i, (B, T) in enumerate(FLASH_SHAPES):
         q, k, v, do, mask = flash_inputs(B, T, seed=40 + i)
         o, lse = fl._flash_fwd(q, k, v, mask, False, None)
-        delta = (o.float() * do.float()).sum(-1).transpose(1, 2) \
-            .contiguous()
+        delta = fl._flash_bwd_dq(q, k, v, do, o, lse, None, mask, False,
+                                 None)[1]
         kern = {
             "flash_attention_fwd":
                 lambda: fl._flash_fwd(q, k, v, mask, False, None),
             "flash_attention_dq":
-                lambda: fl._flash_bwd_dq(q, k, v, do, lse, delta, mask,
+                lambda: fl._flash_bwd_dq(q, k, v, do, o, lse, None, mask,
                                          False, None),
             "flash_attention_dkv":
                 lambda: fl._flash_bwd_dkv(q, k, v, do, lse, delta, mask,
-                                          False, None)}
+                                          False, None),
+            "flash_attention_bwd":
+                lambda: fl._flash_bwd(q, k, v, mask, o, lse, do, False,
+                                      None)}
         ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         with torch.no_grad():
             plain_fwd = time_ms(lambda: flash_attention_with_lse_plain(
@@ -1028,7 +1102,10 @@ def flash_rows(launches, errs):
                    "library_ms": lib_fwd if fwd else lib_bwd,
                    "bound_ms": b_ms, "bound_by": b_by}
             shapes.append({"name": name, "B": B, "T": T, **rec})
-            if i == 0:
+            if name == "flash_attention_bwd":
+                rec["over_library"] = rec["ms"] / lib_bwd
+                emit({"phase": "flash_backward", "B": B, "T": T, **rec})
+            elif i == 0:
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": "deeplearning4j_tpu_torch/kernels/csrc/"

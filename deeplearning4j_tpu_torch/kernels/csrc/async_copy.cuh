@@ -1,6 +1,7 @@
-// Shared pieces of the serving kernels (dequant_matmul.cu,
-// paged_flash_decode.cu): 16-byte cp.async copies from device memory into
-// shared memory, with zero-fill, and their group fences.
+// Shared pieces of the kernels that pipeline their loads
+// (dequant_matmul.cu, paged_flash_decode.cu, flash_attention_bwd.cu):
+// 16-byte (and 4-byte) cp.async copies from device memory into shared
+// memory, with zero-fill, and their group fences.
 //
 // A copy of fewer than 16 source bytes fills the rest of the 16-byte
 // destination with zeros, so a ragged edge lands in shared memory already
@@ -21,6 +22,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void copy16(void* dst, const void* src,
                                        int src_bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes (src_bytes of them from src, the rest zeros) -> dst; both
+// 4-byte aligned. .ca: the only cache mode for copies under 16 bytes.
+__device__ __forceinline__ void copy4(void* dst, const void* src,
+                                      int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }

@@ -75,8 +75,13 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "tensor_core.cuh"
 
 namespace {
+
+using tc::ldsm_x4;
+using tc::mma_bf16;
+using tc::pack_bf16;
 
 constexpr int kSplitKMaxM = 16;  // crossovers to the tiles (design sweep)
 constexpr int kWholeKMaxM = 48;
@@ -88,28 +93,6 @@ constexpr int kXLd = kKT + 8;   // large design: bf16 per shared x row
 constexpr int kMaxKC = 1024;    // small design: longest K slice a block holds
 
 // -- warp-level pieces ------------------------------------------------------
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t a[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(async::smem_addr(p)));
-}
 
 // Byte t of lo and byte t of hi (int8) as one bf16x2, exactly: for a
 // byte b, 0x4300 | (b & 0x7f) is the bf16 128 + (b & 0x7f) and
@@ -609,7 +592,7 @@ __global__ void __launch_bounds__(WM * WN * 32, kMinBlocks) dq_large_kernel(
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], xt + (wm * (BM / WM) + mt * 16 + (lane & 15)) *
+        ldsm_x4(a[mt], xt + (wm * (BM / WM) + mt * 16 + (lane & 15)) *
                                     kXLd + kk + (lane >> 4) * 8);
 #pragma unroll
       for (int gi = 0; gi < NG; ++gi) {

@@ -68,8 +68,14 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "tensor_core.cuh"
 
 namespace {
+
+using tc::ldsm_x4;
+using tc::ldsm_x4_t;
+using tc::mma_bf16;
+using tc::pack_bf16;
 
 constexpr int kThreads = 128;   // 16 lane groups of 8
 constexpr int kStages = 4;      // cp.async ring depth
@@ -451,36 +457,6 @@ int launch(Args& a, cudaStream_t st) {
 constexpr int kMmaRows = 64;    // key rows a tile: 16 a warp
 constexpr int kMmaStages = 2;   // a 128-row split is in flight at once
 
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(async::smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(async::smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
 // The same split for bf16 with Q of 2 .. 16 and D = 16 * DK <= 128: every
 // query row of the slot in one m16 tile (rows >= Q are zero). Warp w takes
 // key rows 16w .. 16w + 15 of each 64-row tile: S = q K^T on mma.sync
@@ -576,8 +552,8 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
       uint32_t b[4];
       ldsm_x4(b, kt + ((lane & 7) + 8 * (lane >> 4)) * LD + kk * 16 +
                      8 * ((lane >> 3) & 1));
-      mma_bf16(sc[0], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
-      mma_bf16(sc[1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[2], b[3]);
+      mma_bf16(sc[0], qa[kk], b[0], b[1]);
+      mma_bf16(sc[1], qa[kk], b[2], b[3]);
     }
     // mask, then the online softmax of rows g and g + 8
     const int r0 = r_begin + t * kMmaRows + 16 * warp + 2 * kq;
@@ -626,8 +602,8 @@ __global__ void __launch_bounds__(kThreads) paged_mma_kernel(Args a) {
       uint32_t b[4];
       ldsm_x4_t(b, vt + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + dk * 16 +
                        8 * (lane >> 4));
-      mma_bf16(o[2 * dk], pa[0], pa[1], pa[2], pa[3], b[0], b[1]);
-      mma_bf16(o[2 * dk + 1], pa[0], pa[1], pa[2], pa[3], b[2], b[3]);
+      mma_bf16(o[2 * dk], pa, b[0], b[1]);
+      mma_bf16(o[2 * dk + 1], pa, b[2], b[3]);
     }
     __syncthreads();
   }

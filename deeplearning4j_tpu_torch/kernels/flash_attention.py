@@ -5,9 +5,9 @@ CUDA tensors the wrappers launch the hand-written Hopper kernels:
 
 - ``csrc/flash_attention_fwd.cu`` — o and ``lse = m + log l``
   (the Pallas ``_flash_fwd``);
-- ``csrc/flash_attention_bwd.cu`` — the dq kernel and the dk/dv kernel
-  (the Pallas ``_flash_bwd``), two kernels so no block adds into
-  another's output.
+- ``csrc/flash_attention_bwd.cu`` — the dq kernel (whose prologue also
+  computes ``delta = rowsum(o * g)``) and the dk/dv kernel (the Pallas
+  ``_flash_bwd``), two kernels so no block adds into another's output.
 
 Their headers say what bounds them and how they are laid out. On CPU
 tensors :func:`flash_attention` and :func:`flash_attention_with_lse` run
@@ -157,32 +157,38 @@ def _flash_fwd(q, k, v, mask, causal, scale):
     return o, lse
 
 
-def _flash_bwd_dq(q, k, v, g, lse, delta, mask, causal, scale):
-    """One launch of the dq kernel: dq ``[B, S, H, D]`` in q's dtype."""
+def _flash_bwd_dq(q, k, v, g, o, lse, g_lse, mask, causal, scale):
+    """One launch of the dq kernel: ``(dq, delta)`` with dq ``[B, S, H,
+    D]`` in q's dtype and ``delta = rowsum(o * g) - g_lse`` ``[B, H, S]``
+    f32 (``g_lse`` may be None), which the kernel's prologue computes for
+    the dk/dv kernel. q, k, v, g and o must pass :func:`_aligned`."""
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lib, fn = _kernel("flash_attention_bwd", "flash_attention_bwd_dq", 8)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib, fn = _kernel("flash_attention_bwd", "flash_attention_bwd_dq", 10)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), _ptr(mask), dq.data_ptr(),
-                B, S, H, D, _strides(q, k, v, g, dq, dq), _scale(D, scale),
+                o.data_ptr(), lse.data_ptr(), _ptr(g_lse), _ptr(mask),
+                delta.data_ptr(), dq.data_ptr(), B, S, H, D,
+                _strides(q, k, v, g, o, dq, dq), _scale(D, scale),
                 int(causal), _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd_dq")
     _flash_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def _flash_bwd_dkv(q, k, v, g, lse, delta, mask, causal, scale):
     """One launch of the dk/dv kernel: ``(dk, dv)`` in k's and v's
-    dtype."""
+    dtype, from the ``delta`` the dq kernel wrote."""
     B, S, H, D = q.shape
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
     lib, fn = _kernel("flash_attention_bwd", "flash_attention_bwd_dkv", 9)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), _ptr(mask), dk.data_ptr(),
-                dv.data_ptr(), B, S, H, D, _strides(q, k, v, g, dk, dv),
-                _scale(D, scale), int(causal), _DTYPES[q.dtype],
+                dv.data_ptr(), B, S, H, D,
+                _strides(q, k, v, g, dk, dk, dv), _scale(D, scale),
+                int(causal), _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd_dkv")
     _flash_bwd_dkv.launches += 1
@@ -196,18 +202,29 @@ _flash_bwd_dq.launches = 0
 _flash_bwd_dkv.launches = 0
 
 
+def _aligned(t):
+    """``t`` itself when its base and its B, S and H steps are multiples
+    of 16 bytes and its D stride is 1, as the backward kernels' 16-byte
+    ``cp.async`` copies need; else a contiguous copy of it, made here and
+    fed to the kernels (a fresh allocation is 16-byte aligned, and a row
+    of D % 8 == 0 elements is a multiple of 16 bytes)."""
+    es = t.element_size()
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(t.stride(i) * es % 16 == 0 for i in range(3))):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _flash_bwd(q, k, v, mask, o, lse, g, causal, scale, g_lse=None):
-    """Both backward kernels. ``delta = rowsum(o * g)`` is one plain
-    reduction, as the JAX package leaves it to XLA; an lse cotangent
-    folds into it (``delta - g_lse``: d lse / d s = p, so it enters ds as
-    ``p * g_lse``)."""
-    if g.stride(3) != 1:
-        g = g.contiguous()
-    delta = (o.float() * g.float()).sum(-1).transpose(1, 2)   # [B, H, S]
+    """Both backward kernels: dq first, whose prologue computes ``delta =
+    rowsum(o * g)`` (the JAX package leaves it to XLA) with an lse
+    cotangent folded in (``delta - g_lse``: d lse / d s = p, so it enters
+    ds as ``p * g_lse``), then dk/dv, which reads that delta."""
+    q, k, v, g, o = (_aligned(t) for t in (q, k, v, g, o))
     if g_lse is not None:
-        delta = delta - g_lse.float()
-    delta = delta.contiguous()
-    dq = _flash_bwd_dq(q, k, v, g, lse, delta, mask, causal, scale)
+        g_lse = g_lse.float().contiguous()
+    dq, delta = _flash_bwd_dq(q, k, v, g, o, lse, g_lse, mask, causal,
+                              scale)
     dk, dv = _flash_bwd_dkv(q, k, v, g, lse, delta, mask, causal, scale)
     return dq, dk, dv
 

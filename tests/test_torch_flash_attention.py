@@ -26,8 +26,8 @@ from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                               flash_attention_plain,
                                               flash_attention_with_lse,
                                               flash_attention_with_lse_plain)
-from deeplearning4j_tpu_torch.kernels.flash_attention import \
-    _check_kernel_args
+from deeplearning4j_tpu_torch.kernels.flash_attention import (
+    _aligned, _check_kernel_args)
 
 OUT_ATOL = 2e-5
 GRAD_ATOL = 1e-4
@@ -207,3 +207,29 @@ def test_fully_masked_row_gradient_is_the_plain_softmax_gradient():
     got = _grads_torch(lambda o: torch.sum(o ** 2), q, k, v, mask=_t(mask))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(w), atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_inputs_are_16_byte_aligned(dtype):
+    """What the backward kernels' 16-byte cp.async copies are given: an
+    aligned tensor or view as it is (no copy), anything else as an
+    aligned contiguous copy with the same values."""
+    B, S, H, D = 2, 5, 3, 16
+    t = torch.randn(B, S, H, D).to(dtype)
+    assert _aligned(t) is t
+    # q, k and v of one packed projection: strided, every step aligned
+    qkv = torch.randn(B, S, H, 3 * D).to(dtype)
+    q = qkv[..., D:2 * D]
+    assert not q.is_contiguous() and _aligned(q) is q
+    # a base 1 element past a 16-byte boundary: contiguous, misaligned
+    buf = torch.randn(B * S * H * D + 1).to(dtype)
+    odd_base = buf[1:].view(B, S, H, D)
+    # a row step that is not a multiple of 16 bytes
+    odd_step = torch.randn(B, S, H, D + 2).to(dtype)[..., :D]
+    # a D stride of 2
+    d_step = torch.randn(B, S, H, 2 * D).to(dtype)[..., ::2]
+    for bad in (odd_base, odd_step, d_step):
+        got = _aligned(bad)
+        assert got is not bad and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, bad)

@@ -348,3 +348,108 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
     step2 = torch.zeros((1, 16, 2, 128), device=cuda)[..., ::2]
     with pytest.raises(ValueError):                  # D stride not 1
         flash_attention(step2, step2, step2)
+
+
+def _flash_lse_grads(fn, q, k, v, g, w, **kw):
+    """(o, lse, dq, dk, dv) of ``fn`` under the loss sum(o * g) +
+    sum(lse * w): a cotangent for o and one for lse."""
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = fn(*ts, **kw)
+    loss = (o.float() * g.float()).sum() + (lse * w).sum()
+    return (o.detach(), lse.detach()) + torch.autograd.grad(loss, ts)
+
+
+@pytest.mark.parametrize("D", [8, 24, 64, 128])
+@pytest.mark.parametrize("S", [1, 15, 17, 65, 129, 513])
+def test_flash_backward_bf16_ragged_edges(cuda, S, D):
+    """S that straddles a 16-row fragment or a 64-row tile, D that is
+    zero-padded to k16 (8, 24) or fills it (64, 128), with a key mask.
+    The loss also reads lse, so that at S = 1, where p = 1 and dq and dk
+    are 0 in exact arithmetic, the lse cotangent makes them nonzero."""
+    q, k, v, g, mask = _flash_inputs(2, S, 2, D, torch.bfloat16, cuda,
+                                     masked=S > 1)
+    w = torch.from_numpy(np.random.RandomState(1).randn(2, 2, S).astype(
+        np.float32)).to(cuda)
+    got = _flash_lse_grads(flash_attention_with_lse, q, k, v, g, w,
+                           mask=mask)
+    ref = _flash_lse_grads(flash_attention_with_lse_plain, q, k, v, g, w,
+                           mask=mask)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+    for a, b in zip(got[:1] + got[2:], ref[:1] + ref[2:]):
+        _assert_flash_close(a, b, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("S,D", [(17, 64), (65, 24), (200, 64),
+                                 (129, 128)])
+def test_flash_backward_bf16_causal(cuda, S, D, masked):
+    """Causal without a key mask (the kernels skip the tiles past the
+    diagonal) and with one (they walk every tile)."""
+    q, k, v, g, mask = _flash_inputs(2, S, 2, D, torch.bfloat16, cuda,
+                                     masked)
+    got = _flash_grads(flash_attention, q, k, v, g, mask=mask, causal=True)
+    ref = _flash_grads(flash_attention_plain, q, k, v, g, mask=mask,
+                       causal=True)
+    for a, b in zip(got, ref):
+        _assert_flash_close(a, b, FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_backward_bf16_fully_masked_row(cuda):
+    """A batch row with no visible key, in bf16: its dq and dk are 0 and
+    its dv is g averaged over the S queries, as the plain gradient."""
+    q, k, v, g, _ = _flash_inputs(2, 96, 2, 64, torch.bfloat16, cuda)
+    mask = torch.ones((2, 96), dtype=torch.int32, device=cuda)
+    mask[1] = 0
+    got = _flash_grads(flash_attention, q, k, v, g, mask=mask)
+    ref = _flash_grads(flash_attention_plain, q, k, v, g, mask=mask)
+    assert not got[1][1].any() and not got[2][1].any()
+    for a, b in zip(got, ref):
+        _assert_flash_close(a, b, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_backward_bf16_lse_cotangent(cuda, causal):
+    """A loss that reads lse at a ragged S and a padded D: the cotangent
+    folds into the delta the dq kernel computes."""
+    q, k, v, g, mask = _flash_inputs(2, 129, 2, 24, torch.bfloat16, cuda,
+                                     True)
+    w = torch.randn((2, 2, 129), device=cuda)
+    got = _flash_lse_grads(flash_attention_with_lse, q, k, v, g, w,
+                           mask=mask, causal=causal)
+    ref = _flash_lse_grads(flash_attention_with_lse_plain, q, k, v, g, w,
+                           mask=mask, causal=causal)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+    for a, b in zip(got[:1] + got[2:], ref[:1] + ref[2:]):
+        _assert_flash_close(a, b, FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_backward_bf16_unaligned_views(cuda):
+    """q, k, v and the cotangent as views whose base is 2 bytes past a
+    16-byte boundary: the wrapper copies them for the backward's 16-byte
+    cp.async loads, and the result matches the plain one."""
+    B, S, H, D = 2, 77, 2, 64
+    n = B * S * H * D
+
+    def unaligned(seed):
+        buf = torch.from_numpy(np.random.RandomState(seed).randn(
+            n + 1).astype(np.float32)).to(cuda, torch.bfloat16)
+        t = buf[1:].view(B, S, H, D)
+        assert t.data_ptr() % 16 != 0
+        return t
+    q, k, v, g = (unaligned(s) for s in range(4))
+    got = _flash_grads(flash_attention, q, k, v, g)
+    ref = _flash_grads(flash_attention_plain, q, k, v, g)
+    for a, b in zip(got, ref):
+        _assert_flash_close(a, b, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_same_bits_twice(cuda, dtype):
+    """No float atomics and sums in a fixed order: two calls give the
+    same dq, dk and dv bits."""
+    q, k, v, g, mask = _flash_inputs(2, 300, 3, 64, dtype, cuda, True)
+    first = _flash_grads(flash_attention, q, k, v, g, mask=mask)
+    again = _flash_grads(flash_attention, q, k, v, g, mask=mask)
+    for a, b in zip(first[1:], again[1:]):
+        assert torch.equal(a, b)
