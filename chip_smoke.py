@@ -21,7 +21,8 @@ exits non-zero without printing a result:
               training shape (B=128, T=128, 12 heads of 64) and longest
               position (B=32, T=512), gradients against autograd
               through the plain version (tolerances below), and a
-              second kernel backward with the same dq, dk, dv bits.
+              second kernel forward and backward with the same o, lse,
+              dq, dk and dv bits.
 4. serve    — the full-width CausalLM (vocab 32000, hidden 768, 12 layers,
               bf16, random weights from a seed) behind
               ``DecodeEngine(slots=8, max_ctx=1024, kv_block_size=16)``:
@@ -68,6 +69,11 @@ exits non-zero without printing a result:
               (``ms``, ``library_ms``), and also warm, with the operands
               left in L2 by the call before (``ms_warm``,
               ``library_ms_warm``).
+              The flash kernels are timed at both flash shapes, and the
+              forward also causal at the CausalLM's shape (B=4, T=1024,
+              12 heads of 64, no mask) beside SDPA with ``is_causal``
+              and a bound over the T(T+1)/2 visible pairs (a
+              ``kernel_shapes`` record).
    flash_backward — the whole port backward (``_flash_bwd``: the dq
               kernel with its delta prologue, then dk/dv) beside SDPA's
               whole backward, at both flash shapes.
@@ -128,9 +134,11 @@ MB = MAX_CTX // BS
 # BERT-base training: the bench headline's batch (bench.py bench_bert)
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 128, 128, 10
 # flash shapes held against the plain version: the train shape and
-# BERT's longest position
+# BERT's longest position; the CausalLM's full forward runs B=CAUSAL_B
+# rows of MAX_CTX tokens (the causal phase and the causal forward record)
 FLASH_SHAPES = ((128, 128), (32, 512))
 FLASH_H, FLASH_D = 12, 64
+CAUSAL_B = 4
 
 
 def emit(obj):
@@ -408,10 +416,12 @@ def flash_parity(errs, out):
     """The forward, dq and dk/dv kernels against autograd through the
     plain version, at the train shape and at T=512; the last batch row
     hides its last quarter of keys, so the masked path runs too. A second
-    kernel backward must give the same dq, dk and dv bits."""
+    kernel forward and backward must give the same o, lse, dq, dk and dv
+    bits."""
     import torch
     from deeplearning4j_tpu_torch.kernels import (flash_attention,
-                                                  flash_attention_plain)
+                                                  flash_attention_plain,
+                                                  flash_attention_with_lse)
     counters = flash_counters()
     out["flash"] = []
     for name in counters:
@@ -428,8 +438,12 @@ def flash_parity(errs, out):
                 raise RuntimeError(f"{n} did not count its launch")
         again = flash_grads(flash_attention, q, k, v, do, mask)
         same = {n: bool(torch.equal(a, b)) for n, a, b in
-                zip(("dq", "dk", "dv"), got[1:], again[1:])}
-        del again
+                zip(("o", "dq", "dk", "dv"), got, again)}
+        with torch.no_grad():
+            fwd = [flash_attention_with_lse(q, k, v, mask=mask)
+                   for _ in range(2)]
+        same["lse"] = bool(torch.equal(fwd[0][1], fwd[1][1]))
+        del again, fwd
         names = ("o", "dq", "dk", "dv")
         got = [a.float() for a in got]
         ref = [b.float() for b in ref]
@@ -1010,24 +1024,26 @@ def phase_causal(model):
     import torch
     from deeplearning4j_tpu_torch.models import causal_lm
     ids = torch.as_tensor(np.random.RandomState(3).randint(
-        0, model.config.vocab_size, (4, MAX_CTX)), device="cuda")
+        0, model.config.vocab_size, (CAUSAL_B, MAX_CTX)), device="cuda")
     with torch.no_grad():
         out = [causal_lm.forward(model.params, ids, model.config,
                                  use_flash=uf) for uf in (True, False)]
     err = (out[0] - out[1]).abs().max().item()
     agree = (out[0].argmax(-1) == out[1].argmax(-1)).float().mean().item()
-    emit({"phase": "causal", "B": 4, "T": MAX_CTX,
+    emit({"phase": "causal", "B": CAUSAL_B, "T": MAX_CTX,
           "logit_max_abs_err": err, "argmax_agree": agree})
     if not (torch.isfinite(out[0]).all() and err <= STEP_LOGIT_ATOL):
         raise RuntimeError(f"causal flash forward: logits differ by {err}"
                            f" > {STEP_LOGIT_ATOL}")
 
 
-def flash_work(B, T, H=FLASH_H, D=FLASH_D):
+def flash_work(B, T, H=FLASH_H, D=FLASH_D, causal=False, mask=True):
     """(bytes, flops) of the forward, dq, dk/dv and the whole backward at
-    an all-ones mask (every (query, key) pair is needed): each input read
-    once, each output written once; 2*D flops per pair per product
-    (forward: 2 products, dq: 3, dk/dv: 4, as each kernel computes them).
+    an all-ones key mask (or none, ``mask=False``): every (query, key)
+    pair is needed, or under ``causal`` the T(T+1)/2 pairs on and below
+    the diagonal. Each input read once, each output written once; 2*D
+    flops per pair per product (forward: 2 products, dq: 3, dk/dv: 4, as
+    each kernel computes them).
     The dq kernel also reads o and writes delta (its prologue's
     rowsum(o * g)), which the dk/dv kernel reads; the whole backward
     reads q, k, v, g, o, lse and the mask and writes dq, dk and dv. Its
@@ -1036,8 +1052,8 @@ def flash_work(B, T, H=FLASH_H, D=FLASH_D):
     cost, not the function's work, so the bound counts 5."""
     x = B * T * H * D * 2            # one bf16 [B, T, H, D] tensor
     row = B * H * T * 4              # one f32 [B, H, T] (lse, delta)
-    m = B * T * 4                    # the int32 mask
-    pairs = B * H * T * T
+    m = B * T * 4 if mask else 0     # the int32 mask
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     return {"flash_attention_fwd": (4 * x + row + m, 2 * 2 * D * pairs),
             "flash_attention_dq": (6 * x + 2 * row + m, 3 * 2 * D * pairs),
             "flash_attention_dkv": (6 * x + 2 * row + m,
@@ -1051,7 +1067,8 @@ def flash_rows(launches, errs):
     port backward (``_flash_bwd``: the dq kernel with its delta prologue,
     then the dk/dv kernel) at both. The plain and library backward times
     are one whole backward (dq, dk and dv together), reported on both
-    backward rows and on the whole-backward record."""
+    backward rows and on the whole-backward record. Then the causal
+    forward at the CausalLM's shape (a shape record)."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import (
@@ -1119,7 +1136,50 @@ def flash_rows(launches, errs):
                     "launches": launches[name],
                     "max_abs_err": errs[name], **rec})
         del q, k, v, do, ts, o, lse, delta
+    shapes.append(causal_fwd_record())
     return rows, shapes
+
+
+def causal_fwd_record():
+    """The forward kernel as the CausalLM's full forward calls it
+    (``causal=True``, no key mask) at B=4, T=1024, 12 heads of 64: its o
+    and lse against the plain version (``FLASH_*`` tolerances; lse within
+    1e-4), and its time beside the plain version's and SDPA's with
+    ``is_causal=True``; the bound counts the T(T+1)/2 visible pairs."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import (
+        flash_attention_with_lse_plain)
+    fl = flash_module()
+    B, T = CAUSAL_B, MAX_CTX
+    q, k, v = flash_inputs(B, T, seed=50)[:3]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        o, lse = fl._flash_fwd(q, k, v, None, True, None)
+        o_ref, lse_ref = flash_attention_with_lse_plain(q, k, v,
+                                                        causal=True)
+        o, o_ref = o.float(), o_ref.float()
+        err = (o - o_ref).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        ok = (torch.allclose(o, o_ref, atol=FLASH_ATOL, rtol=FLASH_RTOL)
+              and (o - o_ref).pow(2).mean().sqrt().item()
+              <= FLASH_REL_RMS * o_ref.pow(2).mean().sqrt().item()
+              and lse_err <= 1e-4)
+        if not ok:
+            raise RuntimeError(f"causal flash forward B={B} T={T}: max abs "
+                               f"err {err} (o), {lse_err} (lse)")
+        del o, o_ref, lse, lse_ref
+        plain_ms = time_ms(lambda: flash_attention_with_lse_plain(
+            q, k, v, causal=True), iters=10)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    b_ms, b_by = bound_ms(*flash_work(B, T, causal=True,
+                                      mask=False)["flash_attention_fwd"])
+    return {"name": "flash_attention_fwd", "B": B, "T": T, "causal": True,
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "ms": time_ms(lambda: fl._flash_fwd(q, k, v, None, True, None)),
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def main():

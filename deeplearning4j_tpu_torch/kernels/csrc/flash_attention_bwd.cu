@@ -61,11 +61,11 @@
 //    the rest the compiler's). A thread's cp.async copies walk its rows
 //    by one pointer, which keeps the copies of the streamed tiles from
 //    holding a register per row across the loop.
-//  - the constants below (warps, tile rows, ring depth, register-held
-//    fragments, the dk/dv kernel's launch bound and chunk unrolling)
-//    come from timing other values on the card (PERF.md). Three
-//    dk/dv blocks an SM would read faster, but at 168 registers the
-//    compiler spills, so the kernel keeps two.
+//  - the constants below (warps, ring depth, the dk/dv kernel's launch
+//    bound and chunk unrolling) and flash_mma.cuh's tile rows and
+//    register-held fragments come from timing other values on the card
+//    (PERF.md). Three dk/dv blocks an SM would read faster, but at 168
+//    registers the compiler spills, so the kernel keeps two.
 //  - the grid's fastest axis is the row tile, so the blocks of one (b, h)
 //    run together and share its streamed tiles in L2.
 //
@@ -92,9 +92,8 @@
 // the FMA units (flash_common.cuh, shared with the forward), never on the
 // tensor cores, so no f32 operand is rounded to TF32. Its dq kernel calls
 // the same delta prologue.
-#include "async_copy.cuh"
 #include "flash_common.cuh"
-#include "tensor_core.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -103,7 +102,6 @@ using tc::ldsm_x4;
 using tc::ldsm_x4_t;
 using tc::mma_bf16;
 using tc::pack_bf16;
-using bf16 = __nv_bfloat16;
 
 struct BwdArgs {
   const void* q;
@@ -172,152 +170,26 @@ __device__ void block_delta(const BwdArgs& a, int bh, int b, int h, int row0,
 constexpr int kWarps = 4;                  // 16 stationary rows each
 constexpr int kBlockRows = 16 * kWarps;    // stationary rows a block
 constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kTile = 64;                  // streamed rows a tile
 constexpr int kStages = 2;                 // cp.async ring depth
-constexpr int kRegAMaxDK = 4;  // widest D / 16 whose A frags stay in regs
 constexpr int kDkvMinBlocks = 2;  // dk/dv blocks an SM holds, at least
 constexpr int kDkvUnroll = 4;     // dk/dv chunks unrolled together
 
-// Geometry at D padded to 16 * DK (DK = 1, 2, 4 or 8)
+// bf16 elements of a block's stationary [kBlockRows][kLd] tile
 template <int DK>
-struct Geo {
-  static constexpr int kD = 16 * DK;
-  static constexpr int kLd = kD + 8;      // bf16 pitch: conflict-free rows
-  static constexpr int kChunks = kD / 8;  // 16-byte chunks a row
-  static constexpr bool kRegA = DK <= kRegAMaxDK;  // A frags in registers
-  static constexpr int kTileElems = kTile * kLd;
-  static constexpr int kBlockElems = kBlockRows * kLd;
-};
-
-// Rows [row0, row0 + ROWS) of one (b, h) slice ``src`` into dst
-// [ROWS][kLd] by 16-byte cp.async; rows past S and columns past D land
-// as zeros. A thread keeps one column chunk and walks its rows by one
-// pointer, so a copy called in a loop keeps few registers live.
-template <int DK, int ROWS>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int S, int D) {
-  constexpr int C = Geo<DK>::kChunks, LD = Geo<DK>::kLd;
-  constexpr int kStep = kMmaThreads / C;  // rows a pass of the block
-  static_assert(kStep * C == kMmaThreads, "a pass must cover whole rows");
-  const int r = threadIdx.x / C, c = (threadIdx.x % C) * 8;
-  const bf16* from = src + (long long)(row0 + r) * row_stride + c;
-  bf16* to = dst + r * LD + c;
-#pragma unroll
-  for (int i = 0; i < (ROWS + kStep - 1) / kStep; ++i) {
-    if (ROWS % kStep == 0 || r + i * kStep < ROWS) {
-      const bool in = c < D && row0 + r + i * kStep < S;
-      async::copy16(to + i * kStep * LD, in ? from : src, in ? 16 : 0);
-    }
-    from += kStep * row_stride;
-  }
-}
-
-// kTile 4-byte entries [row0, row0 + kTile) of a row vector (f32 lse or
-// delta, int32 mask) into dst; entries past S land as zeros.
-__device__ __forceinline__ void copy_vec(void* dst, const void* src,
-                                         int row0, int S) {
-  for (int i = threadIdx.x; i < kTile; i += kMmaThreads) {
-    const bool in = row0 + i < S;
-    async::copy4(static_cast<char*>(dst) + 4 * i,
-                 static_cast<const char*>(src) + 4 * (in ? row0 + i : 0),
-                 in ? 4 : 0);
-  }
-}
-
-// The A fragments (m16 x k16, one per 16 columns of D) of a warp's 16
-// stationary rows: held in registers (REG) or read from shared memory at
-// each use.
-template <int DK, bool REG>
-struct AFrags;
-
-template <int DK>
-struct AFrags<DK, true> {
-  uint32_t r[DK][4];
-  __device__ __forceinline__ void init(const bf16* rows) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
-      ldsm_x4(r[kk], rows + (lane & 15) * Geo<DK>::kLd + kk * 16 +
-                         (lane >> 4) * 8);
-  }
-  __device__ __forceinline__ const uint32_t* get(int kk, uint32_t*) const {
-    return r[kk];
-  }
-};
-
-template <int DK>
-struct AFrags<DK, false> {
-  const bf16* p;
-  __device__ __forceinline__ void init(const bf16* rows) {
-    const int lane = threadIdx.x & 31;
-    p = rows + (lane & 15) * Geo<DK>::kLd + (lane >> 4) * 8;
-  }
-  __device__ __forceinline__ const uint32_t* get(int kk,
-                                                 uint32_t* tmp) const {
-    ldsm_x4(tmp, p + kk * 16);
-    return tmp;
-  }
-};
-
-// Address of this lane's ldmatrix row for B fragments of 16 streamed rows
-// (row0 .. row0 + 15 of a tile at pitch LD), one call per k16 step:
-// non-transposed (the tile is n x k: rows are columns of B, as for S =
-// A.tile^T) gives b0, b1 of n8 tile 0 and b0, b1 of n8 tile 1 over
-// columns kk*16..; transposed (the tile is k x n: rows are the k of B, as
-// for acc += A.tile) gives the same over D columns dk*16...
-template <int LD>
-__device__ __forceinline__ const bf16* b_rows(const bf16* tile, int row0) {
-  const int lane = threadIdx.x & 31;
-  return tile + (row0 + (lane & 7) + 8 * (lane >> 4)) * LD +
-         8 * ((lane >> 3) & 1);
-}
-template <int LD>
-__device__ __forceinline__ const bf16* bt_rows(const bf16* tile, int row0) {
-  const int lane = threadIdx.x & 31;
-  return tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-         8 * (lane >> 4);
-}
-
-// The warp's 16 x 16DN f32 accumulator (times mul) rounded to bf16
-// through its own 16 stationary rows ``stage`` of shared memory (pitch
-// LD), then written as 16-byte stores to rows row0.. of out (pitch
-// row_stride), rows < S and columns < D only.
-template <int LD, int DN>
-__device__ __forceinline__ void store_rows(float (*acc)[4], float mul,
-                                           bf16* stage, bf16* out,
-                                           long long row_stride, int row0,
-                                           int S, int D) {
-  constexpr int C = 2 * DN;
-  const int lane = threadIdx.x & 31, kq = lane & 3, g = lane >> 2;
-  __syncwarp();  // the warp's last reads of its stationary rows are done
-#pragma unroll
-  for (int j = 0; j < 2 * DN; ++j) {
-    const int c = 8 * j + 2 * kq;
-    *reinterpret_cast<uint32_t*>(stage + g * LD + c) =
-        pack_bf16(acc[j][0] * mul, acc[j][1] * mul);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + c) =
-        pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * C; i += 32) {
-    const int r = i / C, c = (i % C) * 8, row = row0 + r;
-    if (row < S && c < D)
-      *reinterpret_cast<uint4*>(out + (long long)row * row_stride + c) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + c);
-  }
+__host__ __device__ constexpr int block_elems() {
+  return kBlockRows * Geo<DK>::kLd;
 }
 
 template <int DK>
 constexpr size_t dq_mma_smem() {
-  return (2 * Geo<DK>::kBlockElems + 2 * kStages * Geo<DK>::kTileElems) *
+  return (2 * block_elems<DK>() + 2 * kStages * Geo<DK>::kTileElems) *
              sizeof(bf16) +
          kStages * kTile * sizeof(int) + kBlockRows * sizeof(float);
 }
 
 template <int DK>
 constexpr size_t dkv_mma_smem() {
-  return (2 * Geo<DK>::kBlockElems + 2 * kStages * Geo<DK>::kTileElems) *
+  return (2 * block_elems<DK>() + 2 * kStages * Geo<DK>::kTileElems) *
              sizeof(bf16) +
          2 * kStages * kTile * sizeof(float);
 }
@@ -332,8 +204,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int LD = G::kLd;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = qs + G::kBlockElems;
-  bf16* kring = gs + G::kBlockElems;
+  bf16* gs = qs + block_elems<DK>();
+  bf16* kring = gs + block_elems<DK>();
   bf16* vring = kring + kStages * G::kTileElems;
   int* mring = reinterpret_cast<int*>(vring + kStages * G::kTileElems);
   float* delta_s = reinterpret_cast<float*>(mring + kStages * kTile);
@@ -352,14 +224,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   auto load_tile = [&](int t) {
     const int st = t % kStages, k0 = t * kTile;
-    copy_rows<DK, kTile>(kring + st * G::kTileElems, kb, a.sk.s, k0, S,
-                         a.D);
-    copy_rows<DK, kTile>(vring + st * G::kTileElems, vb, a.sv.s, k0, S,
-                         a.D);
-    if (mb) copy_vec(mring + st * kTile, mb, k0, S);
+    copy_rows<DK, kTile, kMmaThreads>(kring + st * G::kTileElems, kb,
+                                      a.sk.s, k0, S, a.D);
+    copy_rows<DK, kTile, kMmaThreads>(vring + st * G::kTileElems, vb,
+                                      a.sv.s, k0, S, a.D);
+    if (mb) copy_vec<kMmaThreads>(mring + st * kTile, mb, k0, S);
   };
-  copy_rows<DK, kBlockRows>(qs, qb, a.sq.s, q0, S, a.D);
-  copy_rows<DK, kBlockRows>(gs, gb, a.sg.s, q0, S, a.D);
+  copy_rows<DK, kBlockRows, kMmaThreads>(qs, qb, a.sq.s, q0, S, a.D);
+  copy_rows<DK, kBlockRows, kMmaThreads>(gs, gb, a.sg.s, q0, S, a.D);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_tile(t);
@@ -476,8 +348,8 @@ __global__ void __launch_bounds__(kMmaThreads, kDkvMinBlocks)
   constexpr int LD = G::kLd;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + G::kBlockElems;
-  bf16* qring = vs + G::kBlockElems;
+  bf16* vs = ks + block_elems<DK>();
+  bf16* qring = vs + block_elems<DK>();
   bf16* gring = qring + kStages * G::kTileElems;
   float* lring = reinterpret_cast<float*>(gring + kStages * G::kTileElems);
   float* dring = lring + kStages * kTile;
@@ -500,15 +372,15 @@ __global__ void __launch_bounds__(kMmaThreads, kDkvMinBlocks)
 
   auto load_tile = [&](int t) {
     const int st = t % kStages, q0 = q_begin + t * kTile;
-    copy_rows<DK, kTile>(qring + st * G::kTileElems, qb, a.sq.s, q0, S,
-                         a.D);
-    copy_rows<DK, kTile>(gring + st * G::kTileElems, gb, a.sg.s, q0, S,
-                         a.D);
-    copy_vec(lring + st * kTile, lb, q0, S);
-    copy_vec(dring + st * kTile, db, q0, S);
+    copy_rows<DK, kTile, kMmaThreads>(qring + st * G::kTileElems, qb,
+                                      a.sq.s, q0, S, a.D);
+    copy_rows<DK, kTile, kMmaThreads>(gring + st * G::kTileElems, gb,
+                                      a.sg.s, q0, S, a.D);
+    copy_vec<kMmaThreads>(lring + st * kTile, lb, q0, S);
+    copy_vec<kMmaThreads>(dring + st * kTile, db, q0, S);
   };
-  copy_rows<DK, kBlockRows>(ks, kb, a.sk.s, k0, S, a.D);
-  copy_rows<DK, kBlockRows>(vs, vb, a.sv.s, k0, S, a.D);
+  copy_rows<DK, kBlockRows, kMmaThreads>(ks, kb, a.sk.s, k0, S, a.D);
+  copy_rows<DK, kBlockRows, kMmaThreads>(vs, vb, a.sv.s, k0, S, a.D);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_tile(t);
@@ -643,23 +515,22 @@ __global__ void __launch_bounds__(kMmaThreads, kDkvMinBlocks)
 // -- f32: FMA kernels --------------------------------------------------------
 
 size_t dq_smem_f32(int D) {
-  return 4 * tile_bytes<float>(D) + 2 * score_bytes<float>() +
-         acc_bytes<float>(D) + round128(kRows * sizeof(float));
+  return 5 * tile_bytes(D) + 2 * score_bytes() +
+         round128(kRows * sizeof(float));
 }
 
 size_t dkv_smem_f32(int D) {
-  return 4 * tile_bytes<float>(D) + 2 * score_bytes<float>() +
-         2 * acc_bytes<float>(D) + round128(2 * kRows * sizeof(float));
+  return 6 * tile_bytes(D) + 2 * score_bytes() +
+         round128(2 * kRows * sizeof(float));
 }
 
 __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdArgs a) {
   using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   const int S = a.S, D = a.D;
-  const int kd = Tr<T>::kd(D), ldt = Tr<T>::ld_t(D), ldf = Tr<T>::ld_f(D);
-  constexpr int lds = Tr<T>::ld_s, ldp = Tr<T>::ld_p;
-  const size_t tb = tile_bytes<T>(D), sb = score_bytes<T>(),
-               ab = acc_bytes<T>(D);
+  const int ldt = ld_f32(D), ldf = ldt;
+  constexpr int lds = kLdScore, ldp = kLdScore;
+  const size_t tb = tile_bytes(D), sb = score_bytes(), ab = tb;
   T* qs = reinterpret_cast<T*>(smem);
   T* gs = reinterpret_cast<T*>(smem + tb);
   T* ks = reinterpret_cast<T*>(smem + 2 * tb);
@@ -680,8 +551,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdArgs a) {
   const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
   const int* mb = a.mask ? a.mask + (long long)b * S : nullptr;
 
-  load_tile(qs, ldt, qb, a.sq.s, q0, S, D, kd);
-  load_tile(gs, ldt, gb, a.sg.s, q0, S, D, kd);
+  load_tile(qs, ldt, qb, a.sq.s, q0, S, D);
+  load_tile(gs, ldt, gb, a.sg.s, q0, S, D);
   for (int i = threadIdx.x; i < kRows * ldf; i += kThreads) acc[i] = 0.f;
   block_delta<T, kRows, kThreads>(a, bh, b, h, q0, delta_s);
   const bool live = qi < S;
@@ -698,11 +569,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdArgs a) {
   const float delta = delta_s[warp * 16 + r];
 
   for (int k0 = 0; k0 < k_end; k0 += kRows) {
-    load_tile(ks, ldt, kb, a.sk.s, k0, S, D, kd);
-    load_tile(vs, ldt, vb, a.sv.s, k0, S, D, kd);
+    load_tile(ks, ldt, kb, a.sk.s, k0, S, D);
+    load_tile(vs, ldt, vb, a.sv.s, k0, S, D);
     __syncthreads();
-    warp_abT<T>(qs + warp * 16 * ldt, ldt, ks, ldt, sw, lds, kd);
-    warp_abT<T>(gs + warp * 16 * ldt, ldt, vs, ldt, dpw, lds, kd);
+    warp_abT(qs + warp * 16 * ldt, ldt, ks, ldt, sw, lds, D);
+    warp_abT(gs + warp * 16 * ldt, ldt, vs, ldt, dpw, lds, D);
     __syncwarp();
     float dsv[32];
 #pragma unroll
@@ -719,7 +590,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdArgs a) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) dsw[r * ldp + half * 32 + j] = dsv[j];
     __syncwarp();
-    warp_pv<T>(dsw, ldp, ks, ldt, accw, ldf, kd);
+    warp_pv(dsw, ldp, ks, ldt, accw, ldf, D);
     __syncthreads();
   }
 
@@ -734,10 +605,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
   using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
   const int S = a.S, D = a.D;
-  const int kd = Tr<T>::kd(D), ldt = Tr<T>::ld_t(D), ldf = Tr<T>::ld_f(D);
-  constexpr int lds = Tr<T>::ld_s, ldp = Tr<T>::ld_p;
-  const size_t tb = tile_bytes<T>(D), sb = score_bytes<T>(),
-               ab = acc_bytes<T>(D);
+  const int ldt = ld_f32(D), ldf = ldt;
+  constexpr int lds = kLdScore, ldp = kLdScore;
+  const size_t tb = tile_bytes(D), sb = score_bytes(), ab = tb;
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = reinterpret_cast<T*>(smem + tb);
   T* qs = reinterpret_cast<T*>(smem + 2 * tb);
@@ -761,8 +631,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
   const int* mb = a.mask ? a.mask + (long long)b * S : nullptr;
   const float inv_s = 1.f / (float)S;
 
-  load_tile(ks, ldt, kb, a.sk.s, k0, S, D, kd);
-  load_tile(vs, ldt, vb, a.sv.s, k0, S, D, kd);
+  load_tile(ks, ldt, kb, a.sk.s, k0, S, D);
+  load_tile(vs, ldt, vb, a.sv.s, k0, S, D);
   for (int i = threadIdx.x; i < kRows * ldf; i += kThreads)
     dk_acc[i] = dv_acc[i] = 0.f;
 
@@ -777,16 +647,16 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
 
   for (int q0 = q_begin; q0 < S; q0 += kRows) {
     __syncthreads();  // the previous tile's products are done
-    load_tile(qs, ldt, qb, a.sq.s, q0, S, D, kd);
-    load_tile(gs, ldt, gb, a.sg.s, q0, S, D, kd);
+    load_tile(qs, ldt, qb, a.sq.s, q0, S, D);
+    load_tile(gs, ldt, gb, a.sg.s, q0, S, D);
     for (int i = threadIdx.x; i < kRows; i += kThreads) {
       const bool in = q0 + i < S;
       lse_s[i] = in ? a.lse[(long long)bh * S + q0 + i] : 0.f;
       delta_s[i] = in ? a.delta[(long long)bh * S + q0 + i] : 0.f;
     }
     __syncthreads();
-    warp_abT<T>(ks + warp * 16 * ldt, ldt, qs, ldt, sw, lds, kd);
-    warp_abT<T>(vs + warp * 16 * ldt, ldt, gs, ldt, dpw, lds, kd);
+    warp_abT(ks + warp * 16 * ldt, ldt, qs, ldt, sw, lds, D);
+    warp_abT(vs + warp * 16 * ldt, ldt, gs, ldt, dpw, lds, D);
     __syncwarp();
     float pv[32], dsv[32];
 #pragma unroll
@@ -812,8 +682,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
       dsw[r * ldp + half * 32 + j] = dsv[j];
     }
     __syncwarp();
-    warp_pv<T>(pw, ldp, gs, ldt, dvw, ldf, kd);
-    warp_pv<T>(dsw, ldp, qs, ldt, dkw, ldf, kd);
+    warp_pv(pw, ldp, gs, ldt, dvw, ldf, D);
+    warp_pv(dsw, ldp, qs, ldt, dkw, ldf, D);
   }
   __syncthreads();
 

@@ -142,7 +142,7 @@ def _ptr(t):
 def _flash_fwd(q, k, v, mask, causal, scale):
     """One launch of the forward kernel on CUDA tensors: ``(o, lse)``
     with o ``[B, S, H, D]`` contiguous in q's dtype and lse ``[B, H, S]``
-    f32."""
+    f32. q, k and v must pass :func:`_aligned`."""
     B, S, H, D = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -204,7 +204,7 @@ _flash_bwd_dkv.launches = 0
 
 def _aligned(t):
     """``t`` itself when its base and its B, S and H steps are multiples
-    of 16 bytes and its D stride is 1, as the backward kernels' 16-byte
+    of 16 bytes and its D stride is 1, as the kernels' 16-byte
     ``cp.async`` copies need; else a contiguous copy of it, made here and
     fed to the kernels (a fresh allocation is 16-byte aligned, and a row
     of D % 8 == 0 elements is a multiple of 16 bytes)."""
@@ -236,6 +236,8 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, scale):
+        # the aligned tensors are saved, so the backward copies nothing
+        q, k, v = (_aligned(t) for t in (q, k, v))
         o, lse = _flash_fwd(q, k, v, mask, causal, scale)
         # o and lse are saved, never recomputed: under checkpointing the
         # re-run forward gives the same tiles in the same order
@@ -256,6 +258,7 @@ class _FlashLse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, scale):
+        q, k, v = (_aligned(t) for t in (q, k, v))
         o, lse = _flash_fwd(q, k, v, mask, causal, scale)
         ctx.save_for_backward(q, k, v, mask, o, lse)
         ctx.causal, ctx.scale = causal, scale

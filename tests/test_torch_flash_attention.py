@@ -33,13 +33,21 @@ OUT_ATOL = 2e-5
 GRAD_ATOL = 1e-4
 
 
-def _inputs(seed, B=2, S=128, H=2, D=16, masked_from=None):
+def _inputs(seed, B=2, S=128, H=2, D=16, masked_from=None,
+            hidden_lead=None):
+    """q, k, v [B, S, H, D] and a key mask: ``masked_from`` hides the keys
+    from there on in every batch row; ``hidden_lead`` = (row, n) hides
+    keys [0, n) of one batch row."""
     rs = np.random.RandomState(seed)
     q, k, v = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(3))
     mask = None
     if masked_from is not None:
         mask = np.ones((B, S), np.int32)
         mask[:, masked_from:] = 0
+    if hidden_lead is not None:
+        mask = np.ones((B, S), np.int32) if mask is None else mask
+        row, n = hidden_lead
+        mask[row, :n] = 0
     return q, k, v, mask
 
 
@@ -59,6 +67,11 @@ FWD_CASES = [
     ("odd_seq_200", 7, {"S": 200}, None, False),
     ("odd_seq_150_masked", 8, {"B": 1, "S": 150, "D": 8}, 120, False),
     ("causal_and_masked", 9, {"S": 96}, 70, True),
+    # batch row 1 hides its first 128 keys: at S = 520 (padded to 640)
+    # the JAX kernel's first 128-key tile, where p = 1 until the next
+    # tile resets it through alpha
+    ("leading_keys_masked", 16, {"S": 520, "hidden_lead": (1, 128)}, None,
+     False),
 ]
 
 

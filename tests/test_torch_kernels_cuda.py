@@ -453,3 +453,86 @@ def test_flash_backward_same_bits_twice(cuda, dtype):
     again = _flash_grads(flash_attention, q, k, v, g, mask=mask)
     for a, b in zip(first[1:], again[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_forward_same_bits_twice(cuda, dtype):
+    """Every output has one writer and sums run in a fixed order: two
+    forward calls give the same o and lse bits."""
+    q, k, v, _, mask = _flash_inputs(2, 300, 3, 64, dtype, cuda, True)
+    with torch.no_grad():
+        first = flash_attention_with_lse(q, k, v, mask=mask)
+        again = flash_attention_with_lse(q, k, v, mask=mask)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def _flash_forward_close(q, k, v, **kw):
+    """o within ``FLASH_TOL`` of the plain version, lse within 1e-4."""
+    with torch.no_grad():
+        got = flash_attention_with_lse(q, k, v, **kw)
+        ref = flash_attention_with_lse_plain(q, k, v, **kw)
+    _assert_flash_close(got[0], ref[0], FLASH_TOL[q.dtype])
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+    return got
+
+
+def test_flash_forward_bf16_leading_masked_keys(cuda):
+    """A row whose mask hides keys [0, 64), a whole key tile, and shows
+    the rest: p = 1 over the hidden tile until the first visible one
+    resets it through alpha = exp(-1e30 - m) = 0."""
+    q, k, v, _, _ = _flash_inputs(2, 200, 2, 64, torch.bfloat16, cuda)
+    mask = torch.ones((2, 200), dtype=torch.int32, device=cuda)
+    mask[1, :64] = 0
+    _flash_forward_close(q, k, v, mask=mask)
+
+
+def test_flash_forward_bf16_fully_masked_row(cuda):
+    """A batch row with no visible key: o is v's mean over all S keys
+    (nothing padded) and lse is at or below the backward's fully-masked
+    mark, -5e29."""
+    q, k, v, _, _ = _flash_inputs(2, 150, 2, 64, torch.bfloat16, cuda)
+    mask = torch.ones((2, 150), dtype=torch.int32, device=cuda)
+    mask[1] = 0
+    o, lse = _flash_forward_close(q, k, v, mask=mask)
+    mean = v[1].float().mean(0).expand(150, 2, 64).to(torch.bfloat16)
+    _assert_flash_close(o[1], mean, FLASH_TOL[torch.bfloat16])
+    assert (lse[1] <= -5e29).all() and (lse[0] > -5e29).all()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_flash_forward_bf16_causal_long(cuda, masked):
+    """Causal at T = 1024: without a key mask the kernel stops at the
+    diagonal tile and a warp skips the tiles after its rows; with one it
+    walks every tile."""
+    q, k, v, _, mask = _flash_inputs(1, 1024, 2, 64, torch.bfloat16, cuda,
+                                     masked)
+    _flash_forward_close(q, k, v, mask=mask, causal=True)
+
+
+def test_flash_forward_bf16_unaligned_views(cuda):
+    """q, k and v as views whose base is 2 bytes past a 16-byte boundary:
+    the wrapper copies them for the forward's 16-byte cp.async loads, and
+    o and lse match the plain ones."""
+    B, S, H, D = 2, 77, 2, 64
+    n = B * S * H * D
+
+    def unaligned(seed):
+        buf = torch.from_numpy(np.random.RandomState(seed).randn(
+            n + 1).astype(np.float32)).to(cuda, torch.bfloat16)
+        t = buf[1:].view(B, S, H, D)
+        assert t.data_ptr() % 16 != 0
+        return t
+    q, k, v = (unaligned(s) for s in range(3))
+    _flash_forward_close(q, k, v)
+
+
+@pytest.mark.parametrize("scale", [0.3, -0.2], ids=["pos", "neg"])
+def test_flash_forward_bf16_explicit_scale(cuda, scale):
+    """A caller's scale multiplies the f32 scores: a positive one takes the
+    whole-tile path (raw max, then scaled), a negative one the masked
+    path, where the max is taken on the scaled scores."""
+    q, k, v, _, mask = _flash_inputs(2, 130, 2, 64, torch.bfloat16, cuda,
+                                     True)
+    _flash_forward_close(q, k, v, mask=mask, scale=scale)
