@@ -32,6 +32,33 @@ exits non-zero without printing a result:
               few requests through the fused dequant-matmul kernel.
 6. spec     — speculative decoding with a 2-layer draft of the same
               width (spec_k=4).
+   serve_http — the same model behind the HTTP front door
+              (``serving.ModelRegistry`` + ``ModelServer`` on 127.0.0.1):
+              one greedy request alone must give the tokens a direct
+              ``DecodeEngine`` of the same configuration gives alone; then
+              phase 4's 16 requests at once from client threads (3
+              streamed as ndjson) in a process of their own
+              (``chip_smoke.py --http-clients``), timed against the direct
+              engine serving the same 16 at once; then ``deploy(quantize="int8")`` of the
+              twin under the default divergence gate, served if the gate
+              accepts it, else the rejection is checked (v1 stays current,
+              the incoming engine's pool is freed) and the twin deploys as
+              ``lm:v2b`` under the explicit ``SERVE_GATE_FALLBACK``
+              budget; then ``rollback("lm")`` and ``drain_all()``. Its
+              own path for the launch counts: both serving kernels'
+              counts start at 0 after the direct engine's runs, and each
+              deploy and each run of requests between two deploys reads
+              its own; v1's requests must launch the paged kernel and the
+              twin's 4 requests both kernels.
+   fp8      — the model's fp8 twin (``QuantSpec(mode="fp8")``): its
+              ``dequant_matmul`` (activation scale and cast,
+              ``torch._scaled_mm``, output scale and cast) against the same
+              route with the f32-upcast plain product (``FP8_*``
+              tolerances), both timed whole at M = 8 and 4096 for
+              768->3072, with ``_scaled_mm`` and its output scale alone
+              beside them; its logit divergence
+              from the bf16 model; 4 greedy requests through a
+              ``DecodeEngine``.
    checks   — one full-width ``paged_decode`` step through the kernel
               against the same step through the plain read, and the int8
               twin's logit divergence from the bf16 model.
@@ -68,7 +95,9 @@ exits non-zero without printing a result:
               each call, as a decode step streams every layer's weights
               (``ms``, ``library_ms``), and also warm, with the operands
               left in L2 by the call before (``ms_warm``,
-              ``library_ms_warm``).
+              ``library_ms_warm``). Each kernel's and library call's
+              ``ms`` is the median of ``WINDOWS`` profiler windows, with
+              their min and max beside it (``*_spread``).
               The flash kernels are timed at both flash shapes, and the
               forward also causal at the CausalLM's shape (B=4, T=1024,
               12 heads of 64, no mask) beside SDPA with ``is_causal``
@@ -89,6 +118,11 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP8_FLOPS_PER_S = 1979e12
+# profiler windows behind each kernel-against-library reading: the median
+# is reported, with the min and max (one window now and then reads half of
+# every other, as SDPA's first T=512 forward did in an earlier run)
+WINDOWS = 5
 
 # Tolerances, each with its reason:
 # paged-flash decode vs plain, bf16 out: the plain read rounds the softmax
@@ -123,6 +157,21 @@ FLASH_ATOL, FLASH_RTOL, FLASH_REL_RMS = 3e-2, 1e-2, 2e-2
 BERT_LOGIT_ATOL = 0.25
 BERT_ARGMAX_MIN = 0.9
 LOSS_ATOL = 0.02
+# fp8 dequant_matmul through torch._scaled_mm vs the f32-upcast plain
+# product, same fp8 operands: each fp8 x fp8 product is exact in f32; the
+# two sum them in another order, and Hopper's fp8 tensor-core accumulator
+# keeps fewer mantissa bits between its promotions to f32 (a relative
+# ~1e-4 per partial sum); both then round once to bf16 (2**-8 relative).
+# The outputs are O(1): rtol 1e-2 (two bf16 ulps) + atol 1e-2.
+FP8_RTOL, FP8_ATOL = 1e-2, 1e-2
+# the explicit gate budget of the int8 twin's second deploy when the
+# default gate (max-abs 0.25, top-1 0.99) rejects it: with random weights
+# the top two of 32000 logits sit ~0.05 apart, so int8 rounding flips
+# argmaxes a trained model would keep; the twin must still stay within
+# 1.0 of every logit and agree on at least half the tokens
+SERVE_GATE_FALLBACK = {"quant_max_divergence": 1.0, "quant_min_top1": 0.5}
+# phase 4's requests that serve_http streams (greedy ones)
+HTTP_STREAMED = (2, 9, 13)
 
 # the kernel sources of the two serving wrappers and the flash kernels
 PAGED_SOURCE, DEQUANT_SOURCE = "paged_flash_decode.cu", "dequant_matmul.cu"
@@ -181,6 +230,21 @@ def time_ms(fn, iters=30, warm=3, skip=()):
     torch.cuda.synchronize()
     return sum(v for k, v in device_ms_by_kernel(fn, iters).items()
                if not any(f in k for f in skip))
+
+
+def time_spread(fn, iters=30, warm=3, skip=(), windows=WINDOWS):
+    """``time_ms`` over ``windows`` profiler windows of ``iters`` calls
+    each: (median, [min, max]) in ms."""
+    vals = sorted(time_ms(fn, iters, warm if i == 0 else 0, skip)
+                  for i in range(windows))
+    return vals[len(vals) // 2], [vals[0], vals[-1]]
+
+
+def timed(rec, key, fn, **kw):
+    """``rec[key]`` = the median of ``time_spread``, and
+    ``rec[key + "_spread"]`` = its [min, max]."""
+    rec[key], rec[key + "_spread"] = time_spread(fn, **kw)
+    return rec[key]
 
 
 # the kernel of l2_flusher's calls, left out of the times it precedes
@@ -293,8 +357,8 @@ def global_names(source):
     return tuple(names)
 
 
-def bound_ms(byt, flops):
-    t_b, t_f = byt / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound_ms(byt, flops, peak=BF16_FLOPS_PER_S):
+    t_b, t_f = byt / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -546,7 +610,7 @@ def phase_serve(model):
           "paged_launches_so_far": paged_flash_decode.launches})
     greedy = {i: results[i]["tokens"] for i in range(len(prompts))
               if not sampling[i]}
-    return prompts, greedy
+    return prompts, sampling, greedy
 
 
 def phase_int8(model, prompts):
@@ -600,6 +664,370 @@ def phase_spec(model, prompts, greedy):
           "spec_steps": stats["spec_steps"],
           "acceptance_rate": stats.get("spec_acceptance"),
           "token_identical_to_plain_greedy": f"{same}/{len(picks)}"})
+
+
+def http_generate(base, prompt, kw, max_tokens=64, stream=False,
+                  model="lm"):
+    """One ``POST /v1/models/<model>/generate`` from a client: (status,
+    the result, the ttft the client saw in s, the request's latency in
+    s). A streamed request's ttft is its first token line's arrival and
+    its result the ``done`` line, whose tokens must be the streamed ones;
+    a plain request's ttft is the one its response reports."""
+    import urllib.error
+    import urllib.request
+    body = {"prompt": [int(t) for t in prompt], "max_tokens": max_tokens,
+            "stream": stream, **kw}
+    req = urllib.request.Request(
+        f"{base}/v1/models/{model}/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        r = urllib.request.urlopen(req, timeout=600)
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode()}, None, \
+            time.perf_counter() - t0
+    with r:
+        if not stream:
+            doc = json.loads(r.read())
+            return r.status, doc, doc.get("ttft_s"), time.perf_counter() - t0
+        first, toks, tail = None, [], {"error": "no done line"}
+        for line in r:
+            if not line.strip():
+                continue
+            msg = json.loads(line)
+            if "token" in msg:
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(msg["token"])
+            else:
+                tail = msg
+        if tail.get("tokens") != toks:
+            tail = {"error": f"streamed {toks} but done says {tail}"}
+        return r.status, tail, first, time.perf_counter() - t0
+
+
+def http_clients(base, requests):
+    """``requests`` ({"prompt", "kw", "stream"} each) sent at once from
+    client threads; returns (the ``http_generate`` results in order, the
+    wall seconds from the first send to the last answer)."""
+    import threading
+    results = [None] * len(requests)
+
+    def client(i):
+        r = requests[i]
+        results[i] = http_generate(base, r["prompt"], r["kw"],
+                                   stream=r["stream"])
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def http_clients_main():
+    """``chip_smoke.py --http-clients``: the client side of serve_http in
+    a process of its own (so that the clients do not share the server's
+    interpreter), reading ``{"base", "requests"}`` as JSON on stdin and
+    writing ``{"results", "wall_s"}`` as JSON on stdout."""
+    job = json.load(sys.stdin)
+    results, wall = http_clients(job["base"], job["requests"])
+    json.dump({"results": results, "wall_s": wall}, sys.stdout)
+
+
+def check_http(results, max_tokens, V, version=None):
+    for i, (status, doc, _, _) in enumerate(results):
+        toks = doc.get("tokens") or []
+        if (status != 200 or "error" in doc or len(toks) != max_tokens
+                or doc.get("finish_reason") != "length"
+                or not all(type(t) is int and 0 <= t < V for t in toks)
+                or (version is not None and doc.get("version") != version)):
+            raise RuntimeError(f"HTTP request {i}: status {status}, {doc}")
+
+
+def phase_serve_http(model, prompts, sampling, greedy):
+    """The full-width model behind the HTTP front door. Returns the
+    serving kernels' launch counts in the phase's HTTP requests and, apart,
+    in its deploys (engine warmup, calibration and the divergence gate);
+    the direct engine's comparison runs come first and are not counted."""
+    import gc
+    import urllib.request
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
+    from deeplearning4j_tpu_torch.quant import QuantizationRejectedError
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    V = model.config.vocab_size
+    deploy_kw = {"decode_slots": SLOTS, "decode_max_ctx": MAX_CTX,
+                 "decode_kv_block_size": BS}
+    # the direct engine of the same configuration: the lone greedy
+    # request first on a fresh engine, then the 16 requests at once
+    eng = DecodeEngine(model, slots=SLOTS, max_ctx=MAX_CTX, kv_block_size=BS,
+                       device="cuda")
+    try:
+        eng.warmup()
+        alone = eng.generate(prompts[0], max_tokens=64).result(600)["tokens"]
+        s0 = eng.stats()
+        t0 = time.perf_counter()
+        serve(eng, prompts, sampling)
+        direct_wall = time.perf_counter() - t0
+        direct = {k: eng.stats()[k] - s0[k]
+                  for k in ("decode_steps", "prefill_dispatches")}
+    finally:
+        eng.close(60)
+    del eng
+    wrappers = {"paged_flash_decode": paged_flash_decode,
+                "dequant_matmul": _fused_dequant_matmul}
+    # the HTTP path: its launch counts start at 0 here, and each stage
+    # (a deploy, or the requests between two deploys) reads its own
+    for f in wrappers.values():
+        f.launches = 0
+    stages, mark = {}, {w: 0 for w in wrappers}
+
+    def stage(label):
+        stages[label] = {w: f.launches - mark[w]
+                         for w, f in wrappers.items()}
+        mark.update({w: f.launches for w, f in wrappers.items()})
+    reg = ModelRegistry(manifest_dir=None)
+    srv = ModelServer(reg, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{srv.start()}"
+    rec = {"phase": "serve_http"}
+    try:
+        t0 = time.perf_counter()
+        reg.deploy("lm", "v1", model, **deploy_kw)
+        rec["deploy_s"] = round(time.perf_counter() - t0, 3)
+        stage("deploy_v1")
+        lone = http_generate(base, prompts[0], {})
+        check_http([lone], 64, V, "v1")
+        if lone[1]["tokens"] != alone:
+            raise RuntimeError(f"a lone greedy request over HTTP gave "
+                               f"{lone[1]['tokens']}, the direct engine "
+                               f"{alone}")
+        v1 = reg.get("lm").engine
+        s0 = v1.stats()
+        # the 16 requests from client threads in a process of their own
+        job = {"base": base, "requests": [
+            {"prompt": [int(t) for t in p], "kw": kw,
+             "stream": i in HTTP_STREAMED}
+            for i, (p, kw) in enumerate(zip(prompts, sampling))]}
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--http-clients"],
+            input=json.dumps(job), capture_output=True, text=True,
+            timeout=600)
+        if out.returncode != 0:
+            raise RuntimeError(f"the client process failed: {out.stderr}")
+        done = json.loads(out.stdout)
+        results, wall = done["results"], done["wall_s"]
+        check_http(results, 64, V, "v1")
+        http = {k: v1.stats()[k] - s0[k]
+                for k in ("decode_steps", "prefill_dispatches")}
+        toks = sum(len(r[1]["tokens"]) for r in results)
+        ttft = sorted(r[2] for r in results)
+        lat = sorted(r[3] for r in results)
+        same = sum(results[i][1]["tokens"] == g for i, g in greedy.items())
+        rec.update({
+            "lone_request_matches_direct_engine": True,
+            "requests": len(results), "streamed": len(HTTP_STREAMED),
+            "tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
+            "direct_engine_tokens_per_s": toks / direct_wall,
+            "http_over_direct_wall": wall / direct_wall,
+            # more steps = the schedule; slower steps = the host
+            "decode_steps": http["decode_steps"],
+            "direct_engine_decode_steps": direct["decode_steps"],
+            "prefill_dispatches": http["prefill_dispatches"],
+            "direct_engine_prefill_dispatches":
+                direct["prefill_dispatches"],
+            "host_ms_per_decode_step": 1e3 * wall / http["decode_steps"],
+            "direct_engine_host_ms_per_decode_step":
+                1e3 * direct_wall / direct["decode_steps"],
+            "client_ttft_s_p50": ttft[len(ttft) // 2],
+            "client_ttft_s_max": ttft[-1],
+            "client_latency_s_p50": lat[len(lat) // 2],
+            "client_latency_s_max": lat[-1],
+            "greedy_identical_to_serve_phase": f"{same}/{len(greedy)}"})
+        # the int8 twin as lm:v2, under the default gate
+        calib = np.random.RandomState(1).randint(
+            0, V, (4, 128)).astype(np.int32)
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        stage("http_v1")
+        rejected = None
+        try:
+            mv = reg.deploy("lm", "v2", model, quantize="int8",
+                            calibration_batch=calib, **deploy_kw)
+        except QuantizationRejectedError as e:
+            rejected = str(e)
+        # out of the except block, so that the traceback's frames (and the
+        # rejected twin and engine they hold) are gone
+        rec["default_gate"] = "accepted" if rejected is None \
+            else f"rejected: {rejected}"
+        if rejected is not None:
+            listing = json.loads(urllib.request.urlopen(
+                base + "/v1/models", timeout=60).read())["models"]["lm"]
+            if listing["current"] != "v1" or [
+                    v["version"] for v in listing["versions"]] != ["v1"]:
+                raise RuntimeError(f"a rejected deploy is visible: "
+                                   f"{listing}")
+            gc.collect()
+            left = torch.cuda.memory_allocated() - mem0
+            pool = 2 * (SLOTS * MB + 1) * L_FULL * BS * 768 * 2
+            rec["rejected_deploy_bytes_left"] = left
+            if left > pool // 2:
+                raise RuntimeError(f"the rejected deploy left {left} bytes "
+                                   f"allocated (its pool is {pool})")
+            mv = reg.deploy("lm", "v2b", model, quantize="int8",
+                            calibration_batch=calib, **SERVE_GATE_FALLBACK,
+                            **deploy_kw)
+            rec["fallback_gate"] = SERVE_GATE_FALLBACK
+        rec["int8_gate"] = mv.divergence
+        rec["int8_precision"] = mv.precision
+        rec["int8_param_bytes"] = mv.param_bytes
+        stage("deploy_v2")
+        twin_res = [http_generate(base, prompts[i], {})
+                    for i in (0, 3, 7, 12)]
+        check_http(twin_res, 64, V, mv.version)
+        rec["int8_requests"] = len(twin_res)
+        stage("http_v2")
+        back = reg.rollback("lm").version
+        after = http_generate(base, prompts[0], {})
+        check_http([after], 64, V, "v1")
+        stage("http_rollback")
+        rec["rollback_to"] = back
+        rec["drained"] = reg.drain_all(save_manifests=False)
+        if not rec["drained"]:
+            raise RuntimeError("drain_all did not drain in time")
+    finally:
+        srv.stop()
+        reg.drain_all(timeout_s=60, save_manifests=False)
+    rec["launches_by_stage"] = stages
+    counted = {"requests": ("http_v1", "http_v2", "http_rollback"),
+               "deploys": ("deploy_v1", "deploy_v2")}
+    rec["launches"] = {
+        part: {w: sum(stages.get(s, {}).get(w, 0) for s in labels)
+               for w in wrappers} for part, labels in counted.items()}
+    emit(rec)
+    if stages["http_v1"]["paged_flash_decode"] < 1:
+        raise RuntimeError("v1 served its HTTP requests without the paged "
+                           "decode kernel")
+    for w, n in stages["http_v2"].items():
+        if n < 1:
+            raise RuntimeError(f"the int8 twin served its 4 HTTP requests "
+                               f"without {w}")
+    return rec["launches"]
+
+
+def phase_fp8(model, prompts):
+    """The fp8 twin: ``torch._scaled_mm`` against the f32-upcast plain
+    product at the twin's 768->3072 weight, its divergence from the bf16
+    model, and 4 greedy requests through a ``DecodeEngine``. Returns the
+    records of the two timed shapes."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common.metrics import registry
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
+    from deeplearning4j_tpu_torch.quant import QuantSpec, divergence_report
+    from deeplearning4j_tpu_torch.quant.transforms import (
+        _FP8_QMAX, dequant_matmul, dequantize, fp8_matmul_plain,
+        fp8_supported, quantize_model)
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    if not fp8_supported("cuda"):
+        raise RuntimeError("fp8_supported('cuda') is False on this card")
+    twin = quantize_model(model, QuantSpec(mode="fp8"), device="cuda")
+    w = twin.params["layers"][0]["mlp"]["w1"]
+    K, N = w.shape
+    if w.mode != "fp8" or w.q.stride() != (1, K):
+        raise RuntimeError(f"fp8 w1: mode {w.mode}, strides {w.q.stride()}")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    one = torch.ones((), dtype=torch.float32, device="cuda")
+    out_scale = w.scale.reshape(-1)
+    wbf = dequantize(w, torch.bfloat16)
+    flush = l2_flusher()
+    shapes = []
+    for M in (8, 4096):
+        x = torch.randn((M, K), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+
+        def plain_route():
+            # what the wrapper's plain route computes, from x on
+            sx = torch.clamp_min(x.abs().amax(), 1e-12) / _FP8_QMAX
+            xq = (x / sx).to(torch.float8_e4m3fn)
+            return fp8_matmul_plain(xq, w.q, sx, out_scale).to(x.dtype)
+        with torch.no_grad():
+            got = dequant_matmul(x, w)
+            ref = plain_route()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.allclose(got.float(), ref.float(), rtol=FP8_RTOL,
+                              atol=FP8_ATOL):
+            raise RuntimeError(f"fp8 dequant_matmul M={M}: max abs err "
+                               f"{err} outside rtol {FP8_RTOL} atol "
+                               f"{FP8_ATOL}")
+        sa = (torch.clamp_min(x.abs().amax(), 1e-12) / _FP8_QMAX).float()
+        xq = (x / sa).to(torch.float8_e4m3fn)
+
+        def kern():
+            # the whole route a twin's layer runs: the activation's amax,
+            # scale and fp8 cast, _scaled_mm, the output scale and cast
+            flush()
+            dequant_matmul(x, w)
+
+        def scaled_mm_only():
+            flush()
+            out = torch._scaled_mm(xq, w.q, scale_a=sa, scale_b=one,
+                                   out_dtype=torch.float32)
+            (out[0] if isinstance(out, tuple) else out) * out_scale
+
+        def plain():
+            flush()
+            plain_route()
+
+        def lib():
+            flush()
+            torch.matmul(x, wbf)
+        # the function's own bytes, as the kernel table counts them: bf16
+        # x in, the fp8 weight and its f32 scales, bf16 y out
+        byt = M * K * 2 + K * N + N * 4 + M * N * 2
+        b_ms, b_by = bound_ms(byt, 2 * M * K * N, FP8_FLOPS_PER_S)
+        skip = (FLUSH_KERNEL,)
+        rec = {"name": "dequant_matmul_fp8", "route": "torch._scaled_mm",
+               "M": M, "K": K, "N": N, "max_abs_err": err,
+               "plain_ms": time_ms(plain, skip=skip), "bound_ms": b_ms,
+               "bound_by": b_by, "windows": WINDOWS}
+        timed(rec, "ms", kern, skip=skip)
+        timed(rec, "scaled_mm_and_scale_ms", scaled_mm_only, skip=skip)
+        timed(rec, "library_ms", lib, skip=skip)
+        shapes.append(rec)
+    ids = torch.as_tensor(np.random.RandomState(5).randint(
+        0, model.config.vocab_size, (1, 128)), device="cuda")
+    rep = divergence_report(model, twin, ids)
+    fam = registry().counter("dl4j_kernel_dispatch_total",
+                             labels=("kernel", "path"))
+    routed = fam.labels(kernel="dequant_matmul_fp8", path="scaled_mm")
+    n_route, n_paged = routed.value(), paged_flash_decode.launches
+    eng = DecodeEngine(twin, slots=SLOTS, max_ctx=MAX_CTX, kv_block_size=BS,
+                       device="cuda")
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        picks = [prompts[i] for i in (0, 3, 7, 12)]
+        res = serve(eng, picks, [{}] * len(picks))
+        wall = time.perf_counter() - t0
+    finally:
+        eng.close(60)
+    emit({"phase": "fp8", "precision": twin._precision,
+          "shapes": shapes, "logit_max_abs_divergence": rep["max_abs_err"],
+          "top1_agreement": rep["top1_agreement"],
+          "per_token_agreement": rep["per_token_agreement"],
+          "requests": len(res), "wall_s_with_warmup": round(wall, 3),
+          "scaled_mm_routes_in_serving": routed.value() - n_route,
+          "paged_launches_in_serving": paged_flash_decode.launches - n_paged})
+    if routed.value() <= n_route:
+        raise RuntimeError("the fp8 twin served without torch._scaled_mm")
+    return shapes
 
 
 def phase_checks(model, twin):
@@ -754,9 +1182,10 @@ def phase_kernels(twin, launches, errs):
                                            attn_mask=mask[:, None])
         byt, flops = paged_work(Q, lengths.tolist())
         b_ms, b_by = bound_ms(byt, flops)
-        rec = {"Q": Q, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": time_ms(lib), "bound_ms": b_ms,
-               "bound_by": b_by}
+        rec = {"Q": Q, "plain_ms": time_ms(plain), "bound_ms": b_ms,
+               "bound_by": b_by, "windows": WINDOWS}
+        timed(rec, "ms", kern)
+        timed(rec, "library_ms", lib)
         shapes.append({"name": "paged_flash_decode", **rec})
         if Q == 1:
             rows.append({
@@ -767,8 +1196,7 @@ def phase_kernels(twin, launches, errs):
                             "paged_flash_decode.py:138",
                 "launches": launches["paged_flash_decode"],
                 "max_abs_err": errs["paged_flash_decode"],
-                **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}})
+                **{k: rec[k] for k in ROW_KEYS}})
         del views, gathered, kp, vp
     # dequant-matmul at decode (M = 8 slots), spec verify (M = 40) and
     # prefill (M = 4 x 1024) rows, over the twin's own 12 layers' weights
@@ -806,12 +1234,13 @@ def phase_kernels(twin, launches, errs):
             byt = M * K * 2 + K * N + N * 4 + M * N * 2
             b_ms, b_by = bound_ms(byt, 2 * M * K * N)
             skip = (FLUSH_KERNEL,)
-            rec = {"M": M, "K": K, "N": N, "ms": time_ms(kern, skip=skip),
+            rec = {"M": M, "K": K, "N": N,
                    "plain_ms": time_ms(plain, skip=skip),
-                   "library_ms": time_ms(lib, skip=skip),
                    "ms_warm": time_ms(kern_warm),
                    "library_ms_warm": time_ms(lib_warm),
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS}
+            timed(rec, "ms", kern, skip=skip)
+            timed(rec, "library_ms", lib, skip=skip)
             shapes.append({"name": "dequant_matmul", **rec})
             if M == 8 and wname == "w1":
                 rows.append({
@@ -822,10 +1251,14 @@ def phase_kernels(twin, launches, errs):
                                 "transforms.py:216",
                     "launches": launches["dequant_matmul"],
                     "max_abs_err": errs["dequant_matmul"],
-                    **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}})
+                    **{k: rec[k] for k in ROW_KEYS}})
             del wbf
     return rows, shapes
+
+
+#: the timing keys a kernels-line row copies from its shape record
+ROW_KEYS = ("ms", "ms_spread", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_ms_spread", "windows")
 
 
 def clone_tree(tree):
@@ -1103,24 +1536,25 @@ def flash_rows(launches, errs):
         qt, kt, vt = (t.transpose(1, 2) for t in ts)
         am = mask.bool()[:, None, None, :]
         with torch.no_grad():
-            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            lib_fwd = time_spread(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=am))
         o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
         do_t = do.transpose(1, 2)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_bwd = time_spread(lambda: torch.autograd.grad(
             o_lib, ts, do_t, retain_graph=True))
         del o_lib
         work = flash_work(B, T)
         for name, fn in kern.items():
             b_ms, b_by = bound_ms(*work[name])
             fwd = name == "flash_attention_fwd"
-            rec = {"ms": time_ms(fn),
-                   "plain_ms": plain_fwd if fwd else plain_bwd,
-                   "library_ms": lib_fwd if fwd else lib_bwd,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            lib_ms, lib_spread = lib_fwd if fwd else lib_bwd
+            rec = {"plain_ms": plain_fwd if fwd else plain_bwd,
+                   "library_ms": lib_ms, "library_ms_spread": lib_spread,
+                   "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS}
+            timed(rec, "ms", fn)
             shapes.append({"name": name, "B": B, "T": T, **rec})
             if name == "flash_attention_bwd":
-                rec["over_library"] = rec["ms"] / lib_bwd
+                rec["over_library"] = rec["ms"] / lib_ms
                 emit({"phase": "flash_backward", "B": B, "T": T, **rec})
             elif i == 0:
                 rows.append({
@@ -1171,18 +1605,21 @@ def causal_fwd_record():
         del o, o_ref, lse, lse_ref
         plain_ms = time_ms(lambda: flash_attention_with_lse_plain(
             q, k, v, causal=True), iters=10)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        rec = {"name": "flash_attention_fwd", "B": B, "T": T,
+               "causal": True, "max_abs_err": err,
+               "lse_max_abs_err": lse_err, "plain_ms": plain_ms,
+               "windows": WINDOWS}
+        timed(rec, "library_ms", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
-    b_ms, b_by = bound_ms(*flash_work(B, T, causal=True,
-                                      mask=False)["flash_attention_fwd"])
-    return {"name": "flash_attention_fwd", "B": B, "T": T, "causal": True,
-            "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "ms": time_ms(lambda: fl._flash_fwd(q, k, v, None, True, None)),
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+        timed(rec, "ms", lambda: fl._flash_fwd(q, k, v, None, True, None))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(*flash_work(
+        B, T, causal=True, mask=False)["flash_attention_fwd"])
+    return rec
 
 
 def main():
+    if sys.argv[1:] == ["--http-clients"]:
+        return http_clients_main()
     t_start = time.perf_counter()
     phase_device()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1202,7 +1639,7 @@ def main():
     # the main path: every launch count starts at 0 here
     paged_flash_decode.launches = 0
     _fused_dequant_matmul.launches = 0
-    prompts, greedy = phase_serve(model)
+    prompts, sampling, greedy = phase_serve(model)
     twin = phase_int8(model, prompts)
     phase_spec(model, prompts, greedy)
     launches = {"paged_flash_decode": paged_flash_decode.launches,
@@ -1211,6 +1648,9 @@ def main():
         if n < 1:
             raise RuntimeError(f"kernel {name} was never launched on the "
                                "main path")
+    http_launches = phase_serve_http(model, prompts, sampling, greedy)
+    fp8_shapes = phase_fp8(model, prompts)
+    torch.cuda.empty_cache()
     phase_checks(model, twin)
     phase_step(model, twin)
     train_launches, params, opt, batch, step_ms = phase_train()
@@ -1221,8 +1661,13 @@ def main():
     phase_bert_forward()
     phase_causal(model)
     rows, shapes = phase_kernels(twin, launches, errs)
+    for row in rows:
+        row["launches_serve_http"] = http_launches["requests"][row["name"]]
+        row["launches_serve_http_deploys"] = \
+            http_launches["deploys"][row["name"]]
     flash, flash_shapes = flash_rows(launches, errs)
-    emit({"phase": "kernel_shapes", "shapes": shapes + flash_shapes})
+    emit({"phase": "kernel_shapes",
+          "shapes": shapes + flash_shapes + fp8_shapes})
     emit({"kernels": flash + rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})

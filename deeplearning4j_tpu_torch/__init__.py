@@ -20,6 +20,17 @@ Ported so far:
     engine = DecodeEngine(CausalLM(CausalLMConfig(), device="cuda"))
     engine.generate_sync([1, 2, 3], max_tokens=16)
 
+- the HTTP serving layer over it (``serving``: ``ModelRegistry``,
+  ``ModelServer``, admission, SLOs, circuit breakers and the SIGTERM
+  drain) and the rest of ``quant`` (``QuantSpec``, ``calibrate``, the
+  ``validate`` divergence gate, the fp8 mode)::
+
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+
+    registry = ModelRegistry()
+    registry.deploy("lm", "v1", CausalLM(CausalLMConfig(), device="cuda"))
+    ModelServer(registry, port=8000).start()   # POST /v1/models/lm/generate
+
 - BERT masked-LM training (``models.bert``: forward, loss, backward and
   Adam) and its QA head, with the flash-attention forward, dq and dk/dv
   kernels (``kernels.flash_attention``)::

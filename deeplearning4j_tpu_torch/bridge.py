@@ -3,10 +3,12 @@ example the JAX package's params after ``np.asarray`` on every leaf) ->
 the port's params on ``device``, in the same layout.
 
 - bf16 arrays (numpy dtype name ``bfloat16``, the ``ml_dtypes`` type)
-  cross through a 16-bit integer view, so they stay bit-exact;
+  cross through a 16-bit integer view, and fp8 arrays
+  (``float8_e4m3fn``) through an 8-bit one, so both stay bit-exact;
 - a quantized leaf — any object with ``.q`` / ``.scale`` /
   ``.orig_dtype``, or a dict with exactly those keys — becomes a
-  ``quant.transforms.QuantizedTensor`` with ``q`` kept int8;
+  ``quant.transforms.QuantizedTensor`` with ``q`` kept int8 or fp8 (a
+  per-output-channel fp8 ``q`` laid out as ``QuantizedTensor`` lays it);
 - other leaves (Python scalars, strings) pass through.
 
 Nothing here imports JAX: array-likes are read with ``np.asarray``.
@@ -27,6 +29,9 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -41,10 +46,11 @@ def params_from_numpy(tree, device="cuda"):
     if _is_quantized(tree):
         get = tree.get if isinstance(tree, dict) else \
             (lambda k: getattr(tree, k))
-        return QuantizedTensor(
-            tensor_from_numpy(get("q"), device).to(torch.int8),
-            tensor_from_numpy(get("scale"), device).to(torch.float32),
-            orig_dtype=str(get("orig_dtype")))
+        q = tensor_from_numpy(get("q"), device)
+        scale = tensor_from_numpy(get("scale"), device).to(torch.float32)
+        if q.dtype != torch.float8_e4m3fn:
+            q = q.to(torch.int8)
+        return QuantizedTensor(q, scale, orig_dtype=str(get("orig_dtype")))
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

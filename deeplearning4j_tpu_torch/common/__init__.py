@@ -1,2 +1,3 @@
 """Process-wide plumbing copied from the JAX package: locks, metrics,
-tracing, fault injection and the configuration knobs."""
+tracing, fault injection, the configuration knobs, the HTTP building
+blocks and the mesh reporting helpers."""

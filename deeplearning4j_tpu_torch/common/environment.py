@@ -1,10 +1,11 @@
-"""Runtime configuration: the knobs the serving slice reads.
+"""Runtime configuration: the knobs the serving and decode paths read.
 
 The JAX package's ``common/environment.py`` resolves about a hundred
-properties; the port keeps only those that the decode path reads, with
-the same defaults and the same ``DL4J_TPU_*`` variable names, so one
-deployment's environment configures either package: each knob is its
-environment variable when set, else its default.
+properties; the port keeps those that its modules read, with the same
+defaults and the same ``DL4J_TPU_*`` variable names, so one deployment's
+environment configures either package. Resolution order is the
+reference's: a programmatic ``set_property`` override, else the
+environment variable, else the default.
 
 The JAX package's TPU gates (``DL4J_TPU_PAGED_KERNEL``,
 ``DL4J_TPU_FUSED_DEQUANT``, ``DL4J_TPU_FLASH_MIN_SEQ``) have no
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 #: property name -> (environment variable, default)
 _PROPS: Dict[str, tuple] = {
@@ -30,6 +31,35 @@ _PROPS: Dict[str, tuple] = {
     "engine_max_restarts": ("DL4J_TPU_ENGINE_MAX_RESTARTS", "5"),
     "metrics": ("DL4J_TPU_METRICS", "1"),
     "trace_buffer": ("DL4J_TPU_TRACE_BUFFER", "16384"),
+    # "" = no executable/manifest volume; the default rides the user cache
+    "cache_dir": ("DL4J_TPU_CACHE_DIR", "~/.cache/deeplearning4j_tpu"),
+    "remote_cache": ("DL4J_TPU_REMOTE_CACHE", ""),
+    # "" = quantized deploys opt-in
+    "quant": ("DL4J_TPU_QUANT", ""),
+    "quant_max_divergence": ("DL4J_TPU_QUANT_MAX_DIVERGENCE", "0.25"),
+    "quant_min_top1": ("DL4J_TPU_QUANT_MIN_TOP1", "0.99"),
+    "serving_max_concurrent": ("DL4J_TPU_SERVING_MAX_CONCURRENT", "8"),
+    "serving_queue_depth": ("DL4J_TPU_SERVING_QUEUE_DEPTH", "64"),
+    # 0 = auto (3/4 of the queue depth)
+    "serving_high_water": ("DL4J_TPU_SERVING_HIGH_WATER", "0"),
+    "serving_timeout_s": ("DL4J_TPU_SERVING_TIMEOUT_S", "30"),
+    "serving_drain_timeout_s": ("DL4J_TPU_SERVING_DRAIN_TIMEOUT_S", "30"),
+    "serving_retain": ("DL4J_TPU_SERVING_RETAIN", "2"),
+    # "" = <cache_dir>/manifests
+    "serving_manifest_dir": ("DL4J_TPU_SERVING_MANIFEST_DIR", ""),
+    "slo_objective": ("DL4J_TPU_SLO_OBJECTIVE", "0.999"),
+    "slo_windows": ("DL4J_TPU_SLO_WINDOWS", "300:14.4,3600:6"),
+    "slo_readyz": ("DL4J_TPU_SLO_READYZ", "1"),
+    "request_ring": ("DL4J_TPU_REQUEST_RING", "256"),
+    "debug_endpoints": ("DL4J_TPU_DEBUG_ENDPOINTS", "1"),
+    "breaker_threshold": ("DL4J_TPU_BREAKER_THRESHOLD", "5"),
+    "breaker_probe_s": ("DL4J_TPU_BREAKER_PROBE_S", "1"),
+    "auto_rollback": ("DL4J_TPU_AUTO_ROLLBACK", "0"),
+    "auto_rollback_opens": ("DL4J_TPU_AUTO_ROLLBACK_OPENS", "2"),
+    "watchdog_factor": ("DL4J_TPU_WATCHDOG_FACTOR", "3"),
+    # "" = <cache_dir>/profiles and <cache_dir>/flight
+    "profile_dir": ("DL4J_TPU_PROFILE_DIR", ""),
+    "flight_recorder_dir": ("DL4J_TPU_FLIGHT_RECORDER_DIR", ""),
 }
 
 
@@ -40,11 +70,22 @@ def _int(v, default: int, lo: int) -> int:
         return default
 
 
+def _float(v, default: float) -> float:
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return default
+
+
 class Environment:
-    """Process-wide configuration singleton."""
+    """Process-wide configuration singleton. Resolution order:
+    ``set_property`` override > environment variable > default."""
 
     _instance = None
     _lock = threading.Lock()
+
+    def __init__(self):
+        self._overrides: Dict[str, str] = {}
 
     @classmethod
     def get(cls) -> "Environment":
@@ -55,8 +96,29 @@ class Environment:
         return cls._instance
 
     def property(self, key: str) -> Optional[str]:
+        if key in self._overrides:
+            return self._overrides[key]
         env_name, default = _PROPS[key]
         return os.environ.get(env_name, default)
+
+    def set_property(self, key: str, value: Any):
+        if key not in _PROPS:
+            raise KeyError(f"unknown property {key!r}")
+        self._overrides[key] = str(value)
+        return self
+
+    def property_override(self, key: str) -> Optional[str]:
+        """The programmatic override for ``key``, or None when the value
+        resolves from the environment variable or the default."""
+        return self._overrides.get(key)
+
+    def clear_property(self, key: str):
+        """Drop a programmatic override."""
+        self._overrides.pop(key, None)
+        return self
+
+    def _flag(self, key: str) -> bool:
+        return self.property(key) not in ("0", "false", None)
 
     # -- generative decode knobs (runtime/generation.py) -------------------
     def decode_slots(self) -> int:
@@ -92,15 +154,6 @@ class Environment:
         return self.property("prefix_cache") not in (
             "0", "false", "off", None)
 
-    def slo_latency_s(self) -> Optional[float]:
-        """Optional per-request TTFT objective in seconds
-        (``DL4J_TPU_SLO_LATENCY_MS``); <= 0 (default) means none."""
-        try:
-            ms = float(self.property("slo_latency_ms"))
-        except (TypeError, ValueError):
-            ms = 0.0
-        return ms / 1e3 if ms > 0 else None
-
     def engine_max_restarts(self) -> int:
         """Supervised-restart burst budget of the decode loop thread
         (``DL4J_TPU_ENGINE_MAX_RESTARTS``); <= 0 = unbounded."""
@@ -120,6 +173,192 @@ class Environment:
         """Span ring-buffer capacity (``DL4J_TPU_TRACE_BUFFER``)."""
         return _int(self.property("trace_buffer"), 16384, 1)
 
+
+    # -- executable/manifest volume (runtime/compile_cache.py) -------------
+    def cache_dir(self) -> Optional[str]:
+        """Root of the persistent cache volume, expanded; None when it is
+        disabled (``DL4J_TPU_CACHE_DIR=""``). The port keeps only serving
+        manifests there."""
+        d = self.property("cache_dir")
+        return os.path.expanduser(d) if d else None
+
+    def remote_cache(self) -> Optional[str]:
+        """Root of the fleet-shared artifact store, expanded
+        (``DL4J_TPU_REMOTE_CACHE``); None when none is configured."""
+        d = self.property("remote_cache")
+        return os.path.expanduser(d) if d else None
+
+    # -- quantized-serving knobs (quant/, serving/registry.py) -------------
+    def quant_mode(self) -> str:
+        """Fleet default for ``ModelRegistry.deploy(quantize=None)``: ""
+        (off), "int8" or "fp8" (``DL4J_TPU_QUANT``; truthy spellings map to
+        int8)."""
+        v = (self.property("quant") or "").strip().lower()
+        if v in ("", "0", "off", "none", "false"):
+            return ""
+        if v in ("1", "true", "on"):
+            return "int8"
+        return v
+
+    def set_quant_mode(self, mode: str):
+        return self.set_property("quant", mode or "")
+
+    def quant_max_divergence(self) -> float:
+        """Divergence-gate budget: the largest logit abs error a quantized
+        twin may show against its full-precision original on the gate
+        batch (``DL4J_TPU_QUANT_MAX_DIVERGENCE``)."""
+        return max(_float(self.property("quant_max_divergence"), 0.25), 0.0)
+
+    def quant_min_top1(self) -> float:
+        """Divergence-gate floor on top-1 (and, for generative models,
+        per-token) agreement (``DL4J_TPU_QUANT_MIN_TOP1``)."""
+        return min(max(_float(self.property("quant_min_top1"), 0.99), 0.0),
+                   1.0)
+
+    def set_quant_min_top1(self, v: float):
+        return self.set_property("quant_min_top1", float(v))
+
+    # -- model serving knobs (serving/) ------------------------------------
+    def serving_max_concurrent(self) -> int:
+        """Per-model concurrent-dispatch limit of the admission controller
+        (``DL4J_TPU_SERVING_MAX_CONCURRENT``)."""
+        return _int(self.property("serving_max_concurrent"), 8, 1)
+
+    def serving_queue_depth(self) -> int:
+        """Hard bound on requests waiting for a dispatch slot per model
+        (``DL4J_TPU_SERVING_QUEUE_DEPTH``); arrivals beyond it shed."""
+        return _int(self.property("serving_queue_depth"), 64, 1)
+
+    def serving_high_water(self) -> int:
+        """Queue depth at which load shedding engages
+        (``DL4J_TPU_SERVING_HIGH_WATER``); <= 0 resolves to 3/4 of
+        ``serving_queue_depth``."""
+        try:
+            hw = int(self.property("serving_high_water"))
+        except (TypeError, ValueError):
+            hw = 0
+        if hw <= 0:
+            hw = max(1, (3 * self.serving_queue_depth()) // 4)
+        return hw
+
+    def serving_default_timeout_s(self) -> Optional[float]:
+        """Default per-request deadline in seconds
+        (``DL4J_TPU_SERVING_TIMEOUT_S``); <= 0 means none."""
+        t = _float(self.property("serving_timeout_s"), 30.0)
+        return t if t > 0 else None
+
+    def serving_drain_timeout_s(self) -> float:
+        """How long a graceful drain waits for in-flight work
+        (``DL4J_TPU_SERVING_DRAIN_TIMEOUT_S``)."""
+        return max(_float(self.property("serving_drain_timeout_s"), 30.0),
+                   0.0)
+
+    def serving_retain(self) -> int:
+        """Previous model versions the registry keeps warm for rollback
+        (``DL4J_TPU_SERVING_RETAIN``)."""
+        return _int(self.property("serving_retain"), 2, 0)
+
+    def serving_manifest_dir(self) -> Optional[str]:
+        """Explicit warmup-manifest directory
+        (``DL4J_TPU_SERVING_MANIFEST_DIR``); None defers to
+        ``runtime.compile_cache.serving_manifest_dir``."""
+        d = self.property("serving_manifest_dir")
+        return os.path.expanduser(d) if d else None
+
+    # -- SLO / debug-observability knobs (serving/slo.py, /debug/*) --------
+    def slo_objective(self) -> float:
+        """Per-model success-rate objective (``DL4J_TPU_SLO_OBJECTIVE``)."""
+        return min(max(_float(self.property("slo_objective"), 0.999), 0.0),
+                   0.999999)
+
+    def slo_latency_s(self) -> Optional[float]:
+        """Optional per-request latency (for generation: TTFT) objective
+        in seconds (``DL4J_TPU_SLO_LATENCY_MS``); <= 0 (default) means
+        only errors and deadline misses count against the SLO."""
+        ms = _float(self.property("slo_latency_ms"), 0.0)
+        return ms / 1e3 if ms > 0 else None
+
+    def slo_windows(self):
+        """Multi-window burn-rate policy (``DL4J_TPU_SLO_WINDOWS`` =
+        ``"<seconds>:<burn>,..."``): ((window_s, burn), ...) sorted short
+        to long."""
+        out = []
+        for part in (self.property("slo_windows") or "").split(","):
+            if ":" not in part:
+                continue
+            w, b = part.split(":", 1)
+            try:
+                out.append((float(w), float(b)))
+            except ValueError:
+                continue
+        if not out:
+            out = [(300.0, 14.4), (3600.0, 6.0)]
+        return tuple(sorted(out))
+
+    def slo_gate_readyz(self) -> bool:
+        """Whether a fast-burning SLO flips ``/readyz`` to 503
+        (``DL4J_TPU_SLO_READYZ``, on by default)."""
+        return self._flag("slo_readyz")
+
+    def request_ring_size(self) -> int:
+        """Capacity of the recent-requests ring behind
+        ``/debug/requests`` and the flight recorder
+        (``DL4J_TPU_REQUEST_RING``)."""
+        return _int(self.property("request_ring"), 256, 1)
+
+    def debug_endpoints_enabled(self) -> bool:
+        """Whether ``/debug/*`` is served (``DL4J_TPU_DEBUG_ENDPOINTS``, on
+        by default)."""
+        return self._flag("debug_endpoints")
+
+    def profile_dir(self) -> str:
+        """Where ``/debug/profile`` captures land
+        (``DL4J_TPU_PROFILE_DIR``); defaults under the cache dir, else the
+        system tmpdir."""
+        d = self.property("profile_dir")
+        if d:
+            return os.path.expanduser(d)
+        base = self.cache_dir()
+        if base:
+            return os.path.join(base, "profiles")
+        import tempfile
+        return os.path.join(tempfile.gettempdir(), "dl4j_tpu_profiles")
+
+    def flight_recorder_dir(self) -> Optional[str]:
+        """Where SIGTERM/SIGQUIT flight-recorder dumps land
+        (``DL4J_TPU_FLIGHT_RECORDER_DIR``); defaults under the cache dir;
+        None (recorder off) when neither is set."""
+        d = self.property("flight_recorder_dir")
+        if d:
+            return os.path.expanduser(d)
+        base = self.cache_dir()
+        return os.path.join(base, "flight") if base else None
+
+    # -- resilience knobs (serving/resilience.py, serving/registry.py) -----
+    def breaker_threshold(self) -> int:
+        """Consecutive dispatch failures that open a model version's
+        circuit breaker (``DL4J_TPU_BREAKER_THRESHOLD``)."""
+        return _int(self.property("breaker_threshold"), 5, 1)
+
+    def breaker_probe_s(self) -> float:
+        """How long an open breaker fails fast before one half-open probe
+        (``DL4J_TPU_BREAKER_PROBE_S``)."""
+        return max(_float(self.property("breaker_probe_s"), 1.0), 0.001)
+
+    def auto_rollback(self) -> bool:
+        """Whether a persistently open breaker with a warm parked previous
+        version rolls back (``DL4J_TPU_AUTO_ROLLBACK``, off by default)."""
+        return self._flag("auto_rollback")
+
+    def auto_rollback_opens(self) -> int:
+        """Consecutive breaker opens that count as persistently open
+        (``DL4J_TPU_AUTO_ROLLBACK_OPENS``)."""
+        return _int(self.property("auto_rollback_opens"), 2, 1)
+
+    def watchdog_factor(self) -> float:
+        """Dispatch-watchdog budget as a multiple of the default serving
+        deadline (``DL4J_TPU_WATCHDOG_FACTOR``); <= 0 disables it."""
+        return _float(self.property("watchdog_factor"), 3.0)
 
 def environment() -> Environment:
     return Environment.get()

@@ -8,7 +8,8 @@ Injection sites are string names on the hot paths (``decode.prefill``,
 ``if faults.active():`` — one module-global bool read — so a process
 with no armed rule pays nothing. Rules are armed with :func:`inject` /
 :func:`injected`; a ``times`` budget and a ``predicate`` over the
-call-site context bound when one fires.
+call-site context bound when one fires; :func:`stats` describes the armed
+rules. The HTTP handler's site is ``http.handler``.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ class InjectedFault(RuntimeError):
 class _FaultRule:
     """One armed rule at one site."""
 
-    __slots__ = ("site", "kind", "rate", "delay_s", "times", "predicate",
-                 "_rng", "triggered", "_lock")
+    __slots__ = ("site", "kind", "rate", "seed", "delay_s", "times",
+                 "predicate", "_rng", "triggered", "checked", "_lock")
 
     def __init__(self, site: str, kind: str = "error", rate: float = 1.0,
                  seed: int = 0, delay_s: float = 0.0,
@@ -44,11 +45,13 @@ class _FaultRule:
         self.site = str(site)
         self.kind = kind
         self.rate = float(rate)
+        self.seed = int(seed)
         self.delay_s = float(delay_s)
         self.times = times if times is None else int(times)
         self.predicate = predicate
         self._rng = random.Random(int(seed))
         self.triggered = 0
+        self.checked = 0
         self._lock = ordered_lock("faults.registry")
 
     def fire(self, ctx: Dict[str, Any]) -> bool:
@@ -57,12 +60,18 @@ class _FaultRule:
         if self.predicate is not None and not self.predicate(ctx):
             return False
         with self._lock:
+            self.checked += 1
             if self.times is not None and self.triggered >= self.times:
                 return False
             if self.rate < 1.0 and self._rng.random() >= self.rate:
                 return False
             self.triggered += 1
         return True
+
+    def describe(self) -> Dict[str, Any]:
+        return {"site": self.site, "kind": self.kind, "rate": self.rate,
+                "seed": self.seed, "times": self.times,
+                "checked": self.checked, "triggered": self.triggered}
 
 
 #: site -> armed rules. `_active` mirrors bool(_RULES).
@@ -136,6 +145,13 @@ def check(site: str, **ctx):
             time.sleep(rule.delay_s)
         else:
             raise InjectedFault(site)
+
+
+def stats() -> List[Dict[str, Any]]:
+    """Describe every armed rule (checked/triggered counts included): the
+    ``/debug/resilience`` and flight-recorder view."""
+    with _RULES_LOCK:
+        return [r.describe() for rules in _RULES.values() for r in rules]
 
 
 class ExponentialBackoff:

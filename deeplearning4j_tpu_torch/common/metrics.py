@@ -2,8 +2,12 @@
 
 A copy of the JAX package's ``common/metrics.py`` (the port imports
 nothing from that package), cut to what the serving slice uses: the
-registry, the three metric kinds, ``exponential_buckets`` and the
-Prometheus text view. Metric names are the JAX package's
+registry, the three metric kinds, ``exponential_buckets`` /
+``linear_buckets``, histogram quantiles, the JSON ``snapshot`` that
+``/metrics.json`` serves and the Prometheus text view, and the scrape-time
+``dl4j_uptime_seconds`` / ``dl4j_build_info`` gauges (labelled with the
+torch and CUDA versions and the platform in place of the JAX package's
+jax/jaxlib labels). Metric names are the JAX package's
 (``dl4j_decode_*``, ``dl4j_kv_*``, ``dl4j_kernel_dispatch_total``, ...), so
 a dashboard reads either package the same way.
 
@@ -30,6 +34,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from .locks import ordered_lock
 
+#: process telemetry epoch: dl4j_uptime_seconds measures from here
+_START_TIME = time.time()
+
 
 def exponential_buckets(start: float, factor: float,
                         count: int) -> Tuple[float, ...]:
@@ -38,6 +45,13 @@ def exponential_buckets(start: float, factor: float,
     if start <= 0 or factor <= 1 or count < 1:
         raise ValueError("need start > 0, factor > 1, count >= 1")
     return tuple(start * factor ** i for i in range(count))
+
+
+def linear_buckets(start: float, width: float,
+                   count: int) -> Tuple[float, ...]:
+    if width <= 0 or count < 1:
+        raise ValueError("need width > 0, count >= 1")
+    return tuple(start + width * i for i in range(count))
 
 
 #: default latency buckets: 1us .. ~8.4s, x2 per rung
@@ -155,6 +169,34 @@ class _HistogramChild:
     def count(self) -> int:
         return self._count
 
+    def sum(self) -> float:
+        return self._sum
+
+    def quantile(self, q: float) -> float:
+        """Estimate the q-quantile (0..1) by linear interpolation inside
+        the buckets (the histogram_quantile rule). Observations past the
+        top bound clamp to it."""
+        with self._lock:
+            counts, total = list(self._counts), self._count
+        if total == 0:
+            return float("nan")
+        rank = q * total
+        cum = 0.0
+        for i, c in enumerate(counts):
+            prev_cum = cum
+            cum += c
+            if cum >= rank and c > 0:
+                if i >= len(self._bounds):  # +Inf bucket
+                    return self._bounds[-1]
+                lo = self._bounds[i - 1] if i > 0 else 0.0
+                hi = self._bounds[i]
+                return lo + (hi - lo) * (rank - prev_cum) / c
+        return self._bounds[-1]
+
+    def percentiles(self) -> Dict[str, float]:
+        return {"p50": self.quantile(0.50), "p90": self.quantile(0.90),
+                "p99": self.quantile(0.99)}
+
 
 class _Family:
     """A named metric with a fixed label set; unlabeled families act as
@@ -222,6 +264,9 @@ class _Family:
     def count(self) -> int:
         return self._require_default().count()
 
+    def quantile(self, q: float) -> float:
+        return self._require_default().quantile(q)
+
     def children(self) -> List[Tuple[Tuple[str, ...], object]]:
         with self._lock:
             return sorted(self._children.items())
@@ -272,6 +317,37 @@ class MetricsRegistry:
         b = tuple(sorted(float(x) for x in (buckets or DEFAULT_BUCKETS)))
         return self._get_or_create(name, help, "histogram", labels, b)
 
+    def snapshot(self) -> Dict[str, dict]:
+        """JSON-able view: per family, the type/help and every labelled
+        series; histograms add sum/count, the raw bucket counts and
+        p50/p90/p99 (None while empty, so the view stays strict JSON)."""
+        out = {}
+        for name in sorted(self._families):
+            fam = self._families[name]
+            series = []
+            for key, child in fam.children():
+                labels = dict(zip(fam.label_names, key))
+                if fam.kind == "histogram":
+                    with child._lock:
+                        n = child._count
+                        s = child._sum
+                        counts = list(child._counts)
+                    pct = child.percentiles() if n else {
+                        "p50": None, "p90": None, "p99": None}
+                    entry = {"labels": labels, "count": n, "sum": s,
+                             "bounds": list(child._bounds),
+                             "bucket_counts": counts, **pct}
+                    ex = child.exemplars()
+                    if ex:
+                        entry["exemplars"] = ex
+                    series.append(entry)
+                else:
+                    series.append({"labels": labels,
+                                   "value": child.value()})
+            out[name] = {"type": fam.kind, "help": fam.help,
+                         "series": series}
+        return out
+
     def prometheus_text(self) -> str:
         """Prometheus text exposition format (version 0.0.4)."""
         lines = []
@@ -300,6 +376,53 @@ class MetricsRegistry:
                     ls = _label_str(fam.label_names, key)
                     lines.append(f"{name}{ls} {_fmt(child.value())}")
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- process-identity gauges (dl4j_uptime_seconds, dl4j_build_info) --------
+
+_BUILD_LABELS: Optional[Dict[str, str]] = None
+
+
+def _build_labels() -> Dict[str, str]:
+    """Label values of dl4j_build_info, resolved once: the torch and CUDA
+    versions, the platform the card (or the CPU) gives, and whether the
+    cache volume is enabled. Never raises."""
+    global _BUILD_LABELS
+    if _BUILD_LABELS is None:
+        labels = {"torch_version": "unavailable",
+                  "cuda_version": "none", "platform": "unavailable",
+                  "cache": "unknown"}
+        try:
+            import torch
+            labels["torch_version"] = torch.__version__
+            labels["cuda_version"] = str(torch.version.cuda or "none")
+            labels["platform"] = ("gpu" if torch.cuda.is_available()
+                                  else "cpu")
+        except Exception:
+            pass
+        try:
+            from .environment import environment
+            labels["cache"] = ("enabled" if environment().cache_dir()
+                               else "disabled")
+        except Exception:
+            pass
+        _BUILD_LABELS = labels
+    return _BUILD_LABELS
+
+
+def touch_runtime_info(reg: Optional[MetricsRegistry] = None):
+    """Refresh the scrape-time gauges: uptime since telemetry import, and
+    the constant-1 ``dl4j_build_info`` whose labels carry the build and
+    runtime identity. Every ``/metrics`` render calls it."""
+    reg = reg or registry()
+    reg.gauge("dl4j_uptime_seconds",
+              "Seconds since process telemetry initialized").set(
+                  time.time() - _START_TIME)
+    labels = _build_labels()
+    reg.gauge("dl4j_build_info",
+              "Constant 1; build/runtime identity in the labels",
+              labels=tuple(sorted(labels))).labels(**labels).set(1)
+    return reg
 
 
 _REGISTRY: Optional[MetricsRegistry] = None

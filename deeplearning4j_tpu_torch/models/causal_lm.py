@@ -38,8 +38,8 @@ import torch.nn.functional as F
 
 from ..kernels import (attention_dispatch, flash_attention,
                        paged_flash_decode)
-from ..quant.transforms import (QuantizedTensor, dequant_matmul, dequantize,
-                                take_rows, tied_logits)
+from ..quant.transforms import (QuantizedTensor, _leaves, dequant_matmul,
+                                dequantize, take_rows, tied_logits)
 from .bert import _ln
 
 
@@ -394,6 +394,18 @@ def paged_decode(params, cache, tables, tokens, lengths,
         out = _proj("sqhd,hde->sqe", ctx, a["wo"], a["bo"])
         h = _mlp_ln(layer, h, out, c)
     return cache, _lm_logits(params, h)
+
+
+def count_params(params) -> int:
+    """Elements in a params tree. A ``QuantizedTensor`` counts its ``q``
+    and its ``scale``, as the JAX package's ``tree_leaves`` sees them."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, QuantizedTensor):
+            total += leaf.q.numel() + leaf.scale.numel()
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel()
+    return total
 
 
 class CausalLM:

@@ -2,21 +2,28 @@
 
 Counterpart of ``deeplearning4j_tpu/quant/transforms.py``. Weight-only
 PTQ, per-channel symmetric: the scale is ``absmax(W, reduction_axes) /
-127`` (one per output channel, never per tensor) and the stored value is
-``round(W / scale)`` in int8. Weights stay int8 at rest — in the params
-dict and in device memory — and each consumer dequantizes inside its own
-op. Activations are not quantized.
+qmax`` (one per output channel, never per tensor) and the stored value is
+``round(W / scale)`` in int8 (qmax 127) or ``W / scale`` cast to
+``float8_e4m3fn`` (qmax 448). Weights stay quantized at rest — in the
+params dict and in device memory — and each consumer dequantizes inside
+its own op. Activations are not quantized, except on the fp8 path.
 
-The MLP contraction of an int8 twin, ``dequant_matmul``, runs the
-hand-written kernel ``csrc/dequant_matmul.cu`` for CUDA tensors and its
-plain version for CPU tensors. Every other use of a quantized weight
-(the 3-D attention projections, the tied embedding head, the embedding
-lookup) dequantizes with plain PyTorch ops, as the JAX package leaves
-those to XLA.
+The MLP contraction of a twin, ``dequant_matmul``:
 
-The fp8 storage mode and ``QuantSpec`` (``quant/calibrate.py``) are not
-ported yet; ``quantize_params`` reads its spec duck-typed, through the
-same fields as the JAX package.
+- int8: the hand-written kernel ``csrc/dequant_matmul.cu`` for CUDA
+  tensors and its plain version for CPU tensors;
+- fp8: the activation is scaled per tensor and cast to fp8, and the
+  contraction sums in f32. The JAX package runs an XLA ``dot_general``
+  there, not a Pallas kernel, so the port calls ``torch._scaled_mm`` on a
+  CUDA tensor (its second operand is laid out column-major once, by
+  :class:`QuantizedTensor`) and, on the CPU or where K or N is not a
+  multiple of 16, the f32 product of the upcast operands;
+  ``dl4j_kernel_dispatch_total{kernel="dequant_matmul_fp8"}`` says which.
+
+Every other use of a quantized weight (the 3-D attention projections, the
+tied embedding head, the embedding lookup) dequantizes with plain PyTorch
+ops, as the JAX package leaves those to XLA. ``quantize_params`` reads a
+``quant.calibrate.QuantSpec`` (any object with its fields will do).
 """
 from __future__ import annotations
 
@@ -25,8 +32,9 @@ import dataclasses
 
 import torch
 
-#: saturation range of the int8 storage format
+#: saturation range of the two storage formats
 _INT8_QMAX = 127.0
+_FP8_QMAX = 448.0  # float8_e4m3fn finite max
 _ACT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -49,14 +57,43 @@ def default_act_dtype(device) -> str:
     return "bfloat16" if torch.device(device).type == "cuda" else "float32"
 
 
+def fp8_supported(device=None) -> bool:
+    """Whether fp8 quantization can run here: ``torch.float8_e4m3fn``
+    exists and, on a CUDA device (``device``, else the current one when a
+    card is present), its compute capability is at least 8.9 (Ada,
+    Hopper). A CPU device takes the f32-upcast product and needs only the
+    dtype."""
+    if not hasattr(torch, "float8_e4m3fn"):
+        return False
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    return torch.cuda.get_device_capability(device) >= (8, 9)
+
+
+def _is_fp8_matmul_weight(q, scale) -> bool:
+    """A 2-D fp8 payload with one scale per output channel: the weight
+    :func:`dequant_matmul` hands to ``torch._scaled_mm``."""
+    return ("float8" in str(q.dtype) and q.dim() == 2
+            and scale.dim() == 2 and scale.shape[0] == 1)
+
+
 class QuantizedTensor:
-    """One quantized weight: ``q`` (int8, full shape) + ``scale`` (f32,
-    keepdims-broadcast over the reduction axes). Dequantized value is
-    ``q * scale`` in f32, cast to the consumer's compute dtype."""
+    """One quantized weight: ``q`` (int8 or fp8, full shape) + ``scale``
+    (f32, keepdims-broadcast over the reduction axes). Dequantized value
+    is ``q * scale`` in f32, cast to the consumer's compute dtype.
+
+    A per-output-channel 2-D fp8 ``q`` is laid out column-major here, once
+    (``torch._scaled_mm`` wants its second operand so), whoever builds the
+    weight; every other ``q`` is kept as given."""
 
     __slots__ = ("q", "scale", "orig_dtype")
 
     def __init__(self, q, scale, orig_dtype: str = "float32"):
+        if _is_fp8_matmul_weight(q, scale) and q.stride(0) != 1:
+            q = q.t().contiguous().t()
         self.q = q
         self.scale = scale
         self.orig_dtype = dtype_name(torch_dtype(orig_dtype))
@@ -80,6 +117,10 @@ class QuantizedTensor:
     def numel(self) -> int:
         return self.q.numel()
 
+    @property
+    def nbytes(self) -> int:
+        return int(self.q.nbytes) + int(self.scale.nbytes)
+
     def astype(self, dtype):
         """No-op: quantized storage is compute-dtype-invariant — the cast
         happens at dequantization, inside the consuming op."""
@@ -91,7 +132,7 @@ class QuantizedTensor:
 
     @property
     def mode(self) -> str:
-        return "int8"
+        return "fp8" if "float8" in str(self.q.dtype) else "int8"
 
     def __repr__(self):
         return (f"QuantizedTensor(shape={tuple(self.shape)}, "
@@ -102,17 +143,11 @@ def quantize_tensor(w, axes=None, mode: str = "int8") -> QuantizedTensor:
     """Per-channel symmetric quantization of one weight. ``axes`` are the
     reduction axes of the absmax (default: every axis but the last, one
     scale per output channel; embedding tables pass ``range(1, ndim)``
-    for per-row scales). ``round`` is round-half-to-even, as ``jnp.round``,
-    so ``q`` is bit-identical to the JAX package's."""
+    for per-row scales). int8 rounds half to even, as ``jnp.round``; the
+    fp8 cast rounds to nearest even, as ``jnp.astype``; so ``q`` is
+    bit-identical to the JAX package's either way."""
     if isinstance(w, QuantizedTensor):
         return w
-    if mode == "fp8":
-        raise NotImplementedError(
-            "fp8 quantization is not ported yet (ROADMAP.md: fp8 "
-            "dequant_matmul)")
-    if mode != "int8":
-        raise ValueError(f"unknown quantization mode {mode!r} "
-                         "(expected 'int8' or 'fp8')")
     orig = dtype_name(w.dtype)
     w32 = w.float()
     if axes is None:
@@ -120,9 +155,21 @@ def quantize_tensor(w, axes=None, mode: str = "int8") -> QuantizedTensor:
     axes = tuple(axes)
     amax = torch.clamp_min(torch.amax(w32.abs(), dim=axes, keepdim=True),
                            1e-12)
-    scale = amax / _INT8_QMAX
-    q = torch.clamp(torch.round(w32 / scale),
-                    -_INT8_QMAX, _INT8_QMAX).to(torch.int8)
+    if mode == "int8":
+        scale = amax / _INT8_QMAX
+        q = torch.clamp(torch.round(w32 / scale),
+                        -_INT8_QMAX, _INT8_QMAX).to(torch.int8)
+    elif mode == "fp8":
+        if not fp8_supported(w.device):
+            raise ValueError(
+                f"fp8 quantization requested but fp8_supported({w.device})"
+                " is False (needs torch.float8_e4m3fn and, on CUDA, "
+                "compute capability 8.9 or later)")
+        scale = amax / _FP8_QMAX
+        q = (w32 / scale).to(torch.float8_e4m3fn)
+    else:
+        raise ValueError(f"unknown quantization mode {mode!r} "
+                         "(expected 'int8' or 'fp8')")
     return QuantizedTensor(q, scale, orig_dtype=orig)
 
 
@@ -235,18 +282,74 @@ def _fused_dequant_matmul(x2, q, scale):
 _fused_dequant_matmul.launches = 0
 
 
+# -- the fp8 branch (an XLA dot_general in the JAX package) -----------------
+
+def fp8_matmul_plain(xq, wq, sx, out_scale):
+    """The fp8 contraction computed from its f32-upcast operands: exact
+    per product (fp8 x fp8 fits f32), summed in f32, then scaled by
+    ``sx * out_scale``. ``xq`` [M, K] and ``wq`` [K, N] fp8, ``sx`` the
+    activation's scale (a 0-d tensor), ``out_scale`` [N] f32; f32 out."""
+    return torch.matmul(xq.float(), wq.float()) * (sx * out_scale)
+
+
+#: (K, N) granularity torch._scaled_mm takes
+_SCALED_MM_ALIGN = 16
+
+
+def _fp8_route(x2, wq):
+    """("scaled_mm", "") for a CUDA activation whose K and N
+    ``torch._scaled_mm`` takes, else ("plain", why)."""
+    K, N = wq.shape
+    if not x2.is_cuda:
+        return "plain", f"{x2.device.type} tensor (_scaled_mm runs on CUDA)"
+    if K % _SCALED_MM_ALIGN or N % _SCALED_MM_ALIGN:
+        return "plain", (f"K={K} N={N} not multiples of "
+                         f"{_SCALED_MM_ALIGN} (_scaled_mm's granularity)")
+    return "scaled_mm", ""
+
+
+def _fp8_dequant_matmul(x, w):
+    """``x @ W`` for a per-output-channel fp8 ``W``: the activation is
+    scaled per tensor (``sx = amax|x| / 448``, in ``x``'s dtype) and cast
+    to fp8, the product sums in f32, and the result is scaled by ``sx *
+    out_scale`` and cast to ``x``'s dtype, as in the JAX package."""
+    from ..kernels import kernel_dispatch
+    out_scale = w.scale.reshape(-1)
+    sx = torch.clamp_min(torch.amax(x.abs()), 1e-12) / _FP8_QMAX
+    x2 = (x / sx).to(w.q.dtype).reshape(-1, x.shape[-1])
+    route, why = _fp8_route(x2, w.q)
+    kernel_dispatch("dequant_matmul_fp8", route, why)
+    if route == "scaled_mm":
+        if w.q.stride(0) != 1:
+            raise ValueError(f"dequant_matmul: the fp8 weight has strides "
+                             f"{w.q.stride()}; QuantizedTensor lays it out "
+                             "column-major for torch._scaled_mm")
+        one = torch.ones((), dtype=torch.float32, device=x.device)
+        out = torch._scaled_mm(x2, w.q,
+                               scale_a=sx.float(), scale_b=one,
+                               out_dtype=torch.float32)
+        if isinstance(out, tuple):   # older torch returns (out, amax)
+            out = out[0]
+        out = out * out_scale
+    else:
+        out = fp8_matmul_plain(x2, w.q, sx, out_scale)
+    return out.to(x.dtype).reshape(tuple(x.shape[:-1]) + (w.q.shape[1],))
+
+
 def dequant_matmul(x, w):
-    """``x @ W`` with int8-at-rest ``W`` (last-dim contraction, any
+    """``x @ W`` with int8/fp8-at-rest ``W`` (last-dim contraction, any
     leading ``x`` dims). A per-output-channel 2-D int8 weight goes
-    through the fused kernel on CUDA and its plain version on the CPU;
-    any other quantized weight is dequantized first; plain tensors pass
-    straight to ``torch.matmul`` so one code path serves both
-    precisions."""
+    through the fused kernel on CUDA and its plain version on the CPU; a
+    2-D fp8 weight through :func:`_fp8_dequant_matmul`; any other
+    quantized weight is dequantized first; plain tensors pass straight to
+    ``torch.matmul`` so one code path serves every precision."""
     if not isinstance(w, QuantizedTensor):
         return torch.matmul(x, w)
     if w.ndim != 2 or w.scale.shape[0] != 1:
         # not a per-output-channel 2D weight: dequantize then contract
         return torch.matmul(x, dequantize(w, x.dtype))
+    if w.mode == "fp8":
+        return _fp8_dequant_matmul(x, w)
     from ..kernels import kernel_dispatch
     if x.is_cuda:
         kernel_dispatch("dequant_matmul", "fused")
@@ -284,6 +387,7 @@ def tied_logits(h, w):
 # -- params -> params recipes ----------------------------------------------
 
 def _spec_field(spec, name, default):
+    # a QuantSpec, or any object with its fields (None = the defaults)
     return getattr(spec, name, default) if spec is not None else default
 
 
@@ -339,7 +443,7 @@ def _to_device(node, device):
 
 
 def quantize_model(model, spec=None, *, device="cuda"):
-    """An inference-only int8 twin of a CausalLM-protocol model
+    """An inference-only int8/fp8 twin of a CausalLM-protocol model
     (``init_kv_cache``/``prefill``/``decode`` + ``params``/``config``): a
     new instance of the same class on ``device`` over quantized params,
     config dtype flipped to the activation dtype (``spec.act_dtype``, else
@@ -379,8 +483,8 @@ def _leaves(node):
 
 
 def precision_of(params) -> str:
-    """Dominant storage precision of a params tree: ``int8`` when any
-    leaf is quantized, else the widest floating dtype seen."""
+    """Dominant storage precision of a params tree: ``int8``/``fp8`` when
+    any leaf is quantized, else the widest floating dtype seen."""
     seen = set()
     for leaf in _leaves(params):
         if isinstance(leaf, QuantizedTensor):
@@ -398,3 +502,19 @@ def precision_of_model(model) -> str:
     if p is None and isinstance(model, (dict, list)):
         p = model
     return precision_of(p) if p is not None else "float32"
+
+
+def param_bytes(params) -> int:
+    """At-rest parameter bytes (quantized leaves count q + scale)."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, (QuantizedTensor, torch.Tensor)):
+            total += int(leaf.nbytes)
+    return total
+
+
+def param_bytes_of(model) -> int:
+    p = getattr(model, "params", None)
+    if p is None and isinstance(model, (dict, list)):
+        p = model
+    return param_bytes(p) if p is not None else 0

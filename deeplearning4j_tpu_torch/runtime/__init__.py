@@ -1,1 +1,2 @@
-"""Serving runtime: the continuous-batching decode engine."""
+"""Serving runtime: the continuous-batching decode engine, its request
+errors, and the serving-manifest half of the compile cache."""

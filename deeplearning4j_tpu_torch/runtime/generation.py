@@ -39,7 +39,10 @@ PyTorch on the model's device.
 
 The KV pools are written in place by the model's step functions (the JAX
 package donates them to its jitted steps instead). Tensor-parallel decode
-(``mesh=``/``param_spec=``) waits for the parallelism slice.
+(``mesh=``/``param_spec=``) waits for the parallelism slice. The engine
+carries the JAX package's registry-compat surface (``max_batch``,
+``manifest_path``, ``observed_entries()``) and the dispatch instant the
+serving watchdog reads (``_dispatch_started_at``).
 
 Observability (the JAX package's names): ``dl4j_decode_requests_total``,
 ``dl4j_decode_tokens_total``, ``dl4j_decode_steps_total``,
@@ -49,7 +52,9 @@ Observability (the JAX package's names): ``dl4j_decode_requests_total``,
 ``dl4j_kv_prefix_{hits,misses,evictions}_total``,
 ``dl4j_kv_prefix_blocks{model}``, ``dl4j_decode_ttft_seconds{model}``
 (exemplared with trace ids), ``dl4j_decode_itl_seconds{model}`` and the
-goodput split ``dl4j_tokens_total{model,slo=ok|violated}``. Each
+goodput split ``dl4j_tokens_total{model,slo=ok|violated}``; each step
+``warmup()`` runs lands on ``dl4j_compile_seconds{kind,cache="bypass"}``
+(nothing is stored: the port's steps run eagerly). Each
 request's trace gains ``generation/prefill`` and ``generation/decode``
 spans, and its result carries a ``phases`` dict
 (``queue_s``/``prefill_s``/``decode_s``).
@@ -70,6 +75,7 @@ from ..common.environment import environment
 from ..common.locks import ordered_condition, ordered_lock, ordered_rlock
 from ..common.metrics import exponential_buckets, registry
 from ..common.tracing import current_context, record_disposition, tracer
+from .compile_cache import observe_compile
 from .inference import EngineClosedError, bucket_for, bucket_ladder
 
 log = logging.getLogger(__name__)
@@ -183,6 +189,10 @@ class _BlockAllocator:
     @property
     def free_count(self) -> int:
         return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return len(self._refs)
 
     def alloc(self, n: int) -> Optional[List[int]]:
         if n > len(self._free):
@@ -485,8 +495,13 @@ class DecodeEngine:
         self._stopping = False
         self._draining = False
         self._closed = False
-        # supervised-loop state
+        # supervised-loop state + the watchdog-readable dispatch instant
+        # (serving/resilience.py polls both from outside)
         self._worker_dead = False
+        self._dispatch_started_at: Optional[float] = None
+        # registry-compat surface (the manifest machinery is predict-only)
+        self.max_batch = self.slots
+        self.manifest_path = None
         self._stats_lock = ordered_lock("decode.stats")
         self._stats = {"requests": 0, "tokens": 0, "decode_steps": 0,
                        "prefills": 0, "prefill_dispatches": 0,
@@ -681,47 +696,60 @@ class DecodeEngine:
             faults.check("decode.prefill", batch=ids.shape[0],
                          bucket=ids.shape[1])
         with self._dispatch_lock, torch.no_grad():
-            args = (self._t(ids), self._t(tables), self._t(lengths),
-                    self._t(starts), self._t(temps, torch.float32),
-                    self._t(top_ks), self._seed, self._step)
-            if self._spec_enabled:
-                cache, dcache, toks = self._prefill(
-                    self._params, self._dparams, self._cache, self._dcache,
-                    *args)
-                self._dcache = dcache
-            else:
-                cache, toks = self._prefill(self._params, self._cache, *args)
-            self._cache = cache
-            self._step += 1
-            return toks.cpu().numpy()
+            self._dispatch_started_at = time.monotonic()
+            try:
+                args = (self._t(ids), self._t(tables), self._t(lengths),
+                        self._t(starts), self._t(temps, torch.float32),
+                        self._t(top_ks), self._seed, self._step)
+                if self._spec_enabled:
+                    cache, dcache, toks = self._prefill(
+                        self._params, self._dparams, self._cache,
+                        self._dcache, *args)
+                    self._dcache = dcache
+                else:
+                    cache, toks = self._prefill(self._params, self._cache,
+                                                *args)
+                self._cache = cache
+                self._step += 1
+                return toks.cpu().numpy()
+            finally:
+                self._dispatch_started_at = None
 
     def _run_decode(self, active):
         if faults.active():
             faults.check("decode.step", active=int(np.sum(active)))
         with self._dispatch_lock, torch.no_grad():
-            cache, nxt = self._decode(
-                self._params, self._cache, self._t(self._tables),
-                self._t(self._tokens), self._t(self._lengths),
-                self._t(active, torch.bool),
-                self._t(self._temps, torch.float32),
-                self._t(self._topks), self._seed, self._step)
-            self._cache = cache
-            self._step += 1
-            return nxt.cpu().numpy()
+            self._dispatch_started_at = time.monotonic()
+            try:
+                cache, nxt = self._decode(
+                    self._params, self._cache, self._t(self._tables),
+                    self._t(self._tokens), self._t(self._lengths),
+                    self._t(active, torch.bool),
+                    self._t(self._temps, torch.float32),
+                    self._t(self._topks), self._seed, self._step)
+                self._cache = cache
+                self._step += 1
+                return nxt.cpu().numpy()
+            finally:
+                self._dispatch_started_at = None
 
     def _run_spec(self, active):
         if faults.active():
             faults.check("decode.step", active=int(np.sum(active)),
                          spec=True)
         with self._dispatch_lock, torch.no_grad():
-            cache, dcache, commit, n_commit = self._spec(
-                self._params, self._dparams, self._cache, self._dcache,
-                self._t(self._tables), self._t(self._tokens),
-                self._t(self._lengths), self._t(active, torch.bool))
-            self._cache = cache
-            self._dcache = dcache
-            self._step += 1
-            return commit.cpu().numpy(), n_commit.cpu().numpy()
+            self._dispatch_started_at = time.monotonic()
+            try:
+                cache, dcache, commit, n_commit = self._spec(
+                    self._params, self._dparams, self._cache, self._dcache,
+                    self._t(self._tables), self._t(self._tokens),
+                    self._t(self._lengths), self._t(active, torch.bool))
+                self._cache = cache
+                self._dcache = dcache
+                self._step += 1
+                return commit.cpu().numpy(), n_commit.cpu().numpy()
+            finally:
+                self._dispatch_started_at = None
 
     # -- warmup ------------------------------------------------------------
     def warmup(self) -> List[int]:
@@ -736,24 +764,27 @@ class DecodeEngine:
                     "warmup() while sequences are active would overwrite "
                     "live KV rows; warm before taking traffic")
         warmed = []
+
+        def timed(kind, fn, *args):
+            t0 = time.perf_counter()
+            fn(*args)
+            observe_compile(kind, "bypass", time.perf_counter() - t0)
         for b in self.ladder:
             for bb in self.batch_ladder:
                 key = ("prefill", bb, b)
                 if key not in self._warmed:
-                    self._run_prefill(np.zeros((bb, b), np.int32),
-                                      np.zeros((bb, self.max_blocks),
-                                               np.int32),
-                                      np.ones(bb, np.int32),
-                                      np.zeros(bb, np.int32),
-                                      np.zeros(bb, np.float32),
-                                      np.zeros(bb, np.int32))
+                    timed("prefill", self._run_prefill,
+                          np.zeros((bb, b), np.int32),
+                          np.zeros((bb, self.max_blocks), np.int32),
+                          np.ones(bb, np.int32), np.zeros(bb, np.int32),
+                          np.zeros(bb, np.float32), np.zeros(bb, np.int32))
                     self._warmed.add(key)
             warmed.append(b)
         if "decode" not in self._warmed:
-            self._run_decode(np.zeros(self.slots, bool))
+            timed("decode", self._run_decode, np.zeros(self.slots, bool))
             self._warmed.add("decode")
         if self._spec_enabled and "spec" not in self._warmed:
-            self._run_spec(np.zeros(self.slots, bool))
+            timed("spec", self._run_spec, np.zeros(self.slots, bool))
             self._warmed.add("spec")
         return warmed
 
@@ -1560,6 +1591,12 @@ class DecodeEngine:
         self.stop()
 
     # -- introspection -----------------------------------------------------
+    def observed_entries(self) -> List[dict]:
+        """Manifest handoff compatibility: generative warmup is fully
+        determined by (slots, max_ctx, ladder, batch ladder), so there is
+        nothing to replay from observed traffic."""
+        return []
+
     def debug_snapshot(self) -> Dict[str, Any]:
         """Live slot map + block tables: which sequence owns which slot,
         how many rows it committed, which pool blocks back it — plus the

@@ -1,5 +1,5 @@
-"""The bucket-ladder helpers and the closed-engine error that
-``runtime/generation.py`` uses, from the JAX package's
+"""The bucket-ladder helpers and the two request errors that
+``runtime/generation.py`` and ``serving/`` use, from the JAX package's
 ``runtime/inference.py``.
 
 The JAX package's ``counted_jit`` has no counterpart: the port calls its
@@ -40,3 +40,14 @@ def bucket_for(n: int, ladder: Sequence[int]) -> Optional[int]:
 class EngineClosedError(RuntimeError):
     """Raised by ``generate()`` once the engine is draining or closed:
     late requests fail fast with a signal the caller can act on."""
+
+
+class PoisonRequestError(RuntimeError):
+    """A request that failed its coalesced dispatch AND its one isolated
+    re-dispatch: the failure follows the request, not the batch, so it is
+    quarantined (HTTP 422 with trace id). Carries the underlying dispatch
+    error as ``cause``."""
+
+    def __init__(self, message: str, cause: Optional[BaseException] = None):
+        super().__init__(message)
+        self.cause = cause

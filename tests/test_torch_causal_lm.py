@@ -252,3 +252,14 @@ def test_paged_pool_layout_and_scratch_block():
                                        c.head_dim)
     with pytest.raises(ValueError, match="scratch"):
         tcl.init_paged_kv_cache(c, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+def test_count_params_matches_jax(pair, mode):
+    """``count_params`` counts a quantized leaf's q and scale, as the JAX
+    package's ``tree_leaves`` does."""
+    jm, tm = pair
+    jp, tp = jm.params, tm.params
+    if mode is not None:
+        jp, tp = jt.quantize_params(jp), tt.quantize_params(tp)
+    assert tcl.count_params(tp) == jcl.count_params(jp) > 0

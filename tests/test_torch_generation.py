@@ -303,3 +303,72 @@ def test_tensor_parallel_decode_waits_for_its_slice(pair):
     _, tm = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tm, device="cpu", mesh=object(), **ENGINE_KW)
+
+
+def test_registry_compat_surface_matches_jax(pair):
+    """What ``serving/registry.py`` reads of an engine (``describe``,
+    manifest save, the watchdog): ``max_batch``, ``manifest_path``,
+    ``observed_entries()`` and the idle dispatch instant, as the JAX
+    package's engine has them."""
+    jm, tm = pair
+    ref = JaxEngine(jm, **ENGINE_KW)
+    eng = DecodeEngine(tm, device="cpu", **ENGINE_KW)
+    try:
+        for e in (ref, eng):
+            assert e.max_batch == e.slots == 2
+            assert e.manifest_path is None
+            assert e.observed_entries() == []
+            assert e._dispatch_started_at is None
+        assert eng.ladder == ref.ladder
+    finally:
+        ref.close(10)
+        eng.close(10)
+
+
+def test_block_pool_used_count_matches_jax(pair):
+    """``used_count`` is the number of outstanding blocks, beside
+    ``free_count``, on both sides, through a request's life."""
+    jm, tm = pair
+    ref = JaxEngine(jm, **ENGINE_KW)
+    eng = DecodeEngine(tm, device="cpu", **ENGINE_KW)
+    try:
+        for e in (ref, eng):
+            a = e._alloc
+            assert a.used_count == 0 and a.free_count == a.total
+            blocks = a.alloc(3)
+            assert a.used_count == 3 and a.free_count == a.total - 3
+            a.incref(blocks[:1])
+            assert a.used_count == 3          # one block, two refs
+            a.decref(blocks)
+            assert a.used_count == 1
+            a.decref(blocks[:1])
+            assert a.used_count == 0
+            e.generate(_prompt(5, seed=70), max_tokens=3).result(120)
+            assert e._alloc.used_count + e._alloc.free_count \
+                == e._alloc.total
+        assert eng._alloc.used_count == ref._alloc.used_count
+    finally:
+        ref.close(10)
+        eng.close(10)
+
+
+def test_warmup_observes_each_step_on_the_compile_histogram(pair):
+    """The port warms eagerly with nothing stored: each warmed step lands
+    on ``dl4j_compile_seconds{kind,cache="bypass"}``."""
+    _, tm = pair
+    hist = registry().histogram(
+        "dl4j_compile_seconds",
+        "Wall time to materialize + first-run an executable, by cache "
+        "outcome", labels=("kind", "cache"))
+    before = {k: hist.labels(kind=k, cache="bypass").count()
+              for k in ("prefill", "decode")}
+    eng = DecodeEngine(tm, device="cpu", **ENGINE_KW)
+    try:
+        eng.warmup()
+    finally:
+        eng.close(10)
+    n_prefill = len(eng.ladder) * len(eng.batch_ladder)
+    assert hist.labels(kind="prefill", cache="bypass").count() \
+        == before["prefill"] + n_prefill
+    assert hist.labels(kind="decode", cache="bypass").count() \
+        == before["decode"] + 1

@@ -14,6 +14,11 @@ Tolerances, each with its reason:
   1); 3e-2 absolute covers a few bf16 ulps at O(1).
 - bf16 dequant-matmul: one final rounding to bf16 on either side of an
   f32 sum; rtol 1e-2 (about two bf16 ulps) plus atol 1e-2 near 0.
+- fp8 dequant-matmul on ``torch._scaled_mm`` against the f32-upcast
+  plain product of the same fp8 operands: exact products summed in
+  another order (Hopper's fp8 accumulator keeps fewer bits between its
+  promotions to f32), one final rounding to ``x``'s dtype; rtol 1e-2 plus
+  atol 1e-2 on O(1) outputs.
 - flash attention, against autograd through the plain version: o, dq,
   dk and dv elementwise within an atol plus an rtol, and the error's RMS
   within a fraction of the reference's RMS (``FLASH_TOL``, reasons
@@ -31,9 +36,11 @@ from deeplearning4j_tpu_torch.kernels import (flash_attention,
                                               flash_attention_with_lse_plain,
                                               paged_flash_decode,
                                               paged_flash_decode_plain)
+from deeplearning4j_tpu_torch.kernels import dispatch_snapshot
 from deeplearning4j_tpu_torch.quant.transforms import (
-    _fused_dequant_matmul, crossover_m, dequant_matmul_plain,
-    quantize_tensor, whole_k_max_m)
+    _FP8_QMAX, _fused_dequant_matmul, crossover_m, dequant_matmul,
+    dequant_matmul_plain, fp8_matmul_plain, fp8_supported, quantize_tensor,
+    whole_k_max_m)
 
 pytestmark = pytest.mark.cuda
 
@@ -536,3 +543,58 @@ def test_flash_forward_bf16_explicit_scale(cuda, scale):
     q, k, v, _, mask = _flash_inputs(2, 130, 2, 64, torch.bfloat16, cuda,
                                      True)
     _flash_forward_close(q, k, v, mask=mask, scale=scale)
+
+
+# -- the fp8 branch of dequant_matmul (torch._scaled_mm) --------------------
+
+def _fp8_case(device, M, K, N, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = (0.02 * torch.randn((K, N), generator=g)).to(device)
+    x = torch.randn((M, K), generator=g).to(device=device, dtype=dtype)
+    return x, quantize_tensor(w, mode="fp8")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(1, 768, 3072), (8, 768, 3072),
+                                   (40, 3072, 768), (4096, 768, 3072)])
+def test_fp8_dequant_matmul_matches_plain(cuda, dtype, M, K, N):
+    assert fp8_supported(cuda)
+    x, w = _fp8_case(cuda, M, K, N, dtype)
+    assert w.q.stride() == (1, K)           # laid out for _scaled_mm
+    got = dequant_matmul(x, w)
+    assert dispatch_snapshot()["dequant_matmul_fp8"]["path"] == "scaled_mm"
+    sx = torch.clamp_min(x.abs().amax(), 1e-12) / _FP8_QMAX
+    xq = (x / sx).to(torch.float8_e4m3fn)
+    ref = fp8_matmul_plain(xq, w.q, sx, w.scale.reshape(-1)).to(dtype)
+    assert got.dtype == dtype and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_fp8_dequant_matmul_3d_activation(cuda):
+    x, w = _fp8_case(cuda, 24, 768, 3072, torch.bfloat16, seed=1)
+    got = dequant_matmul(x.reshape(2, 12, 768), w)
+    torch.testing.assert_close(got.reshape(24, 3072), dequant_matmul(x, w))
+
+
+def test_fp8_unaligned_shape_takes_the_stated_plain_route(cuda):
+    """K or N off _scaled_mm's 16-granularity: the f32-upcast product on
+    the card, with the reason in the dispatch record."""
+    x, w = _fp8_case(cuda, 8, 100, 48, torch.bfloat16, seed=2)
+    got = dequant_matmul(x, w)
+    rec = dispatch_snapshot()["dequant_matmul_fp8"]
+    assert rec["path"] == "plain" and "K=100" in rec["reason"]
+    assert got.is_cuda and got.shape == (8, 48)
+
+
+def test_fp8_quantize_on_the_card_matches_the_cpu(cuda):
+    """The f32 -> float8_e4m3fn cast rounds the same on the card as on
+    the CPU (where the tests hold it bit-exact against JAX)."""
+    w = 0.02 * torch.randn((768, 3072),
+                           generator=torch.Generator().manual_seed(3))
+    on_card = quantize_tensor(w.to(cuda), mode="fp8")
+    on_cpu = quantize_tensor(w, mode="fp8")
+    assert torch.equal(on_card.q.cpu().contiguous().view(torch.uint8),
+                       on_cpu.q.contiguous().view(torch.uint8))
+    torch.testing.assert_close(on_card.scale.cpu(), on_cpu.scale,
+                               rtol=1e-6, atol=0)

@@ -1,14 +1,24 @@
-"""The port's int8 quantization and dequantizing ops against the JAX
-package's ``quant/transforms.py``, plus the params bridge.
+"""The port's ``quant/`` against the JAX package's: int8 and fp8
+quantization and the dequantizing ops, the params bridge, the footprint
+helpers, ``QuantSpec`` / ``calibrate`` and the divergence gate, and the
+quantized tiny CausalLM twins.
 
 Inputs come from numpy with a seed. Tolerances:
-- ``q`` is compared bit for bit: both round half to even after the same
-  f32 division;
+- ``q`` is compared bit for bit (int8 as is, fp8 through a ``uint8``
+  view): both round half to even after the same f32 division (the fp8
+  cast rounds to nearest even on both sides);
 - scales at rtol 1e-6 (the same f32 ops; the bound only allows for a
   differently ordered max reduction, which is exact anyway);
 - the fused dequant-matmul (plain version here) against the JAX Pallas
   kernel in interpret mode at atol 1e-5 in f32: both sum the same exact
-  products in f32, in another order, over K <= 256 with O(1) terms.
+  products in f32, in another order, over K <= 256 with O(1) terms;
+- the fp8 dequant-matmul against the JAX fp8 branch at atol 1e-4 in f32:
+  the same fp8 operands (bit-identical casts), exact products summed in
+  f32 in another order, over K <= 256 with O(10) sums;
+- calibrated ranges at rtol 1e-4 and divergence reports at atol 1e-4:
+  f32 forwards of the same weights, which differ by ~1e-5 in the logits;
+- twin logits at atol 1e-4, as the full-precision logits in
+  ``test_torch_causal_lm.py``.
 """
 import numpy as np
 import pytest
@@ -17,11 +27,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import deeplearning4j_tpu.quant as jquant
 from deeplearning4j_tpu.models import causal_lm as jax_causal_lm
 from deeplearning4j_tpu.quant import transforms as jt
+import deeplearning4j_tpu_torch.quant as tquant
 from deeplearning4j_tpu_torch import bridge
+from deeplearning4j_tpu_torch.common.environment import environment
 from deeplearning4j_tpu_torch.common.metrics import registry
+from deeplearning4j_tpu_torch.models import causal_lm as tcl
 from deeplearning4j_tpu_torch.quant import transforms as tt
+from test_torch_causal_lm import model_pair
 
 
 def _w(shape, seed=0, scale=0.05):
@@ -54,9 +69,46 @@ class TestQuantizeTensor:
         got = tt.quantize_tensor(torch.from_numpy(w), axes=(0,))
         np.testing.assert_array_equal(got.q.numpy(), np.asarray(ref.q))
 
-    def test_fp8_waits_for_its_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.quantize_tensor(torch.ones(4, 4), mode="fp8")
+    @pytest.mark.parametrize("shape,axes", [
+        ((64, 48), None), ((16, 4, 8), None), ((97, 32), (1,))])
+    def test_fp8_matches_jax(self, shape, axes):
+        w = _w(shape, seed=3 + len(shape))
+        ref = jt.quantize_tensor(jnp.asarray(w), axes=axes, mode="fp8")
+        got = tt.quantize_tensor(torch.from_numpy(w), axes=axes, mode="fp8")
+        assert got.q.dtype == torch.float8_e4m3fn and got.mode == "fp8"
+        np.testing.assert_array_equal(
+            got.q.contiguous().view(torch.uint8).numpy(),
+            np.asarray(ref.q).view(np.uint8))
+        np.testing.assert_allclose(got.scale.numpy(), np.asarray(ref.scale),
+                                   rtol=1e-6)
+
+    def test_fp8_weight_is_laid_out_for_scaled_mm(self):
+        """A per-output-channel 2-D fp8 payload is column-major (what
+        ``torch._scaled_mm`` takes as its second operand); an embedding
+        table keeps its rows contiguous."""
+        w = torch.from_numpy(_w((64, 48)))
+        assert tt.quantize_tensor(w, mode="fp8").q.stride() == (1, 64)
+        assert tt.quantize_tensor(w, axes=(1,), mode="fp8").q.stride() \
+            == (48, 1)
+
+    def test_fp8_layout_is_made_by_the_constructor(self):
+        """Whoever builds the weight, a row-major per-output-channel fp8
+        payload comes out column-major, with the same values."""
+        q = torch.from_numpy(_w((32, 16))).to(torch.float8_e4m3fn)
+        w = tt.QuantizedTensor(q, torch.ones((1, 16)))
+        assert w.q.stride() == (1, 32)
+        np.testing.assert_array_equal(w.q.contiguous().view(torch.uint8),
+                                      q.view(torch.uint8))
+        assert w.to("cpu").q.stride() == (1, 32)
+        per_row = tt.QuantizedTensor(q, torch.ones((32, 1)))
+        assert per_row.q.stride() == (16, 1)
+
+    def test_fp8_supported_on_the_cpu(self):
+        assert tt.fp8_supported("cpu") == jt.fp8_supported() is True
+
+    def test_unknown_mode_rejected(self):
+        with pytest.raises(ValueError, match="int8"):
+            tt.quantize_tensor(torch.ones(4, 4), mode="int4")
 
     def test_astype_is_a_noop(self):
         qt = tt.quantize_tensor(torch.from_numpy(_w((8, 8))))
@@ -96,6 +148,49 @@ class TestDequantOps:
                           path="plain").value() == before + 1
         snap = dispatch_snapshot()["dequant_matmul"]
         assert snap["path"] == "plain" and "cpu" in snap["reason"]
+
+    @pytest.mark.parametrize("x_shape,K,N", [
+        ((5, 256), 256, 128), ((2, 3, 64), 64, 48)])
+    def test_fp8_matches_jax_fp8_branch(self, x_shape, K, N):
+        w = _w((K, N), seed=12)
+        x = np.random.RandomState(13).randn(*x_shape).astype(np.float32)
+        ref = jt.dequant_matmul(jnp.asarray(x), jt.quantize_tensor(
+            jnp.asarray(w), mode="fp8"))
+        tq = tt.quantize_tensor(torch.from_numpy(w), mode="fp8")
+        got = tt.dequant_matmul(torch.from_numpy(x), tq)
+        assert got.dtype == torch.float32 and got.shape == x_shape[:-1] + (N,)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4,
+                                   rtol=0)
+
+    def test_fp8_plain_route_is_recorded_with_its_reason(self):
+        tq = tt.quantize_tensor(torch.from_numpy(_w((32, 16))), mode="fp8")
+        fam = registry().counter(
+            "dl4j_kernel_dispatch_total", labels=("kernel", "path"))
+        before = fam.labels(kernel="dequant_matmul_fp8", path="plain").value()
+        tt.dequant_matmul(torch.ones(2, 32), tq)
+        assert fam.labels(kernel="dequant_matmul_fp8",
+                          path="plain").value() == before + 1
+        from deeplearning4j_tpu_torch.kernels import dispatch_snapshot
+        assert "cpu tensor" in dispatch_snapshot()["dequant_matmul_fp8"][
+            "reason"]
+        xq = torch.ones(4, 32).to(torch.float8_e4m3fn)
+        assert tt._fp8_route(xq, tq.q)[0] == "plain"
+
+    def test_fp8_take_rows_and_tied_logits_match_jax(self):
+        table = _w((97, 32), seed=14)
+        jq = jt.quantize_tensor(jnp.asarray(table), axes=(1,), mode="fp8")
+        tq = tt.quantize_tensor(torch.from_numpy(table), axes=(1,),
+                                mode="fp8")
+        ids = np.asarray([[0, 5, 96], [3, 3, 1]], np.int32)
+        np.testing.assert_allclose(
+            tt.take_rows(tq, torch.from_numpy(ids)).numpy(),
+            np.asarray(jt.take_rows(jq, jnp.asarray(ids))), atol=1e-6,
+            rtol=0)
+        h = np.random.RandomState(15).randn(2, 32).astype(np.float32)
+        np.testing.assert_allclose(
+            tt.tied_logits(torch.from_numpy(h), tq).numpy(),
+            np.asarray(jt.tied_logits(jnp.asarray(h), jq)), atol=1e-5,
+            rtol=0)
 
     def test_plain_weight_passes_through(self):
         w = torch.from_numpy(_w((16, 8), seed=5))
@@ -163,16 +258,12 @@ class TestQuantizeParams:
         assert tt.precision_of(got) == "int8"
 
     def test_scale_overrides_and_min_size(self, jax_params):
-        class Spec:
-            min_size = 10 ** 9            # nothing is big enough
         params = bridge.params_from_numpy(_np_tree(jax_params), device="cpu")
-        assert tt.precision_of(tt.quantize_params(params, Spec())) \
-            == "float32"
-
-        class Spec2:
-            scale_overrides = {"mlp.w1": 2.0}
+        assert tt.precision_of(tt.quantize_params(
+            params, tquant.QuantSpec(min_size=10 ** 9))) == "float32"
         base = tt.quantize_params(params)
-        bent = tt.quantize_params(params, Spec2())
+        bent = tt.quantize_params(
+            params, tquant.QuantSpec(scale_overrides={"mlp.w1": 2.0}))
         torch.testing.assert_close(
             bent["layers"][1]["mlp"]["w1"].scale,
             base["layers"][1]["mlp"]["w1"].scale * 2.0)
@@ -203,6 +294,16 @@ class TestBridge:
         assert got.q.dtype == torch.int8 and got.scale.dtype == torch.float32
         np.testing.assert_array_equal(got.q.numpy(), np.asarray(jq.q))
 
+    def test_fp8_leaf_crosses_bit_exact(self):
+        jq = jt.quantize_tensor(jnp.asarray(_w((32, 16), seed=16)),
+                                mode="fp8")
+        got = bridge.params_from_numpy({"w": jq}, device="cpu")["w"]
+        assert got.q.dtype == torch.float8_e4m3fn and got.mode == "fp8"
+        assert got.q.stride() == (1, 32)       # laid out for _scaled_mm
+        np.testing.assert_array_equal(
+            got.q.contiguous().view(torch.uint8).numpy(),
+            np.asarray(jq.q).view(np.uint8))
+
     def test_structure_and_dtypes_kept(self, jax_params):
         got = bridge.params_from_numpy(_np_tree(jax_params), device="cpu")
         assert len(got["layers"]) == len(jax_params["layers"])
@@ -210,3 +311,156 @@ class TestBridge:
         assert tuple(wq.shape) == tuple(jax_params["layers"][0]["attn"]
                                         ["wq"].shape)
         assert wq.dtype == torch.float32 and wq.device.type == "cpu"
+
+
+# -- footprint, spec, calibration, the gate, the twins ----------------------
+
+@pytest.fixture(scope="module")
+def pair():
+    return model_pair()
+
+
+def _ids(B=2, T=12, seed=0):
+    return np.random.RandomState(seed).randint(0, 97, (B, T)).astype(
+        np.int32)
+
+
+def _twins(pair, spec_kw):
+    jm, tm = pair
+    return (jt.quantize_model(jm, jquant.QuantSpec(**spec_kw)),
+            tt.quantize_model(tm, tquant.QuantSpec(**spec_kw), device="cpu"))
+
+
+class TestFootprint:
+    @pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+    def test_bytes_and_counts_equal_jax(self, pair, mode):
+        jm, tm = pair if mode is None else _twins(pair, {"mode": mode})
+        assert tt.param_bytes_of(tm) == jt.param_bytes_of(jm) > 0
+        assert tcl.count_params(tm.params) \
+            == jax_causal_lm.count_params(jm.params)
+        assert tt.precision_of_model(tm) == jt.precision_of_model(jm)
+
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    def test_quantized_tensor_nbytes(self, mode):
+        w = _w((64, 48), seed=17)
+        jq = jt.quantize_tensor(jnp.asarray(w), mode=mode)
+        tq = tt.quantize_tensor(torch.from_numpy(w), mode=mode)
+        assert tq.nbytes == jq.nbytes == 64 * 48 + 48 * 4
+
+
+class TestQuantSpec:
+    SPECS = [{}, {"mode": "fp8", "act_dtype": "bfloat16",
+                  "method": "percentile", "percentile": 99.0,
+                  "min_size": 64, "skip_keys": ("position",),
+                  "act_ranges": {"logits": 5.823451519012451},
+                  "batch_fingerprint": "int32[4, 128]",
+                  "scale_overrides": {"": 64.0, "mlp.w1": 0.5}}]
+
+    @pytest.mark.parametrize("kw", SPECS)
+    def test_json_round_trip_and_matches_jax(self, kw):
+        s = tquant.QuantSpec(**kw)
+        text = s.to_json()
+        assert tquant.QuantSpec.from_json(text).to_json() == text
+        assert tquant.QuantSpec.from_json(text) == s
+        assert text == jquant.QuantSpec(**kw).to_json()
+        assert jquant.QuantSpec.from_json(text).to_json() == text
+
+    def test_invalid_mode_and_method_rejected(self):
+        with pytest.raises(ValueError, match="mode"):
+            tquant.QuantSpec(mode="int4")
+        with pytest.raises(ValueError, match="method"):
+            tquant.QuantSpec(method="mean")
+
+    @pytest.mark.parametrize("method", ["absmax", "percentile"])
+    def test_calibrate_matches_jax(self, pair, method):
+        jm, tm = pair
+        ids = _ids()
+        ref = jquant.calibrate(jm, ids, method=method)
+        got = tquant.calibrate(tm, ids, method=method)
+        np.testing.assert_allclose(got.act_ranges["logits"],
+                                   ref.act_ranges["logits"], rtol=1e-4)
+        assert got.batch_fingerprint == ref.batch_fingerprint \
+            == "int32[2, 12]"
+        # a batch already on the model's device gives the same spec
+        again = tquant.calibrate(tm, torch.from_numpy(ids), method=method)
+        assert again.to_json() == got.to_json()
+
+
+class TestValidateGate:
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    def test_divergence_report_matches_jax(self, pair, mode):
+        jm, tm = pair
+        jq, tq = _twins(pair, {"mode": mode})
+        ids = _ids(seed=1)
+        ref = jquant.divergence_report(jm, jq, ids)
+        got = tquant.divergence_report(tm, tq, ids)
+        assert set(got) == set(ref) and got["generative"] is True
+        for k in ("max_abs_err", "mean_abs_err", "top1_agreement",
+                  "per_token_agreement"):
+            assert got[k] == pytest.approx(ref[k], abs=1e-4), k
+
+    def test_validate_accepts_as_jax_does(self, pair):
+        jm, tm = pair
+        jq, tq = _twins(pair, {})
+        ids = _ids(seed=2)
+        kw = {"max_divergence": 1.0, "min_top1": 0.8}
+        ref = jquant.validate(jm, jq, ids, **kw)
+        got = tquant.validate(tm, tq, ids, model_name="gate",
+                              version="v1", **kw)
+        assert got["max_abs_err"] == pytest.approx(ref["max_abs_err"],
+                                                   abs=1e-4)
+        text = registry().prometheus_text()
+        assert 'dl4j_quant_divergence{model="gate",version="v1"}' in text
+
+    def test_mis_scaled_twin_rejected_as_jax_does(self, pair):
+        jm, tm = pair
+        jq, tq = _twins(pair, {"scale_overrides": {"": 64.0}})
+        ids = _ids(seed=3)
+        msg = "full-precision version stays live"
+        with pytest.raises(jquant.QuantizationRejectedError, match=msg):
+            jquant.validate(jm, jq, ids)
+        with pytest.raises(tquant.QuantizationRejectedError, match=msg):
+            tquant.validate(tm, tq, ids)
+
+    def test_budget_overrides(self, pair):
+        jm, tm = pair
+        tq = _twins(pair, {})[1]
+        with pytest.raises(tquant.QuantizationRejectedError, match="budget"):
+            tquant.validate(tm, tq, _ids(), max_divergence=0.0,
+                            min_top1=0.0)
+
+    def test_env_knobs(self):
+        env = environment()
+        prev = [env.property_override(k) for k in
+                ("quant", "quant_max_divergence", "quant_min_top1")]
+        try:
+            assert env.quant_mode() == ""          # opt-in: off by default
+            assert env.quant_max_divergence() == pytest.approx(0.25)
+            assert env.quant_min_top1() == pytest.approx(0.99)
+            env.set_quant_mode("1")
+            assert env.quant_mode() == "int8"      # truthy -> default mode
+            env.set_quant_mode("fp8")
+            assert env.quant_mode() == "fp8"
+            env.set_quant_min_top1(2.0)
+            assert env.quant_min_top1() == 1.0     # clamped to [0, 1]
+        finally:
+            for k, v in zip(("quant", "quant_max_divergence",
+                             "quant_min_top1"), prev):
+                if v is None:
+                    env.clear_property(k)
+                else:
+                    env.set_property(k, v)
+
+
+class TestQuantizedCausalLM:
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    def test_twin_logits_match_jax_twin(self, pair, mode):
+        jq, tq = _twins(pair, {"mode": mode})
+        assert tq._precision == jq._precision == mode
+        assert tq.config.dtype == torch.float32    # CPU activations
+        ids = _ids(seed=4)
+        ref = np.asarray(jq.forward(jnp.asarray(ids)))
+        with torch.no_grad():
+            got = tq.forward(torch.from_numpy(ids)).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
