@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+(the CausalLM, BERT-base and the layer API's LeNet and quantized MLP).
 
     python3 chip_smoke.py
 
@@ -82,6 +83,28 @@ exits non-zero without printing a result:
               kernel against the plain attention, B=8, T=128.
    causal   — the full-width CausalLM ``forward(use_flash=True)`` against
               ``use_flash=False``, B=4, T=1024.
+   lenet    — LeNet-MNIST training through the layer API
+              (``zoo.LeNet(dtype="bfloat16").init_model()``,
+              ``MultiLayerNetwork.fit``) on 32 device-staged random
+              batches of 128: 1 warm epoch, then 5 timed (host clock),
+              samples/s, the device ms a step by kernel and the busy
+              share (one more epoch under ``torch.profiler``); the loss
+              (``score()``'s mean over the 32 batches) must fall from the
+              first epoch to the last. Then an f32 copy of the trained
+              weights: its ``output()`` on the card against the CPU's
+              with TF32 switched on in the process (``LENET_F32_ATOL``),
+              and, for scale, the same forward with the port's TF32 guard
+              taken away.
+   mlp_int8 — bench.py's quantized MLP (dense 512->2048 gelu, 3 x
+              2048->2048 gelu, softmax 2048->64) at B=128 through
+              ``output()`` three ways: f32, bf16 over the same params and
+              the int8 twin (``quantize_model``), samples/s the median of
+              5 windows of 60 calls; on a margin-filtered batch the
+              twin's top-1 agreement with f32 (>= the gate's 0.99) and
+              max error; ``param_bytes_of`` both; ``divergence_report``
+              and ``calibrate`` on the twin. Its own main path: the
+              dequant count set to 0 before the twin's timed calls, which
+              must launch the kernel 5 times each.
 8. kernels  — launches on each kernel's own main path (the serving
               phases 4-6 for the paged and dequant kernels, counts set to
               0 just before phase 4; the train phase's timed run for the
@@ -103,6 +126,13 @@ exits non-zero without printing a result:
               12 heads of 64, no mask) beside SDPA with ``is_causal``
               and a bound over the T(T+1)/2 visible pairs (a
               ``kernel_shapes`` record).
+              The dequant kernel is also timed at the MLP twin's three
+              shapes (M=128: 512->2048 and 2048->2048 bf16, the 2048->64
+              head f32), operands warm as the twin's calls leave them,
+              beside ``torch.matmul`` on a copy of the weight in the
+              activation's dtype; those rows carry ``main_path``
+              "mlp_int8" and that path's launches. The parity phase holds
+              the kernel at those shapes in bf16 and f32.
    flash_backward — the whole port backward (``_flash_bwd``: the dq
               kernel with its delta prologue, then dk/dv) beside SDPA's
               whole backward, at both flash shapes.
@@ -188,6 +218,27 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS = 128, 128, 10
 FLASH_SHAPES = ((128, 128), (32, 512))
 FLASH_H, FLASH_D = 12, 64
 CAUSAL_B = 4
+# LeNet-MNIST training (bench.py bench_lenet, BASELINE config 1): 32
+# device-staged batches of 128, one warm epoch, then LENET_EPOCHS timed
+LENET_B, LENET_BATCHES, LENET_EPOCHS = 128, 32, 5
+# an f32 LeNet's output() on the card against the CPU's, same weights:
+# softmax probabilities from convolutions and products summed in another
+# order (f32 rounding, ~1e-6 relative on the logits); TF32 (10-bit
+# mantissa) would move them by ~1e-4
+LENET_F32_ATOL = 2e-5
+# the quantized MLP of bench.py bench_quantized_inference: dense
+# 512->2048 gelu, 3 x 2048->2048 gelu, softmax head 2048->64, B=128
+MLP_IN, MLP_HIDDEN, MLP_OUT, MLP_HIDDEN_LAYERS, MLP_B = 512, 2048, 64, 4, 128
+MLP_REPS = 60
+# the shapes the twin's dense layers give the dequant kernel (M, K, N):
+# its body runs bf16 activations, its loss head f32
+MLP_SHAPES = ((MLP_B, MLP_IN, MLP_HIDDEN), (MLP_B, MLP_HIDDEN, MLP_HIDDEN),
+              (MLP_B, MLP_HIDDEN, MLP_OUT))
+# the JAX gate's min_top1 (DL4J_TPU_QUANT_MIN_TOP1) on the margin batch
+MLP_MIN_TOP1 = 0.99
+# f32 peak outside the tensor cores (H100 SXM data sheet): the f32
+# dequant route's operations
+F32_FLOPS_PER_S = 67e12
 
 
 def emit(obj):
@@ -402,14 +453,15 @@ def phase_parity():
         del kp, vp
     g = torch.Generator(device="cuda").manual_seed(7)
     xm, wk = crossover_m(), whole_k_max_m()
+    errs["dequant_mlp"] = {}
     for dtype, rtol, atol, shapes in (
             (torch.bfloat16, DEQ_RTOL, DEQ_ATOL,
              [(8, 768, 3072), (8, 3072, 768), (40, 768, 3072),
               (40, 3072, 768), (xm - 1, 768, 3072), (xm + 1, 3072, 768),
               (xm, 1000, 3000), (wk, 768, 3072), (wk + 1, 768, 3072),
-              (4096, 768, 3072), (4096, 3072, 768)]),
+              (4096, 768, 3072), (4096, 3072, 768)] + list(MLP_SHAPES)),
             (torch.float32, DEQ_F32_RTOL, DEQ_F32_ATOL,
-             [(8, 768, 3072), (100, 3072, 768)])):
+             [(8, 768, 3072), (100, 3072, 768)] + list(MLP_SHAPES))):
         for M, K, N in shapes:
             w = 0.02 * torch.randn((K, N), generator=g, device="cuda")
             qt = quantize_tensor(w)
@@ -434,7 +486,10 @@ def phase_parity():
                 raise RuntimeError(f"dequant_matmul {dtype} {M}x{K}x{N}: "
                                    f"max abs err {err} outside rtol {rtol}"
                                    f" atol {atol}, or two calls differ")
-            if dtype == torch.bfloat16:
+            if (M, K, N) in MLP_SHAPES:
+                errs["dequant_mlp"][(M, K, N, str(dtype).split(".")[-1])] \
+                    = err
+            elif dtype == torch.bfloat16:
                 errs["dequant_matmul"] = max(errs["dequant_matmul"], err)
     flash_parity(errs, out)
     emit(out)
@@ -1616,6 +1671,257 @@ def causal_fwd_record():
         B, T, causal=True, mask=False)["flash_attention_fwd"])
     return rec
 
+def zoo_batches(rng, n, B, in_shape, num_classes):
+    """Device-resident DataSets of seeded random inputs and one-hot labels
+    (bench.py ``_zoo_batches``)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    out = []
+    for _ in range(n):
+        x = rng.randn(B, *in_shape).astype(np.float32)
+        y = np.zeros((B, num_classes), np.float32)
+        y[np.arange(B), rng.randint(0, num_classes, B)] = 1.0
+        out.append(DataSet(torch.from_numpy(x).cuda(),
+                           torch.from_numpy(y).cuda()))
+    return out
+
+
+def phase_lenet():
+    """LeNet-MNIST training through ``MultiLayerNetwork.fit`` at full
+    width (bf16 body), then an f32 copy's ``output()`` against the CPU's
+    with TF32 allowed in the process: the port must not use it. The loss
+    of an epoch is ``score()``'s mean over the 32 batches after it, and
+    must fall from the first epoch to the last; the last batch's
+    training loss is printed beside it."""
+    import contextlib
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn import multilayer
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    net = LeNet(dtype="bfloat16").init_model(device="cuda")
+    batches = zoo_batches(np.random.RandomState(0), LENET_BATCHES, LENET_B,
+                          (1, 28, 28), 10)
+    def mean_score():
+        return float(np.mean([net.score(b) for b in batches]))
+
+    n0 = _fused_dequant_matmul.launches
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=1)
+    t_warm = time.perf_counter() - t0
+    first, first_mean = net.score_value, mean_score()
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=LENET_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    last, last_mean = net.score_value, mean_score()
+    steps = LENET_EPOCHS * LENET_BATCHES
+    step_ms = wall * 1e3 / steps
+    # one more epoch under the profiler: device ms per step by kernel
+    by_name = {k: v / LENET_BATCHES for k, v in device_ms_by_kernel(
+        lambda: net.fit(batches, num_epochs=1), 1).items()}
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    conv = sum(v for k, v in by_name.items()
+               if any(f in k.lower() for f in ("conv", "cudnn", "implicit",
+                                               "wgrad", "dgrad", "xmma")))
+    # an f32 copy of the trained weights on the card and on the CPU
+    params = [{k: v.clone() for k, v in p.items()} for p in net._params]
+    f32 = LeNet().init_model(device="cuda")
+    f32.init(params=params)
+    cpu = LeNet().init_model(device="cpu")
+    cpu.init(params=[{k: v.cpu() for k, v in p.items()} for p in params])
+    x = batches[0].features.torch()
+    ref = cpu.output(x.cpu()).numpy()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = f32.output(x).numpy()
+        # the same forward with the port's TF32 guard taken away, to show
+        # what a leak reads
+        guard = multilayer.full_f32
+        multilayer.full_f32 = contextlib.nullcontext
+        try:
+            leak = f32.output(x).numpy()
+        finally:
+            multilayer.full_f32 = guard
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    err = float(np.abs(got - ref).max())
+    rec = {"phase": "lenet", "B": LENET_B, "batches": LENET_BATCHES,
+           "epochs_timed": LENET_EPOCHS, "dtype": "bfloat16",
+           "params": net.num_params(), "warm_epoch_s": round(t_warm, 3),
+           "wall_s": wall, "step_ms": step_ms,
+           "samples_per_s": steps * LENET_B / wall,
+           "loss_first_epoch": first, "loss_last_epoch": last,
+           "mean_loss_after_first_epoch": first_mean,
+           "mean_loss_after_last_epoch": last_mean,
+           "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / step_ms,
+           "conv_ms_per_step": conv, "kernels_seen": len(by_name),
+           "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+           "dequant_launches": _fused_dequant_matmul.launches - n0,
+           "f32_output_vs_cpu_max_abs_err": err,
+           "f32_output_vs_cpu_tol": LENET_F32_ATOL,
+           "f32_output_vs_cpu_max_abs_err_tf32_unguarded":
+               float(np.abs(leak - ref).max())}
+    emit(rec)
+    if not (np.isfinite(first_mean) and np.isfinite(last_mean)
+            and last_mean < first_mean and np.isfinite(last)):
+        raise RuntimeError(f"LeNet loss did not fall: mean over the 32 "
+                           f"batches {first_mean} after the first epoch, "
+                           f"{last_mean} after the last")
+    if not err <= LENET_F32_ATOL:
+        raise RuntimeError(f"f32 LeNet output on the card differs from the "
+                           f"CPU's by {err} > {LENET_F32_ATOL} (TF32?)")
+
+
+def mlp_network(device="cuda"):
+    """The quantized-inference MLP of bench.py bench_quantized_inference
+    (random weights from seed 0)."""
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    b = NeuralNetConfiguration.builder().seed(0).list()
+    b.layer(DenseLayer(n_in=MLP_IN, n_out=MLP_HIDDEN, activation="gelu"))
+    for _ in range(MLP_HIDDEN_LAYERS - 1):
+        b.layer(DenseLayer(n_in=MLP_HIDDEN, n_out=MLP_HIDDEN,
+                           activation="gelu"))
+    b.layer(OutputLayer(n_in=MLP_HIDDEN, n_out=MLP_OUT))
+    return MultiLayerNetwork(b.build(), device=device).init()
+
+
+def phase_mlp_int8():
+    """The MLP served through ``output()`` three ways (f32, bf16 over the
+    same params, the int8 twin), the twin's dense layers through the
+    dequant kernel. Returns the kernel's launches on the twin's timed
+    run and the twin."""
+    import copy
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.kernels import dispatch_snapshot
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.quant import (calibrate,
+                                                divergence_report,
+                                                param_bytes_of,
+                                                quantize_model)
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    full = mlp_network()
+    bf16 = MultiLayerNetwork(copy.copy(full.conf), device="cuda")
+    bf16.conf.dtype = "bfloat16"
+    bf16.init(params=full._params)
+    quant = quantize_model(full, device="cuda")
+    # the margin-filtered batch: of 4 x B candidates the B whose f32
+    # top-2 margin is largest (decisive traffic, as the bench picks it)
+    cands = np.random.RandomState(0).randn(4 * MLP_B, MLP_IN).astype(
+        np.float32)
+    ref_c = full.output(cands).numpy()
+    part = np.partition(ref_c, -2, axis=-1)
+    batch = cands[np.argsort(part[:, -1] - part[:, -2])[-MLP_B:]]
+    xb = torch.from_numpy(batch).cuda()
+    ref = full.output(xb).numpy()
+    q_out = quant.output(xb).numpy()
+    top1 = float((ref.argmax(-1) == q_out.argmax(-1)).mean())
+
+    def windows(net):
+        net.output(xb)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(MLP_REPS):
+                out = net.output(xb)
+            out.torch().sum().item()
+            rates.append(MLP_B * MLP_REPS / (time.perf_counter() - t0))
+        rates.sort()
+        return rates[len(rates) // 2], [rates[0], rates[-1]]
+
+    rec = {"phase": "mlp_int8", "B": MLP_B,
+           "layers": f"{MLP_IN}->{MLP_HIDDEN} gelu, "
+                     f"{MLP_HIDDEN_LAYERS - 1}x {MLP_HIDDEN}->{MLP_HIDDEN} "
+                     f"gelu, {MLP_HIDDEN}->{MLP_OUT} softmax",
+           "twin_conf_dtype": quant.conf.dtype}
+    rec["f32_samples_per_s"], rec["f32_spread"] = windows(full)
+    rec["bf16_samples_per_s"], rec["bf16_spread"] = windows(bf16)
+    # the main path: the twin's output() calls, counted from 0
+    _fused_dequant_matmul.launches = 0
+    rec["int8_samples_per_s"], rec["int8_spread"] = windows(quant)
+    launches = _fused_dequant_matmul.launches
+    calls = 1 + WINDOWS * MLP_REPS
+    rec.update({
+        "int8_over_bf16": rec["int8_samples_per_s"]
+        / rec["bf16_samples_per_s"],
+        "dequant_launches": launches, "output_calls": calls,
+        "dequant_launches_per_output": launches / calls,
+        "dispatch": dispatch_snapshot().get("dequant_matmul"),
+        "top1_agreement_vs_f32": top1,
+        "max_abs_err_vs_f32": float(np.abs(ref - q_out).max()),
+        "param_bytes_full": param_bytes_of(full),
+        "param_bytes_int8": param_bytes_of(quant)})
+    rep = divergence_report(full, quant, xb)
+    spec = calibrate(quant, xb)
+    rec["divergence_report"] = rep
+    rec["calibrated_ranges"] = spec.act_ranges
+    emit(rec)
+    if launches != 5 * calls:
+        raise RuntimeError(f"the twin launched the dequant kernel {launches}"
+                           f" times in {calls} output() calls, want 5 each")
+    if not (top1 >= MLP_MIN_TOP1 and np.isfinite(q_out).all()):
+        raise RuntimeError(f"int8 twin top-1 agreement {top1} < "
+                           f"{MLP_MIN_TOP1} against f32")
+    if rep["top1_agreement"] != top1:
+        raise RuntimeError(f"divergence_report top-1 {rep} disagrees with "
+                           f"the phase's {top1}")
+    return launches, quant
+
+
+def mlp_kernel_rows(twin, launches, errs):
+    """The dequant kernel at the twin's three shapes, as its output()
+    calls it (operands warm: the twin's 13.8 MB of int8 weights stay in
+    the 50 MB L2 between calls), beside its plain version, ``torch.matmul``
+    on a copy of the weight in the activation's dtype and the bound."""
+    import torch
+    from deeplearning4j_tpu_torch.quant.transforms import (
+        _fused_dequant_matmul, dequant_matmul_plain, dequantize)
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(17)
+    layer_of = {(MLP_B, MLP_IN, MLP_HIDDEN): 0,
+                (MLP_B, MLP_HIDDEN, MLP_HIDDEN): 1,
+                (MLP_B, MLP_HIDDEN, MLP_OUT): MLP_HIDDEN_LAYERS}
+    for (M, K, N), li in layer_of.items():
+        w = twin._params[li]["W"]
+        head = li == MLP_HIDDEN_LAYERS
+        dtype = torch.float32 if head else torch.bfloat16
+        x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+        scale = w.scale.reshape(-1)
+        wd = dequantize(w, dtype)
+        xb = 4 if head else 2
+        byt = M * K * xb + K * N + N * 4 + M * N * xb
+        b_ms, b_by = bound_ms(byt, 2 * M * K * N,
+                              F32_FLOPS_PER_S if head else BF16_FLOPS_PER_S)
+        rec = {"name": "dequant_matmul", "route": "cuda",
+               "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                         "dequant_matmul.cu",
+               "replaces": "deeplearning4j_tpu/quant/transforms.py:216",
+               "main_path": "mlp_int8", "M": M, "K": K, "N": N,
+               "dtype": str(dtype).split(".")[-1], "launches": launches,
+               "max_abs_err": errs["dequant_mlp"][
+                   (M, K, N, str(dtype).split(".")[-1])],
+               "plain_ms": time_ms(lambda: dequant_matmul_plain(x, w.q,
+                                                                scale)),
+               "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS}
+        timed(rec, "ms", lambda: _fused_dequant_matmul(x, w.q, scale))
+        timed(rec, "library_ms", lambda: torch.matmul(x, wd))
+        rows.append(rec)
+    return rows
+
 
 def main():
     if sys.argv[1:] == ["--http-clients"]:
@@ -1660,11 +1966,14 @@ def main():
     torch.cuda.empty_cache()
     phase_bert_forward()
     phase_causal(model)
+    phase_lenet()
+    mlp_launches, mlp_twin = phase_mlp_int8()
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:
         row["launches_serve_http"] = http_launches["requests"][row["name"]]
         row["launches_serve_http_deploys"] = \
             http_launches["deploys"][row["name"]]
+    rows += mlp_kernel_rows(mlp_twin, mlp_launches, errs)
     flash, flash_shapes = flash_rows(launches, errs)
     emit({"phase": "kernel_shapes",
           "shapes": shapes + flash_shapes + fp8_shapes})

@@ -44,6 +44,17 @@ Ported so far:
                                         remat=False)
     params, opt, losses = step(params, opt, batch, 0)
 
+- the DL4J layer API's sequential path (``nn``: the configuration DSL,
+  ``MultiLayerNetwork`` training and inference, the CNN layers;
+  ``learning``, ``ndarray``, ``datasets``, ``zoo``), whose int8 twin
+  runs its dense layers through the dequant-matmul kernel::
+
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    net = LeNet(dtype="bfloat16").init_model(device="cuda")
+    net.fit(datasets, num_epochs=5)             # a list of DataSets
+    probs = net.output(x)
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 """

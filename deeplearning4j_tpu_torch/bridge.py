@@ -59,3 +59,21 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (str, int, float, bool)) or tree is None:
         return tree
     return tensor_from_numpy(tree, device)
+
+
+def load_multilayer(net, params, updater_state=None, iteration: int = 0):
+    """Carry a JAX ``MultiLayerNetwork``'s state into ``net``, a port
+    network built from the same configuration, and return ``net``.
+
+    ``params`` is the JAX network's ``_params`` as numpy (a list of
+    per-layer dicts, ``state_*`` running stats included, convolution
+    weights HWIO as on both sides); ``updater_state`` its
+    ``_updater_state`` likewise, else a fresh one from
+    ``net.conf.updater``; ``iteration`` its ``_iteration``, so that a
+    ``fit`` continued on both sides takes the same Adam bias correction.
+    Nothing is re-initialized: the bridged weights are the network's."""
+    net.init(params=params_from_numpy(params, net.device))
+    if updater_state is not None:
+        net._updater_state = params_from_numpy(updater_state, net.device)
+    net._iteration = int(iteration)
+    return net

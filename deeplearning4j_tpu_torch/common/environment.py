@@ -60,6 +60,8 @@ _PROPS: Dict[str, tuple] = {
     # "" = <cache_dir>/profiles and <cache_dir>/flight
     "profile_dir": ("DL4J_TPU_PROFILE_DIR", ""),
     "flight_recorder_dir": ("DL4J_TPU_FLIGHT_RECORDER_DIR", ""),
+    "training_remat": ("DL4J_TPU_REMAT", "none"),
+    "training_grad_accum": ("DL4J_TPU_GRAD_ACCUM", "1"),
 }
 
 
@@ -173,6 +175,17 @@ class Environment:
         """Span ring-buffer capacity (``DL4J_TPU_TRACE_BUFFER``)."""
         return _int(self.property("trace_buffer"), 16384, 1)
 
+
+    # -- training knobs (nn/fit_fastpath.py) --------------------------------
+    def training_remat(self) -> str:
+        """Default activation-checkpointing policy of layer-API training:
+        "none" | "layer" | "dots_saveable" (``DL4J_TPU_REMAT``)."""
+        return self.property("training_remat") or "none"
+
+    def training_grad_accum(self) -> int:
+        """Default gradient-accumulation factor when a network conf leaves
+        grad_accum unset (``DL4J_TPU_GRAD_ACCUM``)."""
+        return _int(self.property("training_grad_accum"), 1, 1)
 
     # -- executable/manifest volume (runtime/compile_cache.py) -------------
     def cache_dir(self) -> Optional[str]:

@@ -1,0 +1,3 @@
+from .dataset import DataSet  # noqa: F401
+from .iterators import (ArrayDataSetIterator, AsyncDataSetIterator,  # noqa: F401
+                        DataSetIterator, ListDataSetIterator)

@@ -64,7 +64,10 @@
 //
 // f32 activations: an FMA tile (16x64 or 64x64, each thread a TM x 4
 // patch), never TF32: a tensor-core product would round f32 x to tf32.
-// Not on the bf16 serving path, and not tuned.
+// It runs a layer-API twin's f32 loss head (2048 -> 64 at M = 128), where
+// the tiles alone make 2 blocks: when they cannot fill the SMs, K is
+// split over blockIdx.z as well and a second pass adds the f32 partials
+// in split order (the same bits every call). Not otherwise tuned.
 //
 // Left on the table: wgmma with TMA and a warp-specialised producer (the
 // tiled design runs mma.sync, at a quarter of the bf16 peak or less at
@@ -632,27 +635,31 @@ __global__ void __launch_bounds__(256) dq_reduce_kernel(
 
 constexpr int kFBN = 64, kFBK = 32;
 
+// One BM x 64 output tile over the K rows [blockIdx.z * KC, + KC). With
+// one split it writes the scaled result; with several, its raw f32 sums
+// to the split's slice of `part`, which dq_reduce_f32_kernel adds up.
 template <int BM>
 __global__ void __launch_bounds__(256) dequant_matmul_f32_kernel(
     const float* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, float* __restrict__ out, int M, int K,
-    int N) {
+    const float* __restrict__ scale, float* __restrict__ out,
+    float* __restrict__ part, int M, int K, int N, int KC) {
   constexpr int TM = BM / 16, TN = 4;  // 16 x 16 threads
   __shared__ float xs[kFBK][BM + 1];   // transposed x tile
   __shared__ float ws[kFBK][kFBN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kFBN;
+  const int kb = blockIdx.z * KC, ke = min(K, kb + KC);
   float acc[TM][TN] = {};
-  for (int k0 = 0; k0 < K; k0 += kFBK) {
+  for (int k0 = kb; k0 < ke; k0 += kFBK) {
     for (int i = tid; i < BM * kFBK; i += 256) {
       const int m = i / kFBK, k = i % kFBK;
       const int gm = m0 + m, gk = k0 + k;
-      xs[k][m] = (gm < M && gk < K) ? x[(long long)gm * K + gk] : 0.f;
+      xs[k][m] = (gm < M && gk < ke) ? x[(long long)gm * K + gk] : 0.f;
     }
     for (int i = tid; i < kFBK * kFBN; i += 256) {
       const int k = i / kFBN, n = i % kFBN;
       const int gk = k0 + k, gn = n0 + n;
-      ws[k][n] = (gk < K && gn < N) ? (float)w[(long long)gk * N + gn] : 0.f;
+      ws[k][n] = (gk < ke && gn < N) ? (float)w[(long long)gk * N + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -669,14 +676,28 @@ __global__ void __launch_bounds__(256) dequant_matmul_f32_kernel(
     }
     __syncthreads();
   }
+  float* dst = gridDim.z > 1 ? part + (long long)blockIdx.z * M * N : out;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gm = m0 + ty * TM + i, gn = n0 + tx * TN + j;
       if (gm < M && gn < N)
-        out[(long long)gm * N + gn] = acc[i][j] * scale[gn];
+        dst[(long long)gm * N + gn] =
+            gridDim.z > 1 ? acc[i][j] : acc[i][j] * scale[gn];
     }
+}
+
+// the f32 split-K pass: the partials summed in split order, then scaled
+__global__ void __launch_bounds__(256) dq_reduce_f32_kernel(
+    const float* __restrict__ part, const float* __restrict__ scale,
+    float* __restrict__ out, int M, int N, int splits) {
+  const long long total = (long long)M * N;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
+  out[i] = s * scale[i % N];
 }
 
 // -- host side --------------------------------------------------------------
@@ -757,6 +778,41 @@ Plan make_plan(int M, int K, int N, Design design) {
 
 size_t workspace_bytes(const Plan& p, int M, int N) {
   return p.splits > 1 ? (size_t)p.splits * M * N * sizeof(float) : 0;
+}
+
+// The f32 route's plan: BM = 16 rows a block for M <= 16, else 64; when
+// those tiles cannot fill the SMs once (a narrow N, as a 64-class head),
+// K is split too, at least two 32-row tiles a split.
+Plan plan_f32(int M, int K, int N) {
+  Plan p{};
+  p.mt = M <= 16 ? 16 : 64;  // here: the rows of a block (BM)
+  const int tiles = ((N + kFBN - 1) / kFBN) * ((M + p.mt - 1) / p.mt);
+  const int sms = num_sms();
+  int splits = tiles >= sms ? 1 : sms / tiles;
+  const int max_splits = (K + 2 * kFBK - 1) / (2 * kFBK);
+  splits = splits < 1 ? 1 : splits > max_splits ? max_splits : splits;
+  p.KC = round_up((K + splits - 1) / splits, kFBK);
+  p.splits = (K + p.KC - 1) / p.KC;
+  p.grid = dim3((N + kFBN - 1) / kFBN, (M + p.mt - 1) / p.mt, p.splits);
+  return p;
+}
+
+int run_f32(const Plan& p, const float* x, const int8_t* w,
+            const float* scale, float* out, float* ws, int M, int K, int N,
+            cudaStream_t st) {
+  if (p.splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (p.mt == 16)
+    dequant_matmul_f32_kernel<16><<<p.grid, 256, 0, st>>>(x, w, scale, out,
+                                                          ws, M, K, N, p.KC);
+  else
+    dequant_matmul_f32_kernel<64><<<p.grid, 256, 0, st>>>(x, w, scale, out,
+                                                          ws, M, K, N, p.KC);
+  if (p.splits > 1) {
+    const long long total = (long long)M * N;
+    dq_reduce_f32_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+        ws, scale, out, M, N, p.splits);
+  }
+  return (int)cudaGetLastError();
 }
 
 
@@ -873,11 +929,11 @@ Plan plan(int M, int K, int N) {
 
 extern "C" {
 
-// Bytes of f32 workspace the launch needs: 0 when it splits nothing, and
-// always 0 for f32 activations.
+// Bytes of f32 workspace the launch needs: 0 when it splits nothing.
 long long dequant_matmul_workspace_bytes(int M, int K, int N, int dtype) {
-  if (dtype != 1 || M == 0 || N == 0) return 0;
-  return (long long)workspace_bytes(plan(M, K, N), M, N);
+  if (M == 0 || N == 0) return 0;
+  return (long long)workspace_bytes(
+      dtype == 1 ? plan(M, K, N) : plan_f32(M, K, N), M, N);
 }
 
 // the largest M the split-K design takes, and the whole-K design
@@ -895,17 +951,10 @@ int dequant_matmul(const void* x, const void* w, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return run_bf16(plan(M, K, N), x, w, scale, out, workspace, M, K, N, st);
-  const int gn = (N + kFBN - 1) / kFBN;
-  if (M <= 16) {
-    dequant_matmul_f32_kernel<16><<<dim3(gn, (M + 15) / 16), 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
-  } else {
-    dequant_matmul_f32_kernel<64><<<dim3(gn, (M + 63) / 64), 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
-  }
-  return (int)cudaGetLastError();
+  return run_f32(plan_f32(M, K, N), static_cast<const float*>(x),
+                 static_cast<const int8_t*>(w),
+                 static_cast<const float*>(scale), static_cast<float*>(out),
+                 static_cast<float*>(workspace), M, K, N, st);
 }
 
 const char* dl4j_error_string(int code) {

@@ -1,0 +1,456 @@
+"""Layer configuration classes.
+
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``. A layer is a
+config with ``init_params(generator, input_type)`` (a param dict drawn
+on the generator's device) and ``forward(params, x, training, key)`` on
+tensors; the backward pass is autograd over the whole network. ``key``
+is an int seed (``common/rng.py``) for the layers that draw (dropout).
+
+Parameters keep the JAX package's layouts and key names, so weights
+cross between the two unchanged: dense ``W`` is ``[n_in, n_out]``,
+convolution ``W`` is HWIO ``[kh, kw, n_in, n_out]`` (permuted to torch's
+OIHW inside ``conv_ops.conv2d``), batch-norm running stats are
+``state_mean`` / ``state_var``. Input types are tuples without the batch
+dim: FF ``(n,)``, CNN ``(c, h, w)`` NCHW, RNN ``(features, timesteps)``.
+
+The layers this slice does not port are :class:`UnportedLayer`
+subclasses under their JAX names: they construct, and a configuration
+naming one fails at ``build()`` with ``NotImplementedError`` naming its
+roadmap item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+
+from ...common import rng
+from ...ops import conv_ops, nn_ops
+from ...quant.transforms import QuantizedTensor, dequant_matmul, dequantize
+from ..activations import get_activation
+from ..losses import get_loss
+from ..weights import init_weights
+
+IntPair = Union[int, Tuple[int, int]]
+
+#: the roadmap entry every unported layer names
+ROADMAP_ITEM = "ROADMAP.md queue 1 item 9"
+
+
+def _pair(v) -> Tuple[int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (int(v), int(v))
+
+
+def _zeros(generator, n):
+    return torch.zeros((n,), device=generator.device)
+
+
+@dataclasses.dataclass
+class Layer:
+    """Base layer config (reference nn/conf/layers/Layer.java)."""
+    name: Optional[str] = None
+    #: per-layer IWeightNoise (reference BaseLayer.weightNoise); overrides
+    #: the network-level default from Builder.weight_noise()
+    weight_noise: Optional[object] = None
+
+    def init_params(self, generator, input_type):
+        return {}
+
+    def forward(self, params, x, training=False, key=None):
+        raise NotImplementedError
+
+    def output_type(self, input_type):
+        return input_type
+
+    def has_params(self) -> bool:
+        return True
+
+    def needs_key(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass
+class DenseLayer(Layer):
+    """Fully connected (reference conf/layers/DenseLayer.java)."""
+    n_in: int = 0
+    n_out: int = 0
+    activation: str = "identity"
+    weight_init: str = "xavier"
+    has_bias: bool = True
+    dropout: float = 0.0
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        p = {"W": init_weights(generator, (n_in, self.n_out),
+                               self.weight_init)}
+        if self.has_bias:
+            p["b"] = _zeros(generator, self.n_out)
+        return p
+
+    def forward(self, params, x, training=False, key=None):
+        # torch.matmul for a plain weight; an int8 twin's weight goes
+        # through the fused dequant-matmul kernel on the card
+        out = dequant_matmul(x, params["W"])
+        if self.has_bias:
+            out = out + params["b"]
+        out = get_activation(self.activation)(out)
+        if self.dropout > 0 and training and key is not None:
+            out = nn_ops.dropout(out, self.dropout,
+                                 rng.generator(key, out.device))
+        return out
+
+    def output_type(self, input_type):
+        return (self.n_out,)
+
+    def needs_key(self):
+        return self.dropout > 0
+
+
+@dataclasses.dataclass
+class OutputLayer(DenseLayer):
+    """Dense + loss head (reference conf/layers/OutputLayer.java)."""
+    loss: Union[str, Callable] = "mcxent"
+    activation: str = "softmax"
+
+    def compute_loss(self, labels, output, mask=None):
+        return get_loss(self.loss)(labels, output, mask)
+
+
+@dataclasses.dataclass
+class LossLayer(Layer):
+    """Loss without params (reference conf/layers/LossLayer.java)."""
+    loss: Union[str, Callable] = "mcxent"
+    activation: str = "identity"
+
+    def forward(self, params, x, training=False, key=None):
+        return get_activation(self.activation)(x)
+
+    def compute_loss(self, labels, output, mask=None):
+        return get_loss(self.loss)(labels, output, mask)
+
+    def has_params(self):
+        return False
+
+
+@dataclasses.dataclass
+class ConvolutionLayer(Layer):
+    """2D convolution (reference conf/layers/ConvolutionLayer.java), NCHW."""
+    n_in: int = 0     # input channels (inferred if 0)
+    n_out: int = 0    # output channels
+    kernel_size: IntPair = (3, 3)
+    stride: IntPair = (1, 1)
+    padding: Union[str, IntPair] = (0, 0)
+    dilation: IntPair = (1, 1)
+    activation: str = "identity"
+    weight_init: str = "relu"
+    has_bias: bool = True
+    convolution_mode: str = "truncate"  # truncate|same (reference ConvolutionMode)
+
+    def _padding_arg(self):
+        if isinstance(self.padding, str):
+            return self.padding
+        if self.convolution_mode.lower() == "same":
+            return "SAME"
+        return _pair(self.padding)
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        kh, kw = _pair(self.kernel_size)
+        p = {"W": init_weights(generator, (kh, kw, n_in, self.n_out),
+                               self.weight_init)}
+        if self.has_bias:
+            p["b"] = _zeros(generator, self.n_out)
+        return p
+
+    def forward(self, params, x, training=False, key=None):
+        W = params["W"]
+        if isinstance(W, QuantizedTensor):
+            W = dequantize(W, x.dtype)
+        out = conv_ops.conv2d(x, W, params.get("b"),
+                              strides=_pair(self.stride),
+                              padding=self._padding_arg(),
+                              dilation=_pair(self.dilation),
+                              data_format="NCHW")
+        return get_activation(self.activation)(out)
+
+    def output_type(self, input_type):
+        c, h, w = input_type
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        dh, dw = _pair(self.dilation)
+        pad = self._padding_arg()
+        if pad == "SAME":
+            oh = -(-h // sh)
+            ow = -(-w // sw)
+        else:
+            ph, pw = (pad if isinstance(pad, tuple) else (0, 0))
+            if isinstance(pad, str):
+                ph = pw = 0
+            oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+            ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        return (self.n_out, oh, ow)
+
+
+@dataclasses.dataclass
+class SubsamplingLayer(Layer):
+    """Pooling (reference conf/layers/SubsamplingLayer.java)."""
+    pooling_type: str = "max"  # max|avg|pnorm
+    kernel_size: IntPair = (2, 2)
+    stride: IntPair = None
+    #: average-pool divisor counts padded cells (reference legacy
+    #: behavior); keras/TF SAME pooling excludes them (importer sets False)
+    avg_include_pad: bool = True
+    padding: Union[str, IntPair] = (0, 0)
+    pnorm: int = 2
+
+    def forward(self, params, x, training=False, key=None):
+        stride = self.stride if self.stride is not None else self.kernel_size
+        pad = self.padding if isinstance(self.padding, str) else _pair(self.padding)
+        if isinstance(pad, tuple) and pad == (0, 0):
+            pad = "VALID"
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            return conv_ops.maxpool2d(x, _pair(self.kernel_size), _pair(stride),
+                                      pad, "NCHW")
+        if pt == "avg":
+            return conv_ops.avgpool2d(x, _pair(self.kernel_size), _pair(stride),
+                                      pad, "NCHW",
+                                      include_pad=self.avg_include_pad)
+        return conv_ops.pnormpool2d(x, _pair(self.kernel_size), _pair(stride),
+                                    pad, self.pnorm, "NCHW")
+
+    def output_type(self, input_type):
+        c, h, w = input_type
+        kh, kw = _pair(self.kernel_size)
+        stride = self.stride if self.stride is not None else self.kernel_size
+        sh, sw = _pair(stride)
+        if isinstance(self.padding, str):
+            if self.padding.upper() == "SAME":
+                return (c, -(-h // sh), -(-w // sw))
+            ph = pw = 0  # "VALID"
+        else:
+            ph, pw = _pair(self.padding)
+        return (c, (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1)
+
+    def has_params(self):
+        return False
+
+
+def _stats_axes(x):
+    """(channel axis, reduce axes): NCHW channel axis, or FF features."""
+    axis = 1 if x.dim() >= 3 else x.dim() - 1
+    return axis, tuple(i for i in range(x.dim()) if i != axis)
+
+
+@dataclasses.dataclass
+class BatchNormalization(Layer):
+    """Batch norm (reference conf/layers/BatchNormalization.java).
+
+    Running stats are non-trainable state in params under ``state_*``
+    keys: the biased batch variance, updated as ``decay * old + (1 -
+    decay) * batch`` by the network after each step (``new_state``) —
+    not ``nn.BatchNorm2d``'s unbiased variance and momentum convention.
+    Batch statistics are computed in f32, also under bf16 compute.
+    """
+    n_out: int = 0  # inferred
+    decay: float = 0.9
+    eps: float = 1e-5
+    use_gamma_beta: bool = True
+
+    def _channels(self, input_type):
+        return self.n_out or input_type[0]
+
+    def init_params(self, generator, input_type):
+        c = self._channels(input_type)
+        dev = generator.device
+        p = {"state_mean": torch.zeros((c,), device=dev),
+             "state_var": torch.ones((c,), device=dev)}
+        if self.use_gamma_beta:
+            p["gamma"] = torch.ones((c,), device=dev)
+            p["beta"] = torch.zeros((c,), device=dev)
+        return p
+
+    @staticmethod
+    def _batch_stats(xf):
+        axis, red = _stats_axes(xf)
+        mean = torch.mean(xf, dim=red)
+        var = torch.var(xf, dim=red, correction=0)
+        return axis, mean, var
+
+    def forward(self, params, x, training=False, key=None):
+        xf = x.float()
+        if training:
+            axis, mean, var = self._batch_stats(xf)
+        else:
+            axis, _ = _stats_axes(xf)
+            mean, var = params["state_mean"], params["state_var"]
+        out = nn_ops.batchnorm(xf, mean, var, params.get("gamma"),
+                               params.get("beta"), self.eps, axis)
+        return out.to(x.dtype)
+
+    def new_state(self, params, x, labels=None):
+        """Updated running stats given a training batch (applied by the net)."""
+        _, mean, var = self._batch_stats(x.float())
+        return {"state_mean": self.decay * params["state_mean"]
+                + (1 - self.decay) * mean,
+                "state_var": self.decay * params["state_var"]
+                + (1 - self.decay) * var}
+
+
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """LRN (reference conf/layers/LocalResponseNormalization.java)."""
+    n: int = 5
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def forward(self, params, x, training=False, key=None):
+        xt = x.permute(0, 2, 3, 1)  # channel-last for the op
+        out = nn_ops.lrn(xt, self.n // 2, self.k, self.alpha, self.beta)
+        return out.permute(0, 3, 1, 2)
+
+    def has_params(self):
+        return False
+
+
+@dataclasses.dataclass
+class EmbeddingLayer(Layer):
+    """Index → vector lookup (reference conf/layers/EmbeddingLayer.java)."""
+    n_in: int = 0   # vocab
+    n_out: int = 0  # embedding dim
+    weight_init: str = "xavier"
+
+    def init_params(self, generator, input_type):
+        return {"W": init_weights(generator, (self.n_in, self.n_out),
+                                  self.weight_init)}
+
+    def forward(self, params, x, training=False, key=None):
+        idx = x.long()
+        if idx.dim() == 2 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        return dequantize(params["W"])[idx]
+
+    def output_type(self, input_type):
+        return (self.n_out,)
+
+
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    rate: float = 0.5
+
+    def forward(self, params, x, training=False, key=None):
+        if training and key is not None and self.rate > 0:
+            return nn_ops.dropout(x, self.rate, rng.generator(key, x.device))
+        return x
+
+    def has_params(self):
+        return False
+
+    def needs_key(self):
+        return True
+
+
+@dataclasses.dataclass
+class ActivationLayer(Layer):
+    activation: str = "relu"
+
+    def forward(self, params, x, training=False, key=None):
+        return get_activation(self.activation)(x)
+
+    def has_params(self):
+        return False
+
+
+@dataclasses.dataclass
+class GlobalPoolingLayer(Layer):
+    """Global pooling over spatial/time dims (reference GlobalPoolingLayer)."""
+    pooling_type: str = "max"  # max|avg|sum|pnorm
+    pnorm: int = 2
+
+    def forward(self, params, x, training=False, key=None):
+        axes = tuple(range(2, x.dim()))  # pool everything after [B, C]
+        pt = self.pooling_type.lower()
+        if pt == "max":
+            return torch.amax(x, dim=axes)
+        if pt == "avg":
+            return torch.mean(x, dim=axes)
+        if pt == "sum":
+            return torch.sum(x, dim=axes)
+        return torch.sum(torch.abs(x) ** self.pnorm, dim=axes) \
+            ** (1.0 / self.pnorm)
+
+    def output_type(self, input_type):
+        return (input_type[0],)
+
+    def has_params(self):
+        return False
+
+
+class UnportedLayer:
+    """A layer of the JAX package this port does not run yet. It takes
+    any arguments, so configurations naming it still construct; building
+    one raises :meth:`error`."""
+
+    #: what the layer needs before it can be ported
+    needs = ""
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+    @classmethod
+    def error(cls) -> NotImplementedError:
+        return NotImplementedError(
+            f"{cls.__name__} is not ported yet ({cls.needs}); it waits "
+            f"for {ROADMAP_ITEM}")
+
+
+def _unported(name, needs):
+    return type(name, (UnportedLayer,), {"needs": needs,
+                                         "__module__": __name__})
+
+
+_RECURRENT = "needs ops/recurrent.py"
+LSTM = _unported("LSTM", _RECURRENT)
+GravesLSTM = LSTM
+Bidirectional = _unported("Bidirectional", _RECURRENT)
+RnnOutputLayer = _unported("RnnOutputLayer", _RECURRENT)
+Convolution1DLayer = _unported("Convolution1DLayer", "1-D convolution")
+SelfAttentionLayer = _unported("SelfAttentionLayer", "attention ops")
+EmbeddingSequenceLayer = _unported("EmbeddingSequenceLayer",
+                                   "sequence layers")
+Upsampling2D = _unported("Upsampling2D", "upsampling op")
+ZeroPaddingLayer = _unported("ZeroPaddingLayer", "padding layers")
+DeconvolutionLayer = _unported("DeconvolutionLayer",
+                               "transposed convolution")
+SeparableConvolution2D = _unported("SeparableConvolution2D",
+                                   "separable convolution")
+DepthwiseConvolution2D = _unported("DepthwiseConvolution2D",
+                                   "depthwise convolution")
+
+# the JAX package's layers_extra.py, none ported yet
+_EXTRA = "layers_extra.py"
+(AlphaDropout, CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer,
+ Cnn3DLossLayer, CnnLossLayer, Convolution3D, Cropping1D, Cropping2D,
+ Cropping3D, DepthToSpaceLayer, ElementWiseMultiplicationLayer,
+ FrozenLayer, GRU, GaussianDropout, GaussianNoise, LastTimeStep,
+ LearnedSelfAttentionLayer, LocallyConnected1D, LocallyConnected2D,
+ MaskLayer, MaskZeroLayer, PReLULayer, PrimaryCapsules,
+ RecurrentAttentionLayer, RepeatVector, RnnLossLayer, SimpleRnn,
+ SpaceToDepthLayer, Subsampling1DLayer, Subsampling3DLayer,
+ TimeDistributed, Upsampling1D, Upsampling3D, VariationalAutoencoder,
+ Yolo2OutputLayer, ZeroPadding1DLayer, ZeroPadding3DLayer) = (
+    _unported(n, _EXTRA) for n in (
+        "AlphaDropout", "CapsuleLayer", "CapsuleStrengthLayer",
+        "CenterLossOutputLayer", "Cnn3DLossLayer", "CnnLossLayer",
+        "Convolution3D", "Cropping1D", "Cropping2D", "Cropping3D",
+        "DepthToSpaceLayer", "ElementWiseMultiplicationLayer",
+        "FrozenLayer", "GRU", "GaussianDropout", "GaussianNoise",
+        "LastTimeStep", "LearnedSelfAttentionLayer", "LocallyConnected1D",
+        "LocallyConnected2D", "MaskLayer", "MaskZeroLayer", "PReLULayer",
+        "PrimaryCapsules", "RecurrentAttentionLayer", "RepeatVector",
+        "RnnLossLayer", "SimpleRnn", "SpaceToDepthLayer",
+        "Subsampling1DLayer", "Subsampling3DLayer", "TimeDistributed",
+        "Upsampling1D", "Upsampling3D", "VariationalAutoencoder",
+        "Yolo2OutputLayer", "ZeroPadding1DLayer", "ZeroPadding3DLayer"))

@@ -1,0 +1,424 @@
+"""MultiLayerNetwork: the sequential layer-API network.
+
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` (the reference's
+``MultiLayerNetwork.java``). Parameters are a list of per-layer dicts of
+tensors on ``device`` (the card unless the caller names another), in the
+JAX package's layout, so ``params()`` flattens in the same order and a
+JAX network's params cross unchanged (``bridge.load_multilayer``). A
+train step is forward, loss and autograd backward, then the updater and
+the post-update constraints, functionally: each step returns new
+parameter tensors, as the JAX package's donated step does.
+
+``distribute`` (queue 1 item 10), ``warm_buckets`` (item 7),
+``warm_compile`` (item 12) and ``save`` / ``load`` (``nn/serde.py``,
+item 9) are not ported and raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from ..common import rng
+from ..datasets.dataset import DataSet
+from ..ndarray.ndarray import NDArray
+from .conf.config import MultiLayerConfiguration, check_ported
+from .conf.constraints import apply_constraints
+from .conf.layers import LossLayer, OutputLayer
+from .fit_fastpath import FitFastPathMixin, full_f32
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where torch sees
+    none raises (no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for but torch.cuda.is_available()"
+            " is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _unported(what, item):
+    return NotImplementedError(f"MultiLayerNetwork.{what} is not ported yet;"
+                               f" it waits for ROADMAP.md queue 1 item "
+                               f"{item}")
+
+
+class MultiLayerNetwork(FitFastPathMixin):
+    def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
+        check_ported(conf.layers)
+        self.device = resolve_device(device)
+        self.conf = conf
+        self.layers = conf.layers
+        self._params: List[Dict[str, Any]] = []
+        self._updater_state = None
+        self._iteration = 0
+        self._epoch = 0
+        self._listeners: List[Any] = []
+        #: host stream of the int keys the training forwards draw from
+        self._rng = torch.Generator().manual_seed(int(conf.seed))
+        self._initialized = False
+        self.score_value = float("nan")
+
+    # -- init ------------------------------------------------------------
+    def init(self, params=None):
+        """Initialize parameters (reference MultiLayerNetwork.init): each
+        layer's weights drawn in turn from one generator on the device
+        seeded with ``conf.seed``, or ``params`` as given."""
+        if params is not None:
+            self._params = params
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(self.conf.seed))
+            types = self.conf.layer_input_types()
+            self._params = [layer.init_params(gen, itype)
+                            if layer.has_params() else {}
+                            for layer, itype in zip(self.layers, types)]
+        self._updater_state = self.conf.updater.init(
+            self._trainable(self._params))
+        self._initialized = True
+        return self
+
+    def _check_init(self):
+        if not self._initialized:
+            raise RuntimeError("call init() first")
+
+    def distribute(self, mesh):
+        raise _unported("distribute", 10)
+
+    def warm_buckets(self, example, batch_sizes=None):
+        raise _unported("warm_buckets", 7)
+
+    def warm_compile(self, data, labels=None):
+        raise _unported("warm_compile", 12)
+
+    def save(self, path, save_updater: bool = False):
+        raise _unported("save (nn/serde.py)", 9)
+
+    @staticmethod
+    def load(path, load_updater: bool = False):
+        raise _unported("load (nn/serde.py)", 9)
+
+    def _trainable(self, params):
+        """Trainable subset (excludes ``state_*`` running stats)."""
+        return [{k: v for k, v in p.items() if not k.startswith("state_")}
+                for p in params]
+
+    def _states(self, params):
+        return [{k: v for k, v in p.items() if k.startswith("state_")}
+                for p in params]
+
+    def _merge_states(self, trainable, states):
+        return [{**t, **s} for t, s in zip(trainable, states)]
+
+    def _stage(self, x) -> torch.Tensor:
+        """An input on the network's device; float64 host data becomes
+        float32, as the JAX package's default does."""
+        t = x.torch() if isinstance(x, NDArray) else x
+        if not isinstance(t, torch.Tensor):
+            t = torch.as_tensor(np.asarray(t))
+        if t.dtype == torch.float64:
+            t = t.float()
+        return t.to(self.device)
+
+    def _weight_noised(self, layer, p, host):
+        """Train-time weight noise: the layer's setting wins over the
+        network default; its key comes from ``host``."""
+        wn = getattr(layer, "weight_noise", None) or self.conf.weight_noise
+        if wn is None or host is None or not p:
+            return p
+        return wn.apply_tree(rng.split(host), p)
+
+    # -- forward ---------------------------------------------------------
+    def _forward_core(self, params, x, training: bool, key=None,
+                      collect_bn: bool = False):
+        """THE per-layer forward loop (inference, train step and score
+        all route here). With ``collect_bn``, each stateful layer's input
+        is kept so the train step refreshes running stats without a
+        second pass. Returns (activations, bn_inputs)."""
+        cd = self._compute_dtype()
+        last = len(self.layers) - 1
+        h = self._cast_act(x, cd) if cd is not None else x
+        host = torch.Generator().manual_seed(int(key)) \
+            if key is not None and training else None
+        bn_inputs = {}
+        remat = (self._remat_wrap if training and self._remat_mode() != "none"
+                 else None)
+        for i, layer in enumerate(self.layers):
+            pre = self.conf.preprocessors.get(i)
+            if pre is not None:
+                h = pre(h)
+            p = params[i]
+            if cd is not None:
+                if i == last:  # loss head in f32
+                    h = self._cast_act(h, torch.float32)
+                else:
+                    p = self._cast_layer_params(p, cd)
+            if collect_bn and hasattr(layer, "new_state"):
+                bn_inputs[i] = h
+            p = self._weight_noised(layer, p, host)
+            layer_key = rng.split(host) \
+                if host is not None and layer.needs_key() else None
+
+            def fwd(p_, h_, k_, _l=layer):
+                return _l.forward(p_, h_, training=training, key=k_)
+            h = (remat(fwd) if remat else fwd)(p, h, layer_key)
+        return h, bn_inputs
+
+    def _forward(self, params, x, training: bool, key=None):
+        return self._forward_core(params, x, training, key)[0]
+
+    def output(self, x, training: bool = False) -> NDArray:
+        """Inference forward pass (reference MultiLayerNetwork.output),
+        without autograd.
+
+        Runs the batch at its exact shape. The JAX package pads it up a
+        bucket ladder so that request sizes share compiled executables;
+        eager PyTorch compiles nothing per shape, so the ladder returns
+        with CUDA-graph capture (``ROADMAP.md`` queue 1 #12)."""
+        self._check_init()
+        from ..common.tracing import span
+        x = self._stage(x)
+        with span("mln/output"), torch.no_grad(), full_f32():
+            out = self._forward(self._params, x, training)
+        return NDArray(out)
+
+    def feed_forward(self, x, training: bool = False) -> List[NDArray]:
+        """All layer activations (reference feedForward), at the params'
+        own dtypes (no mixed-precision cast), as the JAX package's."""
+        self._check_init()
+        h = self._stage(x)
+        acts = [NDArray(h)]
+        with torch.no_grad(), full_f32():
+            for i, layer in enumerate(self.layers):
+                pre = self.conf.preprocessors.get(i)
+                if pre is not None:
+                    h = pre(h)
+                h = layer.forward(self._params[i], h, training=training)
+                acts.append(NDArray(h))
+        return acts
+
+    def predict(self, x) -> NDArray:
+        return NDArray(torch.argmax(self.output(x).torch(), dim=-1))
+
+    # -- loss ------------------------------------------------------------
+    def _loss_layer(self):
+        last = self.layers[-1]
+        if not isinstance(last, (OutputLayer, LossLayer)):
+            raise ValueError("last layer must be an output/loss layer for fit()")
+        return last
+
+    def _regularized(self, loss, trainable):
+        """L1/L2 penalties (reference BaseLayer.calcRegularizationScore)."""
+        if self.conf.l2 > 0 or self.conf.l1 > 0:
+            for p in trainable:
+                for v in p.values():
+                    if self.conf.l2 > 0:
+                        loss = loss + 0.5 * self.conf.l2 * torch.sum(v * v)
+                    if self.conf.l1 > 0:
+                        loss = loss + self.conf.l1 * torch.sum(torch.abs(v))
+        return loss
+
+    def _loss_with_bn(self, trainable, states, x, y, key):
+        """Loss + collected stateful-layer inputs (the train-step loss)."""
+        params = self._merge_states(trainable, states)
+        out, bn_inputs = self._forward_core(params, x, training=True,
+                                            key=key, collect_bn=True)
+        loss = self._loss_layer().compute_loss(y, out)
+        return self._regularized(loss, trainable), bn_inputs
+
+    def score(self, dataset: DataSet = None) -> float:
+        """Loss on a dataset (reference MultiLayerNetwork.score): the
+        training-mode forward with no key (no dropout draws)."""
+        self._check_init()
+        if dataset is None:
+            return self.score_value
+        x, y = self._stage(dataset.features), self._stage(dataset.labels)
+        with torch.no_grad(), full_f32():
+            loss, _ = self._loss_with_bn(self._trainable(self._params),
+                                         self._states(self._params), x, y,
+                                         None)
+        return float(loss)
+
+    # -- training --------------------------------------------------------
+    def _clip_grads(self, grads):
+        """conf.gradient_normalization (clip_l2 / clip_value) applied."""
+        grad_norm = self.conf.gradient_normalization
+        clip = self.conf.gradient_clip
+        if grad_norm == "clip_l2":
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for p in grads
+                                   for g in p.values()))
+            scale = torch.clamp_max(clip / torch.clamp_min(gnorm, 1e-12), 1.0)
+            return [{k: g * scale for k, g in p.items()} for p in grads]
+        if grad_norm == "clip_value":
+            return [{k: torch.clamp(g, -clip, clip) for k, g in p.items()}
+                    for p in grads]
+        return grads
+
+    @torch.no_grad()
+    def _apply_update(self, trainable, updater_state, iteration, grads):
+        """Clip -> updater -> weight decay -> constraints."""
+        grads = self._clip_grads(grads)
+        update, updater_state = self.conf.updater.apply(grads, updater_state,
+                                                        iteration)
+        wd = self.conf.weight_decay
+        new = [{k: p[k] - u[k].to(p[k].dtype) - wd * p[k] for k in p}
+               for p, u in zip(trainable, update)]
+        return apply_constraints(getattr(self.conf, "constraints", None),
+                                 new), updater_state
+
+    @torch.no_grad()
+    def _refresh_states(self, states, bn_inputs, y):
+        """Stateful layers (batch-norm running stats) refresh from the
+        inputs collected during the forward pass."""
+        new_states = []
+        for i, layer in enumerate(self.layers):
+            if hasattr(layer, "new_state") and i in bn_inputs:
+                new_states.append(layer.new_state(states[i],
+                                                  bn_inputs[i].detach(),
+                                                  labels=y))
+            else:
+                new_states.append(states[i])
+        return new_states
+
+    def _micro_grads(self, trainable, states, x, y, key):
+        """Loss + refreshed states + gradients of ONE micro-batch (no
+        updater)."""
+        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+                  for p in trainable]
+        flat = [v for p in leaves for v in p.values()]
+        with torch.enable_grad(), full_f32():
+            loss, bn_inputs = self._loss_with_bn(leaves, states, x, y, key)
+            gflat = torch.autograd.grad(loss, flat, allow_unused=True) \
+                if flat else ()
+        # a leaf the loss does not reach (allow_unused) gets a zero grad
+        gflat = [torch.zeros_like(v) if g is None else g
+                 for g, v in zip(gflat, flat)]
+        it = iter(gflat)
+        grads = [{k: next(it) for k in p} for p in leaves]
+        return (loss.detach(), self._refresh_states(states, bn_inputs, y),
+                grads)
+
+    def _step_fn(self):
+        """One batch: gradients, then the update."""
+        def step(trainable, states, updater_state, iteration, x, y, key):
+            loss, new_states, grads = self._micro_grads(trainable, states,
+                                                        x, y, key)
+            new_trainable, updater_state = self._apply_update(
+                trainable, updater_state, iteration, grads)
+            return new_trainable, new_states, updater_state, loss
+        return step
+
+    def _coerce_fit_data(self, data, labels):
+        return DataSet(data, labels) if labels is not None else data
+
+    def _stage_batch(self, ds):
+        return self._stage(ds.features), self._stage(ds.labels)
+
+    def _materialize_batches(self, data):
+        """Device-resident [(x, y)] if ``data`` is a finite reusable
+        source (DataSet, list of DataSets, ListDataSetIterator); None →
+        stream it."""
+        from ..datasets.iterators import ListDataSetIterator
+        if isinstance(data, DataSet):
+            items = [data]
+        elif isinstance(data, (list, tuple)) and data and \
+                all(isinstance(d, DataSet) for d in data):
+            items = list(data)
+        elif isinstance(data, ListDataSetIterator):
+            items = list(data._list)
+        else:
+            return None
+        return [self._stage_batch(d) for d in items]
+
+    # -- evaluation ------------------------------------------------------
+    def evaluate(self, iterator):
+        from .evaluation import Evaluation
+        e = Evaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            e.eval(ds.labels, self.output(ds.features))
+        return e
+
+    def evaluate_regression(self, iterator):
+        from .evaluation import RegressionEvaluation
+        e = RegressionEvaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            e.eval(ds.labels, self.output(ds.features))
+        return e
+
+    # -- parameter access (flattened-view parity) ------------------------
+    def params(self) -> NDArray:
+        """Flattened parameter vector (reference params() view semantics):
+        layer by layer, keys sorted within a layer."""
+        self._check_init()
+        leaves = [v.reshape(-1) for p in self._trainable(self._params)
+                  for _, v in sorted(p.items())]
+        if not leaves:
+            return NDArray(torch.zeros((0,), device=self.device))
+        return NDArray(torch.cat(leaves))
+
+    def num_params(self) -> int:
+        return int(self.params().length())
+
+    def set_params(self, flat):
+        self._check_init()
+        flat = self._stage(flat)
+        offset = 0
+        new_params = []
+        for p in self._params:
+            q = dict(p)
+            for k in sorted(p):
+                if k.startswith("state_"):
+                    continue
+                n = math.prod(p[k].shape)
+                q[k] = flat[offset:offset + n].reshape(p[k].shape).to(
+                    p[k].dtype).clone()
+                offset += n
+            new_params.append(q)
+        self._params = new_params
+
+    def get_param_table(self, layer_idx: int) -> Dict[str, NDArray]:
+        return {k: NDArray(v) for k, v in self._params[layer_idx].items()}
+
+    def set_listeners(self, *listeners):
+        self._listeners = list(listeners)
+
+    def add_listeners(self, *listeners):
+        self._listeners.extend(listeners)
+
+    def get_updater_state(self):
+        return self._updater_state
+
+    def clone(self) -> "MultiLayerNetwork":
+        net = MultiLayerNetwork(self.conf, device=self.device)
+        if self._initialized:
+            net.init(params=[{k: v.clone() for k, v in p.items()}
+                             for p in self._params])
+            if self._updater_state is not None:
+                from ..learning import tree_map
+                net._updater_state = tree_map(torch.clone,
+                                              self._updater_state)
+            net._iteration = self._iteration
+        return net
+
+    def summary(self) -> str:
+        types = self.conf.layer_input_types()
+        lines = ["=" * 60]
+        total = 0
+        for i, (layer, itype) in enumerate(zip(self.layers, types)):
+            n = sum(math.prod(v.shape) for k, v in self._params[i].items()
+                    if not k.startswith("state_")) if self._initialized else 0
+            total += n
+            lines.append(f"{i:>3} {type(layer).__name__:<28} in={itype} "
+                         f"out={layer.output_type(itype)} params={n}")
+        lines.append(f"Total params: {total}")
+        lines.append("=" * 60)
+        return "\n".join(lines)

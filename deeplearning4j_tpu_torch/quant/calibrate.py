@@ -12,7 +12,7 @@ the same fields give the same JSON as the JAX package's.
 
 The generative branch runs the port model's ``forward`` on the batch as a
 tensor on the model's device (a batch already on that device is used as
-it is).
+it is); a layer-API network stages the batch itself.
 """
 from __future__ import annotations
 
@@ -125,13 +125,20 @@ def ids_on(batch, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(batch), device=device)
 
 
+def _generative(model) -> bool:
+    return all(callable(getattr(model, m, None))
+               for m in ("init_kv_cache", "forward"))
+
+
+def _tensor(a) -> torch.Tensor:
+    """An NDArray (``.torch()``), a tensor, or array-like as a tensor."""
+    return a.torch() if hasattr(a, "torch") else torch.as_tensor(a)
+
+
 def forward_logits(model, batch) -> torch.Tensor:
     """A generative model's full-sequence logits over ``batch`` (token ids
-    ``[B, T]``), without autograd. The JAX package also calibrates and
-    gates layer-API networks (``feed_forward``) and predict models
-    (``output``); those wait for ``ROADMAP.md`` queue 1 items 7 and 9."""
-    if not all(callable(getattr(model, m, None))
-               for m in ("init_kv_cache", "forward")):
+    ``[B, T]``), without autograd."""
+    if not _generative(model):
         raise TypeError(
             f"cannot run {type(model).__name__} over a calibration batch: "
             "expected a generative model (the CausalLM protocol)")
@@ -139,14 +146,46 @@ def forward_logits(model, batch) -> torch.Tensor:
         return model.forward(ids_on(batch, model_device(model)))
 
 
+def model_logits(model, batch) -> torch.Tensor:
+    """What the divergence gate compares: a generative model's
+    full-sequence logits (``[B, T, V]``), else ``model.output(batch)``
+    (a layer-API network's ``[B, n_out]``)."""
+    if _generative(model):
+        return forward_logits(model, batch)
+    if callable(getattr(model, "output", None)):
+        out = model.output(batch)
+        if isinstance(out, (list, tuple)):
+            out = out[0]
+        return _tensor(out)
+    raise TypeError(f"cannot compare {type(model).__name__}: expected a "
+                    "model with forward or output")
+
+
 def calibrate(model, batch, *, mode: str = "int8",
               act_dtype: Optional[str] = None, method: str = "absmax",
               percentile: float = 99.9, **spec_kwargs) -> QuantSpec:
-    """Run a generative ``model`` over ``batch`` (eagerly, without
-    autograd) and return a :class:`QuantSpec` carrying the range of its
-    full-sequence forward logits (site ``logits``)."""
-    ranges = {"logits": _range_of(forward_logits(model, batch), method,
-                                  percentile)}
+    """Run ``model`` over ``batch`` (eagerly, without autograd) and
+    return a :class:`QuantSpec` carrying the observed activation ranges.
+
+    Observation sites by model family: generative models (the CausalLM
+    protocol) record the full-sequence forward logits (``logits``);
+    layer-API networks every layer activation via ``feed_forward``
+    (``layer0..layerN``); anything else with an ``output`` callable its
+    output."""
+    ranges: Dict[str, float] = {}
+    if _generative(model):
+        ranges["logits"] = _range_of(forward_logits(model, batch), method,
+                                     percentile)
+    elif callable(getattr(model, "feed_forward", None)):
+        for i, a in enumerate(model.feed_forward(batch)):
+            ranges[f"layer{i}"] = _range_of(_tensor(a), method, percentile)
+    elif callable(getattr(model, "output", None)):
+        ranges["output"] = _range_of(model_logits(model, batch), method,
+                                     percentile)
+    else:
+        raise TypeError(
+            f"cannot calibrate {type(model).__name__}: expected a model "
+            "with forward/feed_forward/output")
     return QuantSpec(mode=mode, act_dtype=act_dtype, method=method,
                      percentile=percentile, act_ranges=ranges,
                      batch_fingerprint=_fingerprint(batch), **spec_kwargs)

@@ -27,6 +27,7 @@ ops, as the JAX package leaves those to XLA. ``quantize_params`` reads a
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 
@@ -442,31 +443,53 @@ def _to_device(node, device):
     return node
 
 
+def _resolved_act(spec, device):
+    act = _spec_field(spec, "act_dtype", None) or default_act_dtype(device)
+    if str(act) not in _ACT_DTYPES:
+        raise ValueError(f"act_dtype {act!r} is not one of "
+                         f"{sorted(_ACT_DTYPES)}")
+    return str(act)
+
+
 def quantize_model(model, spec=None, *, device="cuda"):
-    """An inference-only int8/fp8 twin of a CausalLM-protocol model
-    (``init_kv_cache``/``prefill``/``decode`` + ``params``/``config``): a
-    new instance of the same class on ``device`` over quantized params,
-    config dtype flipped to the activation dtype (``spec.act_dtype``, else
-    bf16 on CUDA and f32 on the CPU; the KV pool follows it). A bare
-    params tree returns ``quantize_params`` of it."""
+    """An inference-only int8/fp8 twin of ``model`` on ``device``, over
+    quantized params, computing in the activation dtype
+    (``spec.act_dtype``, else bf16 on CUDA and f32 on the CPU):
+
+    - a CausalLM-protocol model (``init_kv_cache``/``prefill``/``decode``
+      + ``params``/``config``): a new instance of the same class, config
+      dtype flipped to the activation dtype (the KV pool follows it);
+    - a layer-API network (``conf`` + ``_params``): a network of the same
+      class over the same layer configs, conf dtype flipped, no updater
+      state; its dense layers contract through :func:`dequant_matmul`
+      (the int8 kernel on the card) and its loss head stays f32;
+    - a bare params tree: ``quantize_params`` of it.
+
+    The original is not modified."""
     if all(callable(getattr(model, m, None))
            for m in ("init_kv_cache", "prefill", "decode")) \
             and hasattr(model, "params") and hasattr(model, "config"):
-        act = _spec_field(spec, "act_dtype", None) or \
-            default_act_dtype(device)
-        if str(act) not in _ACT_DTYPES:
-            raise ValueError(f"act_dtype {act!r} is not one of "
-                             f"{sorted(_ACT_DTYPES)}")
+        act = _resolved_act(spec, device)
         qp = _to_device(quantize_params(model.params, spec), device)
-        cfg = dataclasses.replace(model.config, dtype=_ACT_DTYPES[str(act)])
+        cfg = dataclasses.replace(model.config, dtype=_ACT_DTYPES[act])
         twin = type(model)(cfg, params=qp, device=device)
         twin._precision = precision_of(qp)
+        return twin
+    if hasattr(model, "_params") and hasattr(model, "conf"):
+        twin = type(model)(copy.copy(model.conf), device=device)
+        twin.conf.dtype = _resolved_act(spec, device)
+        twin._params = _to_device(quantize_params(model._params, spec),
+                                  device)
+        twin._updater_state = None  # inference-only: no optimizer state
+        twin._initialized = True
+        twin._precision = precision_of(twin._params)
         return twin
     if isinstance(model, (dict, list)):
         return _to_device(quantize_params(model, spec), device)
     raise TypeError(
         f"don't know how to quantize {type(model).__name__}: expected a "
-        "CausalLM-protocol model or a bare params tree")
+        "CausalLM-protocol model, a layer-API network (conf + _params), "
+        "or a bare params tree")
 
 
 # -- introspection ---------------------------------------------------------
@@ -497,10 +520,19 @@ def precision_of(params) -> str:
     return "float32"
 
 
-def precision_of_model(model) -> str:
+def _params_of(model):
+    """The params tree of a model (``params``), a layer-API network
+    (``_params``; its ``params()`` is the flat vector) or a bare tree."""
     p = getattr(model, "params", None)
-    if p is None and isinstance(model, (dict, list)):
-        p = model
+    if p is not None and not callable(p):
+        return p
+    if hasattr(model, "_params"):
+        return model._params
+    return model if isinstance(model, (dict, list)) else None
+
+
+def precision_of_model(model) -> str:
+    p = _params_of(model)
     return precision_of(p) if p is not None else "float32"
 
 
@@ -514,7 +546,5 @@ def param_bytes(params) -> int:
 
 
 def param_bytes_of(model) -> int:
-    p = getattr(model, "params", None)
-    if p is None and isinstance(model, (dict, list)):
-        p = model
+    p = _params_of(model)
     return param_bytes(p) if p is not None else 0

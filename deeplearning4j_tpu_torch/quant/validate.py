@@ -33,7 +33,7 @@ import torch
 
 from ..common.environment import environment
 from ..common.metrics import registry as metrics_registry
-from .calibrate import forward_logits
+from .calibrate import model_logits
 
 log = logging.getLogger(__name__)
 
@@ -57,11 +57,12 @@ def _divergence_gauge():
 
 
 def divergence_report(full_model, quant_model, batch) -> Dict[str, float]:
-    """Compare the two models on ``batch``. Keys: ``max_abs_err``,
-    ``mean_abs_err``, ``top1_agreement``, ``generative``, and (generative
-    only) ``per_token_agreement``."""
-    a = forward_logits(full_model, batch).float()
-    b = forward_logits(quant_model, batch).float().to(a.device)
+    """Compare the two models on ``batch`` (generative models by their
+    full-sequence logits, predict models by ``output``). Keys:
+    ``max_abs_err``, ``mean_abs_err``, ``top1_agreement``, ``generative``,
+    and (generative only) ``per_token_agreement``."""
+    a = model_logits(full_model, batch).float()
+    b = model_logits(quant_model, batch).float().to(a.device)
     if a.shape != b.shape:
         raise ValueError(
             f"model outputs disagree in shape: full {tuple(a.shape)} vs "

@@ -218,6 +218,57 @@ def test_dequant_matmul_both_designs(cuda, M, K, N, dtype, rtol, atol):
                                atol=atol)
 
 
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 0.0, 1e-4), (torch.bfloat16, 1e-2, 1e-2)],
+    ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N", [(128, 512, 2048), (128, 2048, 2048),
+                                   (128, 2048, 64)])
+def test_dequant_matmul_mlp_shapes(cuda, M, K, N, dtype, rtol, atol):
+    """The shapes a layer-API MLP's int8 twin gives the kernel at B=128
+    (512->2048, 2048->2048, and the 2048->64 head, which runs f32); two
+    calls give identical bits."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    qt = quantize_tensor(0.02 * torch.randn((K, N), generator=g,
+                                            device=cuda))
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    scale = qt.scale.reshape(-1)
+    before = _fused_dequant_matmul.launches
+    got = _fused_dequant_matmul(x, qt.q, scale)
+    again = _fused_dequant_matmul(x, qt.q, scale)
+    ref = dequant_matmul_plain(x, qt.q, scale)
+    torch.cuda.synchronize()
+    assert _fused_dequant_matmul.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_multilayer_twin_output_matches_the_cpu(cuda):
+    """A MultiLayerNetwork's int8 twin on the card (f32 activations, so
+    every dense layer takes the kernel's f32 route) against the same twin
+    on the CPU (the plain version): 1e-4 on softmax outputs, and one
+    kernel launch per dense layer."""
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.quant import QuantSpec, quantize_model
+    conf = (NeuralNetConfiguration.builder().seed(0).list()
+            .layer(DenseLayer(n_in=96, n_out=256, activation="gelu"))
+            .layer(DenseLayer(n_in=256, n_out=256, activation="relu"))
+            .layer(OutputLayer(n_in=256, n_out=10)).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    spec = QuantSpec(act_dtype="float32")
+    on_cpu = quantize_model(net, spec, device="cpu")
+    on_card = quantize_model(net, spec, device=cuda)
+    x = np.random.RandomState(0).randn(128, 96).astype(np.float32)
+    before = _fused_dequant_matmul.launches
+    got = on_card.output(x).numpy()
+    assert _fused_dequant_matmul.launches == before + 3
+    np.testing.assert_allclose(got, on_cpu.output(x).numpy(), atol=1e-4,
+                               rtol=0)
+
+
 def test_dequant_matmul_refuses_what_it_cannot_run(cuda):
     qt = quantize_tensor(torch.randn((64, 32), device=cuda))
     with pytest.raises(TypeError):

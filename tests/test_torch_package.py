@@ -21,9 +21,12 @@ from deeplearning4j_tpu_torch.kernels import (attention_dispatch,
                                               dispatch_snapshot,
                                               flash_attention,
                                               flash_attention_plain)
+from deeplearning4j_tpu_torch.datasets.iterators import AsyncDataSetIterator
 from deeplearning4j_tpu_torch.models import bert, causal_lm
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.quant import transforms
 from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+from deeplearning4j_tpu_torch.zoo.base import ZooModel
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) \
@@ -60,6 +63,9 @@ ENTRY_POINTS = [
     bridge.tensor_from_numpy,
     bert.init_params,
     bert.init_qa_params,
+    MultiLayerNetwork.__init__,
+    ZooModel.init_model,
+    AsyncDataSetIterator.__init__,
 ]
 
 

@@ -1,7 +1,8 @@
 """The port's ``quant/`` against the JAX package's: int8 and fp8
 quantization and the dequantizing ops, the params bridge, the footprint
-helpers, ``QuantSpec`` / ``calibrate`` and the divergence gate, and the
-quantized tiny CausalLM twins.
+helpers, ``QuantSpec`` / ``calibrate`` and the divergence gate, the
+quantized tiny CausalLM twins, and the int8 twin of a layer-API network
+(``TestQuantizedMLN``).
 
 Inputs come from numpy with a seed. Tolerances:
 - ``q`` is compared bit for bit (int8 as is, fp8 through a ``uint8``
@@ -146,6 +147,7 @@ class TestDequantOps:
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
         assert fam.labels(kernel="dequant_matmul",
                           path="plain").value() == before + 1
+        from deeplearning4j_tpu_torch.kernels import dispatch_snapshot
         snap = dispatch_snapshot()["dequant_matmul"]
         assert snap["path"] == "plain" and "cpu" in snap["reason"]
 
@@ -464,3 +466,101 @@ class TestQuantizedCausalLM:
             got = tq.forward(torch.from_numpy(ids)).numpy()
         np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
         np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+# -- the layer-API branches: a MultiLayerNetwork's int8 twin -----------------
+
+MLN_IN, MLN_OUT = 16, 4
+
+
+def _mlp_pair(seed=0, hidden=32):
+    """The JAX package's ``test_quant._mlp`` (dense gelu + softmax head)
+    and the port network over its weights, on the CPU."""
+    from deeplearning4j_tpu.nn import MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu.nn import NeuralNetConfiguration as JNNC
+    from deeplearning4j_tpu.nn.conf import layers as JL
+    from deeplearning4j_tpu_torch.nn import MultiLayerConfiguration as TConf
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork as TMLN
+    conf = (JNNC.builder().seed(seed).list()
+            .layer(JL.DenseLayer(n_in=MLN_IN, n_out=hidden,
+                                 activation="gelu"))
+            .layer(JL.OutputLayer(n_in=hidden, n_out=MLN_OUT))
+            .build())
+    jm = JMLN(conf).init()
+    tm = TMLN(TConf.from_json(conf.to_json()), device="cpu")
+    bridge.load_multilayer(tm, _np_tree(jm._params))
+    return jm, tm
+
+
+def _mlp_x(n=8, seed=0):
+    return np.random.RandomState(seed).randn(n, MLN_IN).astype(np.float32)
+
+
+def _decisive(logits, cands, n):
+    part = np.partition(logits, -2, axis=-1)
+    return cands[np.argsort(part[:, -1] - part[:, -2])[-n:]]
+
+
+class TestQuantizedMLN:
+    """``tests/test_quant.py::TestQuantizedMLN``'s three checks on the
+    port's twin, with the JAX twin's outputs beside them (plain kernel
+    version on the CPU; atol 1e-5: the same f32 products of the same int8
+    weights, summed in another order, over K <= 32)."""
+
+    def test_twin_is_close_small_and_int8_at_rest(self):
+        jm, tm = _mlp_pair()
+        xb = _mlp_x(16)
+        full = tm.output(xb).numpy()
+        jq = jt.quantize_model(jm)
+        tq = tt.quantize_model(tm, device="cpu")
+        q_out = tq.output(xb).numpy()
+        np.testing.assert_allclose(q_out, np.asarray(jq.output(xb).jax()),
+                                   atol=1e-5, rtol=0)
+        assert np.abs(full - q_out).max() < 0.05
+        assert tt.precision_of_model(tq) == "int8"
+        assert tt.precision_of_model(tm) == "float32"
+        assert tt.param_bytes_of(tq) == jt.param_bytes_of(jq)
+        assert tt.param_bytes_of(tq) < 0.6 * tt.param_bytes_of(tm)
+        assert isinstance(tq._params[0]["W"], tt.QuantizedTensor)
+        assert tq._params[0]["W"].q.dtype == torch.int8
+        assert tq.conf.dtype == "float32"   # CPU activations
+        from deeplearning4j_tpu_torch.kernels import dispatch_snapshot
+        snap = dispatch_snapshot()["dequant_matmul"]
+        assert snap["path"] == "plain" and "cpu tensor" in snap["reason"]
+
+    def test_twin_does_not_mutate_the_original(self):
+        _, tm = _mlp_pair()
+        before = tm.params().numpy().copy()
+        tq = tt.quantize_model(tm, device="cpu")
+        assert tt.precision_of_model(tm) == "float32"
+        assert tm.conf.dtype in ("float32", None)
+        assert tq.conf is not tm.conf and tq._updater_state is None
+        np.testing.assert_array_equal(tm.params().numpy(), before)
+
+    def test_decisive_batch_agrees_at_99pct(self):
+        jm, tm = _mlp_pair()
+        cands = _mlp_x(4 * 32)
+        batch = _decisive(tm.output(cands).numpy(), cands, 32)
+        np.testing.assert_array_equal(
+            batch, _decisive(np.asarray(jm.output(cands).jax()), cands, 32))
+        tq = tt.quantize_model(tm, device="cpu")
+        rep = tquant.divergence_report(tm, tq, batch)
+        ref = jquant.divergence_report(jm, jt.quantize_model(jm), batch)
+        assert rep["top1_agreement"] >= 0.99
+        assert rep["generative"] is ref["generative"] is False
+        for k in ("max_abs_err", "mean_abs_err", "top1_agreement"):
+            np.testing.assert_allclose(rep[k], ref[k], atol=1e-4, rtol=0)
+        tquant.validate(tm, tq, batch, max_divergence=0.25, min_top1=0.99)
+
+    @pytest.mark.parametrize("method", ["absmax", "percentile"])
+    def test_calibrate_feed_forward_matches_jax(self, method):
+        jm, tm = _mlp_pair()
+        xb = _mlp_x(16, seed=3)
+        got = tquant.calibrate(tm, xb, method=method)
+        ref = jquant.calibrate(jm, xb, method=method)
+        assert sorted(got.act_ranges) == sorted(ref.act_ranges) == \
+            ["layer0", "layer1", "layer2"]
+        for k, v in ref.act_ranges.items():
+            np.testing.assert_allclose(got.act_ranges[k], v, rtol=1e-4)
+        assert got.to_json() == tquant.QuantSpec.from_json(
+            got.to_json()).to_json()
