@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-(the CausalLM, BERT-base and the layer API's LeNet and quantized MLP).
+(the CausalLM, BERT-base and the layer API's LeNet and quantized MLP,
+directly, behind the predict route and behind the fleet front door).
 
     python3 chip_smoke.py
 
@@ -105,6 +106,39 @@ exits non-zero without printing a result:
               and ``calibrate`` on the twin. Its own main path: the
               dequant count set to 0 before the twin's timed calls, which
               must launch the kernel 5 times each.
+   predict_http — the layer API behind the predict route: one
+              ``ModelServer`` over a ``ModelRegistry`` serving
+              ``zoo.LeNet(dtype="bfloat16")`` and the MLP's int8 twin
+              (``deploy(quantize="int8")`` with a calibration batch),
+              each ``InferenceEngine`` warmed over the ladder 1..128
+              with a 2 ms coalescing window. 16 client processes
+              (``chip_smoke.py --http-clients``) send 32 requests each,
+              of 1-16 rows from seeded pools, alternating the two
+              models; every answer is held against the deployed model's
+              own ``output()`` on the same rows (``*_PREDICT_ATOL``), the
+              twin's top-1 against its own output (1.0) and the f32
+              network's (>= 0.99). Prints samples/s, client p50 / p99,
+              rows per dispatch, the shape census after warmup (must be
+              0), dequant launches per twin dispatch (must be 5) and
+              ``launches_predict_http``: its own main path, the dequant
+              count set to 0 just before the clients start. Then one
+              poison request (511 features) among live twin traffic must
+              get 422 with a ``trace_id`` while every live request is
+              answered correctly.
+   fleet    — two ``ModelServer`` replicas of the twin in this process
+              behind ``FleetServer(FleetRouter(...))``: 200 predicts
+              from 4 client threads through the front door, the second
+              replica stopped once a third are answered; every answer
+              checked as above, the front door's ``/metrics.json`` must
+              hold both replicas' ``dl4j_serving_requests_total`` series
+              and their merged sum. Prints fleet samples/s against one
+              replica's (the same clients straight at one replica),
+              attempts by kind and ejections.
+   host_profile — ``torch.profiler`` (CPU activities, every thread)
+              and a 1 kHz sampling of every thread's innermost Python
+              frame over a second run of serve_http's 16 requests and a
+              shorter run of predict_http's traffic: the top 10 events by
+              self CPU time and the top 10 working Python functions.
 8. kernels  — launches on each kernel's own main path (the serving
               phases 4-6 for the paged and dequant kernels, counts set to
               0 just before phase 4; the train phase's timed run for the
@@ -120,7 +154,11 @@ exits non-zero without printing a result:
               left in L2 by the call before (``ms_warm``,
               ``library_ms_warm``). Each kernel's and library call's
               ``ms`` is the median of ``WINDOWS`` profiler windows, with
-              their min and max beside it (``*_spread``).
+              their min and max beside it (``*_spread``). A reading
+              whose profiler windows record no device work
+              ``PROFILE_TRIES`` times in a row is taken between CUDA
+              events instead (gaps included); the done line lists such
+              readings and every empty window.
               The flash kernels are timed at both flash shapes, and the
               forward also causal at the CausalLM's shape (B=4, T=1024,
               12 heads of 64, no mask) beside SDPA with ``is_causal``
@@ -131,8 +169,11 @@ exits non-zero without printing a result:
               head f32), operands warm as the twin's calls leave them,
               beside ``torch.matmul`` on a copy of the weight in the
               activation's dtype; those rows carry ``main_path``
-              "mlp_int8" and that path's launches. The parity phase holds
-              the kernel at those shapes in bf16 and f32.
+              "mlp_int8" and that path's launches, and again at M = 1, 8,
+              16 and 128 with ``main_path`` "predict_http"; every dequant
+              row carries ``launches_predict_http``. The parity phase
+              holds the kernel at those shapes in bf16 and f32 and at
+              every rung of the predict ladder in the twin's dtypes.
    flash_backward — the whole port backward (``_flash_bwd``: the dq
               kernel with its delta prologue, then dk/dv) beside SDPA's
               whole backward, at both flash shapes.
@@ -239,54 +280,134 @@ MLP_MIN_TOP1 = 0.99
 # f32 peak outside the tensor cores (H100 SXM data sheet): the f32
 # dequant route's operations
 F32_FLOPS_PER_S = 67e12
+# the layer API's predict route (predict_http): LeNet and the MLP's int8
+# twin behind one ModelServer, each InferenceEngine on the default ladder
+# 1..128 with a 2 ms coalescing window; 16 client processes send 32
+# requests each, of 1-16 rows drawn from seeded pools of POOL_ROWS rows
+PREDICT_MAX_BATCH, PREDICT_DELAY_MS = 128, 2.0
+PREDICT_LADDER = (1, 2, 4, 8, 16, 32, 64, 128)
+PREDICT_CLIENTS, PREDICT_REQUESTS, PREDICT_MAX_ROWS = 16, 32, 16
+POOL_ROWS = 1024
+# a response against the deployed model's own output() on the same rows:
+# the engine ran the rows padded into another bucket (another M) than a
+# direct call, so bf16 activations round at other places. LeNet's softmax
+# probabilities (~0.1 each) move by a few bf16 ulps of their logits; the
+# twin's by less (its bf16 body feeds an f32 head)
+LENET_PREDICT_ATOL, MLP_PREDICT_ATOL = 2e-2, 1e-2
+# the dequant kernel's rows at the predict path's shapes (kernels line)
+PREDICT_ROW_MS = (1, 8, 16, 128)
+# the fleet phase: two replicas of the twin behind the front door, 200
+# requests from FLEET_CLIENTS client threads; the second replica stops
+# after the first third has been answered
+FLEET_REQUESTS, FLEET_CLIENTS = 200, 4
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def device_ms_by_kernel(fn, iters):
+#: profiler windows that recorded no device work (one record each), and
+#: the readings that were then taken with CUDA events; the done line
+#: reports both
+PROFILER_EMPTY, EVENT_FALLBACKS = [], []
+# profiler windows taken for one reading before it gives up
+PROFILE_TRIES = 5
+# host seconds the profiler window spans on either side of the work: the
+# tracer drops a kernel record whose device timestamp, converted to host
+# time, falls outside its window
+PROFILE_MARGIN_S = 0.002
+
+
+def device_ms_by_kernel(fn, iters, flush=None, need=True):
     """{kernel name: ms per ``fn()`` call} of the card's own work
     (kernels, copies, fills) that ``torch.profiler`` records over
-    ``iters`` calls."""
+    ``iters`` calls, each after ``flush()`` where one is given. A window
+    that records no device work is recorded in ``PROFILER_EMPTY`` and
+    taken again, up to ``PROFILE_TRIES`` windows in all; then it raises,
+    or returns None where ``need`` is false."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    # a profiler window now and then records no device activity at all;
-    # such a window is taken again, up to twice
-    for _ in range(3):
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(iters):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
+            time.sleep(PROFILE_MARGIN_S)
+        by_name, n_dev, n_launch = {}, 0, 0
+        events = prof.events()
+        for e in events:
             if e.device_type == torch.autograd.DeviceType.CUDA:
+                n_dev += 1
                 by_name[e.name] = by_name.get(e.name, 0.0) \
                     + e.device_time_total / 1e3 / iters
+            elif "LaunchKernel" in e.name:
+                n_launch += 1
         if sum(by_name.values()) > 0:
             return by_name
-    raise RuntimeError("the profiler saw no device time")
+        PROFILER_EMPTY.append({
+            "fn": fn.__qualname__, "attempt": attempt,
+            "events": len(events), "device_events": n_dev,
+            "launch_events": n_launch})
+        print(f"profiler window {attempt} over {fn.__qualname__} recorded "
+              f"no device time: {PROFILER_EMPTY[-1]}", file=sys.stderr,
+              flush=True)
+        time.sleep(0.05 * (attempt + 1))
+    if need:
+        raise RuntimeError(f"the profiler saw no device time over "
+                           f"{fn.__qualname__} in {PROFILE_TRIES} windows")
+    return None
 
 
-def time_ms(fn, iters=30, warm=3, skip=()):
+def event_ms(fn, iters, flush=None):
+    """ms of one ``fn()`` call between two CUDA events, ``flush()`` run
+    before each call outside them; the mean over ``iters`` calls. It is
+    the reading where the profiler records no device work, and it counts
+    the gaps between launches as well."""
+    import torch
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        if flush is not None:
+            flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sum(s.elapsed_time(e) for s, e in pairs) / iters
+    EVENT_FALLBACKS.append({"fn": fn.__qualname__, "ms": ms})
+    return ms
+
+
+def time_ms(fn, iters=30, warm=3, flush=None):
     """Device time of one ``fn()`` call in ms, after ``warm`` calls: the
     summed duration of the work it puts on the card, over ``iters``
-    calls, leaving out kernels whose names contain a fragment of
-    ``skip``. The gaps between launches, which the host sets, do not
-    count, so a chain of library launches is timed like one kernel."""
+    calls, each after ``flush()`` where one is given, whose kernel
+    (``FLUSH_KERNEL``) is left out. The gaps between launches, which the
+    host sets, do not count, so a chain of library launches is timed like
+    one kernel. Where the profiler records no device work, the reading is
+    ``event_ms``'s."""
     import torch
     for _ in range(warm):
+        if flush is not None:
+            flush()
         fn()
     torch.cuda.synchronize()
-    return sum(v for k, v in device_ms_by_kernel(fn, iters).items()
-               if not any(f in k for f in skip))
+    by_name = device_ms_by_kernel(fn, iters, flush, need=False)
+    if by_name is None:
+        return event_ms(fn, iters, flush)
+    return sum(v for k, v in by_name.items()
+               if flush is None or FLUSH_KERNEL not in k)
 
 
-def time_spread(fn, iters=30, warm=3, skip=(), windows=WINDOWS):
+def time_spread(fn, iters=30, warm=3, flush=None, windows=WINDOWS):
     """``time_ms`` over ``windows`` profiler windows of ``iters`` calls
     each: (median, [min, max]) in ms."""
-    vals = sorted(time_ms(fn, iters, warm if i == 0 else 0, skip)
+    vals = sorted(time_ms(fn, iters, warm if i == 0 else 0, flush)
                   for i in range(windows))
     return vals[len(vals) // 2], [vals[0], vals[-1]]
 
@@ -461,7 +582,15 @@ def phase_parity():
               (xm, 1000, 3000), (wk, 768, 3072), (wk + 1, 768, 3072),
               (4096, 768, 3072), (4096, 3072, 768)] + list(MLP_SHAPES)),
             (torch.float32, DEQ_F32_RTOL, DEQ_F32_ATOL,
-             [(8, 768, 3072), (100, 3072, 768)] + list(MLP_SHAPES))):
+             [(8, 768, 3072), (100, 3072, 768)] + list(MLP_SHAPES)),
+            # the predict path's bucket ladder over the twin's shapes, in
+            # the twin's dtypes (bf16 body, f32 head)
+            (torch.bfloat16, DEQ_RTOL, DEQ_ATOL,
+             [(M, K, N) for M in PREDICT_LADDER[:-1]
+              for _, K, N in MLP_SHAPES[:2]]),
+            (torch.float32, DEQ_F32_RTOL, DEQ_F32_ATOL,
+             [(M, K, N) for M in PREDICT_LADDER[:-1]
+              for _, K, N in MLP_SHAPES[2:]])):
         for M, K, N in shapes:
             w = 0.02 * torch.randn((K, N), generator=g, device="cuda")
             qt = quantize_tensor(w)
@@ -486,7 +615,8 @@ def phase_parity():
                 raise RuntimeError(f"dequant_matmul {dtype} {M}x{K}x{N}: "
                                    f"max abs err {err} outside rtol {rtol}"
                                    f" atol {atol}, or two calls differ")
-            if (M, K, N) in MLP_SHAPES:
+            if (M, K, N) in MLP_SHAPES or (
+                    M in PREDICT_LADDER and (MLP_B, K, N) in MLP_SHAPES):
                 errs["dequant_mlp"][(M, K, N, str(dtype).split(".")[-1])] \
                     = err
             elif dtype == torch.bfloat16:
@@ -782,14 +912,87 @@ def http_clients(base, requests):
     return results, time.perf_counter() - t0
 
 
+def http_predict(base, model, rows, timeout=120):
+    """One ``POST /v1/models/<model>/predict`` of ``rows`` (a nested
+    list): (status, the response document, send and answer instants on
+    the host's wall clock)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"{base}/v1/models/{model}/predict",
+        data=json.dumps({"inputs": rows}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    try:
+        doc = json.loads(body or b"{}")
+    except ValueError:
+        doc = {"error": body[:200].decode(errors="replace")}
+    return status, doc, t0, time.time()
+
+
+def predict_client(job):
+    """One predict client: its requests in turn, from ``start_at`` (a
+    wall-clock instant shared by every client process). A request is
+    ``{"model", "lo", "rows", "cut"}``: rows ``lo:lo+rows`` of the
+    model's pool, the first ``cut`` features of each."""
+    import numpy as np
+    pools = {m: np.load(p) for m, p in job["pools"].items()}
+    time.sleep(max(0.0, job["start_at"] - time.time()))
+    out = []
+    for r in job["requests"]:
+        x = pools[r["model"]][r["lo"]:r["lo"] + r["rows"]]
+        if r.get("cut"):
+            x = x[..., :r["cut"]]
+        out.append(http_predict(job["base"], r["model"], x.tolist()))
+    return out
+
+
 def http_clients_main():
-    """``chip_smoke.py --http-clients``: the client side of serve_http in
-    a process of its own (so that the clients do not share the server's
-    interpreter), reading ``{"base", "requests"}`` as JSON on stdin and
-    writing ``{"results", "wall_s"}`` as JSON on stdout."""
+    """``chip_smoke.py --http-clients``: the client side of serve_http
+    and predict_http in a process of its own (so that the clients do not
+    share the server's interpreter), reading the job as JSON on stdin
+    (``{"base", "requests"}`` for generate requests, or a
+    ``predict_client`` job with ``"kind": "predict"``) and writing its
+    results as JSON on stdout."""
     job = json.load(sys.stdin)
+    if job.get("kind") == "predict":
+        json.dump({"results": predict_client(job)}, sys.stdout)
+        return
     results, wall = http_clients(job["base"], job["requests"])
     json.dump({"results": results, "wall_s": wall}, sys.stdout)
+
+
+def run_client_processes(jobs, timeout=900):
+    """One ``--http-clients`` process per job, all started together;
+    returns their parsed outputs in order (a client that fails fails the
+    phase)."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--http-clients"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _ in jobs]
+    try:
+        for p, job in zip(procs, jobs):
+            p.stdin.write(json.dumps(job))
+            p.stdin.close()
+        outs = []
+        for p in procs:
+            stdout = p.stdout.read()
+            p.wait(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"a client process failed: "
+                                   f"{p.stderr.read()[-2000:]}")
+            outs.append(json.loads(stdout))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def check_http(results, max_tokens, V, version=None):
@@ -905,12 +1108,19 @@ def phase_serve_http(model, prompts, sampling, greedy):
             "client_latency_s_p50": lat[len(lat) // 2],
             "client_latency_s_max": lat[-1],
             "greedy_identical_to_serve_phase": f"{same}/{len(greedy)}"})
+        stage("http_v1")
+        # the same 16 requests again under the host profile (apart from
+        # the timed run; their launches are a stage of their own)
+        _, HOST_PROFILES["serve_http"] = host_profile(
+            lambda: check_http(run_client_processes([job])[0]["results"],
+                               64, V, "v1"))
+        stage("http_v1_profiled")
         # the int8 twin as lm:v2, under the default gate
         calib = np.random.RandomState(1).randint(
             0, V, (4, 128)).astype(np.int32)
         gc.collect()
         mem0 = torch.cuda.memory_allocated()
-        stage("http_v1")
+        stage("before_v2")
         rejected = None
         try:
             mv = reg.deploy("lm", "v2", model, quantize="int8",
@@ -1027,34 +1237,29 @@ def phase_fp8(model, prompts):
         def kern():
             # the whole route a twin's layer runs: the activation's amax,
             # scale and fp8 cast, _scaled_mm, the output scale and cast
-            flush()
             dequant_matmul(x, w)
 
         def scaled_mm_only():
-            flush()
             out = torch._scaled_mm(xq, w.q, scale_a=sa, scale_b=one,
                                    out_dtype=torch.float32)
             (out[0] if isinstance(out, tuple) else out) * out_scale
 
         def plain():
-            flush()
             plain_route()
 
         def lib():
-            flush()
             torch.matmul(x, wbf)
         # the function's own bytes, as the kernel table counts them: bf16
         # x in, the fp8 weight and its f32 scales, bf16 y out
         byt = M * K * 2 + K * N + N * 4 + M * N * 2
         b_ms, b_by = bound_ms(byt, 2 * M * K * N, FP8_FLOPS_PER_S)
-        skip = (FLUSH_KERNEL,)
         rec = {"name": "dequant_matmul_fp8", "route": "torch._scaled_mm",
                "M": M, "K": K, "N": N, "max_abs_err": err,
-               "plain_ms": time_ms(plain, skip=skip), "bound_ms": b_ms,
+               "plain_ms": time_ms(plain, flush=flush), "bound_ms": b_ms,
                "bound_by": b_by, "windows": WINDOWS}
-        timed(rec, "ms", kern, skip=skip)
-        timed(rec, "scaled_mm_and_scale_ms", scaled_mm_only, skip=skip)
-        timed(rec, "library_ms", lib, skip=skip)
+        timed(rec, "ms", kern, flush=flush)
+        timed(rec, "scaled_mm_and_scale_ms", scaled_mm_only, flush=flush)
+        timed(rec, "library_ms", lib, flush=flush)
         shapes.append(rec)
     ids = torch.as_tensor(np.random.RandomState(5).randint(
         0, model.config.vocab_size, (1, 128)), device="cuda")
@@ -1268,17 +1473,14 @@ def phase_kernels(twin, launches, errs):
 
             def kern():
                 w = ws[next(it) % L_FULL]
-                flush()
                 _fused_dequant_matmul(x, w.q, w.scale.reshape(-1))
 
             def plain():
                 w = ws[next(it) % L_FULL]
-                flush()
                 dequant_matmul_plain(x, w.q, w.scale.reshape(-1))
 
             def lib():
                 w = wbf[next(it) % L_FULL]
-                flush()
                 torch.matmul(x, w)
 
             def kern_warm():
@@ -1288,14 +1490,13 @@ def phase_kernels(twin, launches, errs):
                 torch.matmul(x, wbf[0])
             byt = M * K * 2 + K * N + N * 4 + M * N * 2
             b_ms, b_by = bound_ms(byt, 2 * M * K * N)
-            skip = (FLUSH_KERNEL,)
             rec = {"M": M, "K": K, "N": N,
-                   "plain_ms": time_ms(plain, skip=skip),
+                   "plain_ms": time_ms(plain, flush=flush),
                    "ms_warm": time_ms(kern_warm),
                    "library_ms_warm": time_ms(lib_warm),
                    "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS}
-            timed(rec, "ms", kern, skip=skip)
-            timed(rec, "library_ms", lib, skip=skip)
+            timed(rec, "ms", kern, flush=flush)
+            timed(rec, "library_ms", lib, flush=flush)
             shapes.append({"name": "dequant_matmul", **rec})
             if M == 8 and wname == "w1":
                 rows.append({
@@ -1882,20 +2083,22 @@ def phase_mlp_int8():
     return launches, quant
 
 
-def mlp_kernel_rows(twin, launches, errs):
-    """The dequant kernel at the twin's three shapes, as its output()
-    calls it (operands warm: the twin's 13.8 MB of int8 weights stay in
-    the 50 MB L2 between calls), beside its plain version, ``torch.matmul``
-    on a copy of the weight in the activation's dtype and the bound."""
+def mlp_kernel_rows(twin, launches, errs, Ms=(MLP_B,),
+                    main_path="mlp_int8"):
+    """The dequant kernel at the twin's three shapes for each M of
+    ``Ms``, as its output() calls it (operands warm: the twin's 13.8 MB
+    of int8 weights stay in the 50 MB L2 between calls), beside its plain
+    version, ``torch.matmul`` on a copy of the weight in the activation's
+    dtype and the bound; ``launches`` are those of ``main_path``."""
     import torch
     from deeplearning4j_tpu_torch.quant.transforms import (
         _fused_dequant_matmul, dequant_matmul_plain, dequantize)
     rows = []
     g = torch.Generator(device="cuda").manual_seed(17)
-    layer_of = {(MLP_B, MLP_IN, MLP_HIDDEN): 0,
-                (MLP_B, MLP_HIDDEN, MLP_HIDDEN): 1,
-                (MLP_B, MLP_HIDDEN, MLP_OUT): MLP_HIDDEN_LAYERS}
-    for (M, K, N), li in layer_of.items():
+    layer_of = {(MLP_IN, MLP_HIDDEN): 0, (MLP_HIDDEN, MLP_HIDDEN): 1,
+                (MLP_HIDDEN, MLP_OUT): MLP_HIDDEN_LAYERS}
+    for M, ((K, N), li) in ((M, kv) for M in Ms
+                            for kv in layer_of.items()):
         w = twin._params[li]["W"]
         head = li == MLP_HIDDEN_LAYERS
         dtype = torch.float32 if head else torch.bfloat16
@@ -1910,7 +2113,7 @@ def mlp_kernel_rows(twin, launches, errs):
                "source": "deeplearning4j_tpu_torch/kernels/csrc/"
                          "dequant_matmul.cu",
                "replaces": "deeplearning4j_tpu/quant/transforms.py:216",
-               "main_path": "mlp_int8", "M": M, "K": K, "N": N,
+               "main_path": main_path, "M": M, "K": K, "N": N,
                "dtype": str(dtype).split(".")[-1], "launches": launches,
                "max_abs_err": errs["dequant_mlp"][
                    (M, K, N, str(dtype).split(".")[-1])],
@@ -1921,6 +2124,470 @@ def mlp_kernel_rows(twin, launches, errs):
         timed(rec, "library_ms", lambda: torch.matmul(x, wd))
         rows.append(rec)
     return rows
+
+
+#: host-profile records of the HTTP windows, by phase (host_profile line)
+HOST_PROFILES = {}
+
+#: the innermost Python functions of a thread that is waiting, not
+#: working (a lock, a socket, a pipe, a sleep)
+_WAITING = frozenset((
+    "wait", "select", "poll", "accept", "sleep", "readinto", "recv_into",
+    "_recv_into", "get", "join", "_wait_for_tstate_lock", "serve_forever",
+    "communicate", "_communicate", "read", "readline", "_sampler",
+    "_worker", "handle_one_request", "_bootstrap_inner"))
+
+
+def host_profile(fn, top=10):
+    """``fn()`` under ``torch.profiler`` with CPU activities and, beside
+    it, a 1 kHz sampling of every thread's innermost Python frame.
+    Returns (fn's result, the record): the window's wall seconds, the
+    profiler's top ``top`` events by self CPU time and their sum over
+    all events, and the top ``top`` Python functions by samples among
+    threads that were not waiting (``_WAITING``), with the waiting
+    share. The calling thread, which only waits for the clients, is not
+    sampled."""
+    import collections
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        # the server's handler and batcher threads, not only this one
+        from torch.profiler import _ExperimentalConfig
+        cfg = {"experimental_config":
+               _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        cfg = {}
+    samples = collections.Counter()
+    waiting = [0, 0]
+    stop = threading.Event()
+    caller = threading.get_ident()  # it only waits for the clients
+
+    def _sampler():
+        me = threading.get_ident()
+        while not stop.is_set():
+            for tid, frame in sys._current_frames().items():
+                if tid in (me, caller):
+                    continue
+                code = frame.f_code
+                waiting[1] += 1
+                if code.co_name in _WAITING:
+                    waiting[0] += 1
+                    continue
+                samples[f"{os.path.basename(code.co_filename)}:"
+                        f"{code.co_firstlineno}:{code.co_name}"] += 1
+            time.sleep(0.001)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU], **cfg) as prof:
+        th = threading.Thread(target=_sampler, daemon=True)
+        th.start()
+        try:
+            out = fn()
+        finally:
+            stop.set()
+            th.join(10)
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    ranked = sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)
+    busy = sum(samples.values())
+    return out, {
+        "wall_s": wall, "profile_all_threads": bool(cfg),
+        "profiler_self_cpu_ms_total":
+            sum(e.self_cpu_time_total for e in events) / 1e3,
+        "profiler_top_self_cpu": [
+            {"name": e.key, "self_cpu_ms": e.self_cpu_time_total / 1e3,
+             "calls": e.count} for e in ranked[:top]],
+        "sampled_thread_frames": waiting[1],
+        "sampled_waiting_share": waiting[0] / max(waiting[1], 1),
+        "sampled_top_working": [
+            {"function": k, "samples": n, "share_of_working": n / busy}
+            for k, n in samples.most_common(top)]}
+
+
+def predict_pools(mlp):
+    """The seeded input pools the predict clients draw rows from: LeNet
+    rows of unit normal noise (1x28x28), and MLP rows picked, of 4x as
+    many candidates, by the largest top-2 margin of the f32 network
+    (decisive traffic, as mlp_int8's batch)."""
+    import numpy as np
+    rng = np.random.RandomState(31)
+    lenet_pool = rng.randn(POOL_ROWS, 1, 28, 28).astype(np.float32)
+    cands = rng.randn(4 * POOL_ROWS, MLP_IN).astype(np.float32)
+    ref = mlp.output(cands).numpy()
+    part = np.partition(ref, -2, axis=-1)
+    mlp_pool = cands[np.argsort(part[:, -1] - part[:, -2])[-POOL_ROWS:]]
+    return {"lenet": lenet_pool, "mlp": np.ascontiguousarray(mlp_pool)}
+
+
+def pool_outputs(net, pool):
+    """``net.output`` over a whole pool, MAX_BATCH rows a call (each call
+    on a rung of the ladder)."""
+    import numpy as np
+    return np.concatenate([net.output(pool[i:i + PREDICT_MAX_BATCH]).numpy()
+                           for i in range(0, len(pool), PREDICT_MAX_BATCH)])
+
+
+def check_predictions(results, requests, refs, atol, top1_refs=()):
+    """Every (status, doc, t0, t1) of ``results`` against ``refs`` (the
+    reference outputs of the whole pool) on the request's rows: status
+    200, finite outputs of the right shape within ``atol``. Returns
+    (max abs err, {name: top-1 agreement} against each array of
+    ``top1_refs``)."""
+    import numpy as np
+    err, agree, n = 0.0, {k: 0 for k, _ in top1_refs}, 0
+    for i, ((status, doc, _, _), r) in enumerate(zip(results, requests)):
+        want = refs[r["lo"]:r["lo"] + r["rows"]]
+        got = np.asarray(doc.get("outputs", []), np.float32)
+        if status != 200 or got.shape != want.shape \
+                or not np.isfinite(got).all():
+            raise RuntimeError(f"predict {i} to {r['model']}: status "
+                               f"{status}, shape {got.shape}: "
+                               f"{str(doc)[:300]}")
+        e = float(np.abs(got - want).max())
+        if e > atol:
+            raise RuntimeError(f"predict {i} to {r['model']}: max abs err "
+                               f"{e} > {atol} against the model's own "
+                               "output()")
+        err = max(err, e)
+        for k, ref in top1_refs:
+            agree[k] += int((got.argmax(-1) == ref[r["lo"]:r["lo"]
+                                                    + r["rows"]]
+                             .argmax(-1)).sum())
+        n += r["rows"]
+    return err, {k: v / max(n, 1) for k, v in agree.items()}
+
+
+def percentile(vals, q):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+
+def phase_predict_http():
+    """The layer API behind the predict route: LeNet (bf16) and the MLP's
+    int8 twin deployed on one ModelRegistry behind one ModelServer, each
+    InferenceEngine warmed over the ladder 1..128; 16 client processes
+    of 32 requests each (1-16 rows, alternating models), every answer
+    held against the deployed model's own ``output()``; then a poison
+    request among live traffic. Its own main path for the dequant count
+    (0 just before the client traffic). Returns (the dequant kernel's
+    launches in that traffic, the twin, the f32 MLP, its pool)."""
+    import tempfile
+    import threading
+    import numpy as np
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    lenet = LeNet(dtype="bfloat16").init_model()
+    mlp = mlp_network()
+    pools = predict_pools(mlp)
+    env = environment()
+    env.reset_compile_count()
+    reg = ModelRegistry(manifest_dir=None)
+    srv = ModelServer(reg, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{srv.start()}"
+    rec = {"phase": "predict_http", "max_batch": PREDICT_MAX_BATCH,
+           "max_delay_ms": PREDICT_DELAY_MS,
+           "clients": PREDICT_CLIENTS, "requests_per_client":
+           PREDICT_REQUESTS}
+    kw = {"max_batch": PREDICT_MAX_BATCH, "max_delay_ms": PREDICT_DELAY_MS}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        reg.deploy("lenet", "v1", lenet, example=pools["lenet"][:1], **kw)
+        reg.deploy("mlp", "v1", mlp, quantize="int8",
+                   calibration_batch=pools["mlp"][:PREDICT_MAX_BATCH],
+                   example=pools["mlp"][:1], **kw)
+        rec["deploy_s"] = time.perf_counter() - t0
+        twin = reg.get("mlp").engine.model
+        engines = {m: reg.get(m).engine for m in ("lenet", "mlp")}
+        rec["ladder"] = list(engines["mlp"].ladder)
+        rec["census_after_deploys"] = env.compile_count()
+        rec["int8_gate"] = reg.get("mlp").divergence
+        paths = {}
+        for m, pool in pools.items():
+            paths[m] = os.path.join(tmp.name, f"{m}.npy")
+            np.save(paths[m], pool)
+        rng = np.random.RandomState(41)
+        jobs = []
+        for c in range(PREDICT_CLIENTS):
+            reqs = []
+            for j in range(PREDICT_REQUESTS):
+                rows = int(rng.randint(1, PREDICT_MAX_ROWS + 1))
+                reqs.append({"model": ("lenet", "mlp")[(c + j) % 2],
+                             "rows": rows,
+                             "lo": int(rng.randint(0, POOL_ROWS - rows + 1))})
+            jobs.append({"kind": "predict", "base": base, "pools": paths,
+                         "requests": reqs})
+        refs = {"lenet": pool_outputs(lenet, pools["lenet"]),
+                "mlp": pool_outputs(twin, pools["mlp"])}
+        ref_f32 = pool_outputs(mlp, pools["mlp"])
+        s0 = {m: e.stats() for m, e in engines.items()}
+        c0 = env.compile_count()
+        # the main path: the dequant count starts at 0 here
+        _fused_dequant_matmul.launches = 0
+        start = time.time() + 4.0   # every client process is up by then
+        for job in jobs:
+            job["start_at"] = start
+        outs = run_client_processes(jobs)
+        launches = _fused_dequant_matmul.launches
+        census_events = env.compile_count() - c0
+        s1 = {m: e.stats() for m, e in engines.items()}
+        results = [r for o in outs for r in o["results"]]
+        requests = [r for job in jobs for r in job["requests"]]
+        wall = max(r[3] for r in results) - min(r[2] for r in results)
+        lat = [r[3] - r[2] for r in results]
+        rows = sum(r["rows"] for r in requests)
+        by_model = {}
+        for m in ("lenet", "mlp"):
+            idx = [i for i, r in enumerate(requests) if r["model"] == m]
+            tops = (("twin", refs["mlp"]), ("f32", ref_f32)) \
+                if m == "mlp" else ()
+            err, top1 = check_predictions(
+                [results[i] for i in idx], [requests[i] for i in idx],
+                refs[m], LENET_PREDICT_ATOL if m == "lenet"
+                else MLP_PREDICT_ATOL, tops)
+            d = s1[m]["dispatches"] - s0[m]["dispatches"]
+            real = s1[m]["rows_real"] - s0[m]["rows_real"]
+            by_model[m] = {
+                "requests": len(idx), "rows": real, "dispatches": d,
+                "rows_per_dispatch": real / max(d, 1),
+                "requests_per_dispatch": len(idx) / max(d, 1),
+                "bucket_dispatches": {
+                    b: n - s0[m]["bucket_dispatches"].get(b, 0)
+                    for b, n in s1[m]["bucket_dispatches"].items()
+                    if n - s0[m]["bucket_dispatches"].get(b, 0)},
+                "max_abs_err_vs_output": err, **{
+                    f"top1_vs_{k}": v for k, v in top1.items()}}
+        twin_d = by_model["mlp"]["dispatches"]
+        rec.update({
+            "requests": len(results), "rows": rows, "wall_s": wall,
+            "samples_per_s": rows / wall,
+            "requests_per_s": len(results) / wall,
+            "client_latency_s_p50": percentile(lat, 0.5),
+            "client_latency_s_p99": percentile(lat, 0.99),
+            "by_model": by_model,
+            "census_events_after_warmup": census_events,
+            "census_ladder_length": len(PREDICT_LADDER),
+            "launches_predict_http": launches,
+            "dequant_launches_per_twin_dispatch": launches / max(twin_d, 1)})
+        # a poison request (511 features for the twin's 512) among live
+        # requests from client threads
+        live = [{"model": "mlp", "rows": 1 + i % PREDICT_MAX_ROWS,
+                 "lo": 37 * i % (POOL_ROWS - PREDICT_MAX_ROWS)}
+                for i in range(24)]
+        live_res = [None] * len(live)
+        poison = {}
+
+        def client(k):
+            for i in range(k, len(live), 4):
+                r = live[i]
+                live_res[i] = http_predict(
+                    base, "mlp",
+                    pools["mlp"][r["lo"]:r["lo"] + r["rows"]].tolist())
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.02)
+        poison["res"] = http_predict(
+            base, "mlp", pools["mlp"][:3, :MLP_IN - 1].tolist())
+        for t in threads:
+            t.join(120)
+        if any(t.is_alive() for t in threads) or None in live_res:
+            raise RuntimeError("the live requests beside the poison did "
+                               "not all finish")
+        check_predictions(live_res, live, refs["mlp"], MLP_PREDICT_ATOL)
+        status, doc, _, _ = poison["res"]
+        rec["poison"] = {"status": status, "trace_id": doc.get("trace_id"),
+                         "quarantined": doc.get("quarantined"),
+                         "live_requests_answered": len(live_res)}
+        if status != 422 or not doc.get("trace_id") \
+                or doc.get("quarantined") is not True:
+            raise RuntimeError(f"the poison request got {status}: {doc}")
+        # the host profile of a shorter window of the same traffic
+        short = [dict(job, requests=job["requests"][:8]) for job in jobs[:8]]
+
+        def profiled():
+            for job in short:
+                job["start_at"] = time.time() + 3.0
+            return run_client_processes(short)
+        _, HOST_PROFILES["predict_http"] = host_profile(profiled)
+        rec["drained"] = reg.drain_all(save_manifests=False)
+    finally:
+        srv.stop()
+        reg.drain_all(timeout_s=60, save_manifests=False)
+        tmp.cleanup()
+    emit(rec)
+    if census_events != 0:
+        raise RuntimeError(f"{census_events} new dispatch shapes after "
+                           "warmup (the ladder was warmed)")
+    if launches != 5 * twin_d or twin_d < 1:
+        raise RuntimeError(f"the twin launched the dequant kernel "
+                           f"{launches} times in {twin_d} dispatches, "
+                           "want 5 each")
+    if by_model["mlp"]["top1_vs_twin"] != 1.0 \
+            or by_model["mlp"]["top1_vs_f32"] < MLP_MIN_TOP1:
+        raise RuntimeError(f"the twin's answers disagree on top-1: "
+                           f"{by_model['mlp']}")
+    return launches, twin, mlp, pools["mlp"]
+
+
+def drive_predicts(base, pool, requests, on_answer=None):
+    """``requests`` ({"lo", "rows"}) to ``base``'s ``mlp`` from
+    FLEET_CLIENTS client threads; ``on_answer(k)`` runs once the k-th
+    answer is in. Returns (results in request order, wall seconds)."""
+    import threading
+    results = [None] * len(requests)
+    lock = threading.Lock()
+    nxt, done = [0], [0]
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(requests):
+                return
+            r = requests[i]
+            results[i] = http_predict(
+                base, "mlp", pool[r["lo"]:r["lo"] + r["rows"]].tolist())
+            with lock:
+                done[0] += 1
+                k = done[0]
+            if on_answer is not None:
+                on_answer(k)
+    threads = [threading.Thread(target=client) for _ in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a fleet client did not finish")
+    return results, time.perf_counter() - t0
+
+
+def phase_fleet(mlp, pool):
+    """Two replicas of the MLP's int8 twin (each a ModelRegistry +
+    ModelServer in this process, on this card) behind
+    ``FleetServer(FleetRouter(...))``: 200 predicts through the front
+    door, the second replica stopped once a third are answered, every
+    answer held against the twin's own ``output()``; one replica alone
+    first, with the same clients, for its samples/s."""
+    import urllib.request
+    import numpy as np
+    from deeplearning4j_tpu_torch.common.metrics import registry
+    from deeplearning4j_tpu_torch.common.tracing import tracer
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    from deeplearning4j_tpu_torch.serving.fleet import (FleetRouter,
+                                                        FleetServer)
+    members = []
+    rec = {"phase": "fleet", "replicas": 2, "requests": FLEET_REQUESTS,
+           "clients": FLEET_CLIENTS}
+    front = None
+    try:
+        for _ in range(2):
+            reg = ModelRegistry(manifest_dir=None)
+            reg.deploy("mlp", "v1", mlp, quantize="int8",
+                       calibration_batch=pool[:PREDICT_MAX_BATCH],
+                       example=pool[:1], max_batch=PREDICT_MAX_BATCH,
+                       max_delay_ms=PREDICT_DELAY_MS)
+            srv = ModelServer(reg, host="127.0.0.1", port=0)
+            members.append((reg, srv, f"http://127.0.0.1:{srv.start()}"))
+        urls = [m[2] for m in members]
+        ref = pool_outputs(members[0][0].get("mlp").engine.model, pool)
+        ref_f32 = pool_outputs(mlp, pool)
+        rng = np.random.RandomState(43)
+        reqs = []
+        for _ in range(FLEET_REQUESTS):
+            rows = int(rng.randint(1, PREDICT_MAX_ROWS + 1))
+            reqs.append({"model": "mlp", "rows": rows,
+                         "lo": int(rng.randint(0, POOL_ROWS - rows + 1))})
+        rows = sum(r["rows"] for r in reqs)
+        # one replica alone, the same clients
+        res, wall = drive_predicts(urls[0], pool, reqs)
+        check_predictions(res, reqs, ref, MLP_PREDICT_ATOL)
+        rec["one_replica_samples_per_s"] = rows / wall
+        router = FleetRouter(urls)
+        front = FleetServer(router, host="127.0.0.1", port=0)
+        fbase = f"http://127.0.0.1:{front.start()}"
+        router.poll_once()
+        reg_m = registry()
+        ej = reg_m.counter("dl4j_fleet_ejections_total",
+                           labels=("replica", "reason"))
+        ej0 = sum(c.value() for _, c in ej.children())
+        stopped = {}
+
+        def stop_second(k):
+            if k == FLEET_REQUESTS // 3 and not stopped:
+                stopped["at"] = k
+                members[1][1].stop()
+        t_win = time.perf_counter() * 1e6
+        res, wall = drive_predicts(fbase, pool, reqs, stop_second)
+        err, top1 = check_predictions(res, reqs, ref, MLP_PREDICT_ATOL,
+                                      (("twin", ref), ("f32", ref_f32)))
+        attempts = {}
+        for e in tracer().events():
+            if e["name"] == "fleet/attempt" and e["ts"] >= t_win:
+                k = e.get("args", {}).get("kind", "")
+                attempts[k] = attempts.get(k, 0) + 1
+        served = {}
+        for status, doc, _, _ in res:
+            served[status] = served.get(status, 0) + 1
+        router.poll_once()
+        with urllib.request.urlopen(fbase + "/metrics.json",
+                                    timeout=60) as r:
+            doc = json.loads(r.read())
+        # the replicas share this process's registry, so the front door's
+        # own family of that name comes first; the aggregator appends, per
+        # label set, one series per replica and then the merged one
+        series = doc.get("dl4j_serving_requests_total", {}).get("series", [])
+        per_rep, merged = {}, {}
+        for sr in series:
+            labels = dict(sr["labels"])
+            rep = labels.pop("replica", None)
+            key = json.dumps(labels, sort_keys=True)
+            if rep is None:
+                merged[key] = sr["value"]
+            else:
+                per_rep.setdefault(key, {})[rep] = sr["value"]
+        merged_ok = bool(per_rep) and all(
+            set(v) == set(urls) and abs(merged.get(k, -1) - sum(v.values()))
+            < 1e-6 for k, v in per_rep.items())
+        rec.update({
+            "fleet_samples_per_s": rows / wall,
+            "fleet_over_one_replica":
+                rows / wall / rec["one_replica_samples_per_s"],
+            "stopped_replica_after_answers": stopped.get("at"),
+            "statuses": served, "attempts_by_kind": attempts,
+            "failovers": sum(
+                c.value() for k, c in reg_m.counter(
+                    "dl4j_router_dispatch_total",
+                    labels=("replica", "outcome")).children()
+                if k[1] == "failover"),
+            "ejections": sum(c.value() for _, c in ej.children()) - ej0,
+            "max_abs_err_vs_output": err,
+            **{f"top1_vs_{k}": v for k, v in top1.items()},
+            "metrics_replica_series": sorted({r for v in per_rep.values()
+                                              for r in v}),
+            "metrics_merged_equals_sum": merged_ok})
+    finally:
+        if front is not None:
+            front.stop()
+        for reg, srv, _ in members:
+            srv.stop()
+            reg.drain_all(timeout_s=60, save_manifests=False)
+    emit(rec)
+    if not stopped or served != {200: FLEET_REQUESTS}:
+        raise RuntimeError(f"the fleet did not answer every request with a "
+                           f"replica stopped: {served}, {stopped}")
+    if not merged_ok:
+        raise RuntimeError("the front door's /metrics does not merge both "
+                           "replicas' dl4j_serving_requests_total")
+    if top1["twin"] != 1.0 or top1["f32"] < MLP_MIN_TOP1:
+        raise RuntimeError(f"the fleet's answers disagree on top-1: {top1}")
 
 
 def main():
@@ -1968,18 +2635,28 @@ def main():
     phase_causal(model)
     phase_lenet()
     mlp_launches, mlp_twin = phase_mlp_int8()
+    predict_launches, predict_twin, mlp_f32, mlp_pool = phase_predict_http()
+    phase_fleet(mlp_f32, mlp_pool)
+    emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:
         row["launches_serve_http"] = http_launches["requests"][row["name"]]
         row["launches_serve_http_deploys"] = \
             http_launches["deploys"][row["name"]]
     rows += mlp_kernel_rows(mlp_twin, mlp_launches, errs)
+    rows += mlp_kernel_rows(predict_twin, predict_launches, errs,
+                            Ms=PREDICT_ROW_MS, main_path="predict_http")
+    for row in rows:
+        if row["name"] == "dequant_matmul":
+            row["launches_predict_http"] = predict_launches
     flash, flash_shapes = flash_rows(launches, errs)
     emit({"phase": "kernel_shapes",
           "shapes": shapes + flash_shapes + fp8_shapes})
     emit({"kernels": flash + rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
-                                            1)})
+                                            1),
+          "profiler_empty_windows": PROFILER_EMPTY,
+          "event_timed_readings": EVENT_FALLBACKS})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -31,6 +31,9 @@ Ported so far:
     registry.deploy("lm", "v1", CausalLM(CausalLMConfig(), device="cuda"))
     ModelServer(registry, port=8000).start()   # POST /v1/models/lm/generate
 
+  and, over several such servers, the fleet front door
+  (``serving.fleet``: ``FleetRouter``, ``FleetServer``);
+
 - BERT masked-LM training (``models.bert``: forward, loss, backward and
   Adam) and its QA head, with the flash-attention forward, dq and dk/dv
   kernels (``kernels.flash_attention``)::
@@ -54,6 +57,11 @@ Ported so far:
     net = LeNet(dtype="bfloat16").init_model(device="cuda")
     net.fit(datasets, num_epochs=5)             # a list of DataSets
     probs = net.output(x)
+
+  served through ``runtime.inference``'s ``InferenceEngine`` (bucket
+  ladder, ``submit()`` micro-batcher, poison quarantine, warmup
+  manifests), which ``ModelRegistry.deploy`` puts behind
+  ``POST /v1/models/<name>/predict``;
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 #: property name -> (environment variable, default)
 _PROPS: Dict[str, tuple] = {
@@ -62,6 +62,17 @@ _PROPS: Dict[str, tuple] = {
     "flight_recorder_dir": ("DL4J_TPU_FLIGHT_RECORDER_DIR", ""),
     "training_remat": ("DL4J_TPU_REMAT", "none"),
     "training_grad_accum": ("DL4J_TPU_GRAD_ACCUM", "1"),
+    "inference_bucketing": ("DL4J_TPU_INFERENCE_BUCKETING", "1"),
+    "inference_max_batch": ("DL4J_TPU_INFERENCE_MAX_BATCH", "128"),
+    "fleet_poll_s": ("DL4J_TPU_FLEET_POLL_S", "2.0"),
+    "fleet_retries": ("DL4J_TPU_FLEET_RETRIES", "1"),
+    "fleet_timeout_s": ("DL4J_TPU_FLEET_TIMEOUT_S", "30.0"),
+    "fleet_retry_budget": ("DL4J_TPU_FLEET_RETRY_BUDGET", "0.2"),
+    "fleet_hedge_pctl": ("DL4J_TPU_FLEET_HEDGE_PCTL", "95"),
+    "fleet_brownout_frac": ("DL4J_TPU_FLEET_BROWNOUT_FRAC", "0.5"),
+    "fleet_default_priority": ("DL4J_TPU_FLEET_DEFAULT_PRIORITY", "5"),
+    "fleet_agg_retention_s": ("DL4J_TPU_FLEET_AGG_RETENTION_S", "600"),
+    "fleet_agg_max_samples": ("DL4J_TPU_FLEET_AGG_MAX_SAMPLES", "512"),
 }
 
 
@@ -88,6 +99,11 @@ class Environment:
 
     def __init__(self):
         self._overrides: Dict[str, str] = {}
+        self._compile_lock = threading.Lock()
+        self._compile_keys: set = set()
+        self._compile_count = 0
+        self._compile_listeners: list = []
+        self._listener_errors_logged: set = set()
 
     @classmethod
     def get(cls) -> "Environment":
@@ -175,6 +191,144 @@ class Environment:
         """Span ring-buffer capacity (``DL4J_TPU_TRACE_BUFFER``)."""
         return _int(self.property("trace_buffer"), 16384, 1)
 
+
+    # -- inference-serving knobs (runtime/inference.py) --------------------
+    def inference_bucketing(self) -> bool:
+        """Whether batched inference pads the batch dim up to a bucket of
+        the ladder (``DL4J_TPU_INFERENCE_BUCKETING``, on by default;
+        exact shapes when off)."""
+        return self._flag("inference_bucketing")
+
+    def set_inference_bucketing(self, v: bool):
+        return self.set_property("inference_bucketing", "1" if v else "0")
+
+    def inference_max_batch(self) -> int:
+        """Top rung of the default bucket ladder for the direct
+        ``output()``/``predict()`` paths (``DL4J_TPU_INFERENCE_MAX_BATCH``)."""
+        return _int(self.property("inference_max_batch"), 128, 1)
+
+    def set_inference_max_batch(self, n: int):
+        return self.set_property("inference_max_batch", int(n))
+
+    # -- dispatch census (runtime/inference.py counted_dispatch) ------------
+    # One event = one new (tag, padded input signature) pair reaching an
+    # inference entry. The JAX package counts XLA compiles here; the port
+    # runs eagerly and compiles nothing per shape, so it counts the first
+    # dispatch of each shape instead: the set of shapes that captured CUDA
+    # graphs will replay (ROADMAP.md queue 1 item 12). The ladder
+    # invariant holds unchanged: K distinct request batch sizes give at
+    # most ceil(log2(max_batch)) + 1 events per network.
+
+    def record_compile(self, key, cache: str = "eager") -> bool:
+        """Register a first-seen dispatch signature; returns False if
+        ``key`` was already seen. New keys notify the listeners and bump
+        ``dl4j_compiles_total{kind,cache}`` (``cache="eager"``: nothing
+        was compiled or loaded, the signature ran eagerly)."""
+        with self._compile_lock:
+            if key in self._compile_keys:
+                return False
+            self._compile_keys.add(key)
+            self._compile_count += 1
+            listeners = list(self._compile_listeners)
+        try:
+            from .metrics import registry
+            kind = key[0] if isinstance(key, (tuple, list)) and key else key
+            registry().counter(
+                "dl4j_compiles_total",
+                "First-seen dispatch signatures recorded by "
+                "counted_dispatch",
+                labels=("kind", "cache")).labels(
+                    kind=str(kind).split(":")[0], cache=cache).inc()
+        except Exception:
+            pass  # observability must never break the inference path
+        for fn in listeners:
+            try:
+                fn(key)
+            except Exception:
+                # swallowed so a bad listener cannot break serving; logged
+                # once per listener
+                if id(fn) not in self._listener_errors_logged:
+                    self._listener_errors_logged.add(id(fn))
+                    import logging
+                    logging.getLogger(__name__).exception(
+                        "dispatch listener %r raised (logged once; later "
+                        "exceptions from it are dropped)", fn)
+        return True
+
+    def compile_count(self) -> int:
+        return self._compile_count
+
+    def reset_compile_count(self):
+        """Zero the census and forget its keys."""
+        with self._compile_lock:
+            self._compile_keys.clear()
+            self._compile_count = 0
+        return self
+
+    def add_compile_listener(self, fn: Callable[[Any], None]):
+        """``fn(key)`` is called once per new census event."""
+        with self._compile_lock:
+            self._compile_listeners.append(fn)
+        return self
+
+    def remove_compile_listener(self, fn: Callable[[Any], None]):
+        with self._compile_lock:
+            if fn in self._compile_listeners:
+                self._compile_listeners.remove(fn)
+        return self
+
+    # -- fleet routing (serving/fleet) ------------------------------------
+    def fleet_poll_s(self) -> float:
+        """FleetRouter replica-poll interval in seconds
+        (``DL4J_TPU_FLEET_POLL_S``): how often each replica's ``/readyz``
+        and ``/metrics.json`` are refreshed for the least-loaded score."""
+        return max(_float(self.property("fleet_poll_s"), 2.0), 0.05)
+
+    def fleet_retries(self) -> int:
+        """Failover retries on a *different* replica after a
+        replica-level failure: 503, connection refused, timeout
+        (``DL4J_TPU_FLEET_RETRIES``)."""
+        return _int(self.property("fleet_retries"), 1, 0)
+
+    def fleet_timeout_s(self) -> float:
+        """Per-attempt HTTP timeout of routed requests
+        (``DL4J_TPU_FLEET_TIMEOUT_S``)."""
+        return max(_float(self.property("fleet_timeout_s"), 30.0), 0.1)
+
+    def fleet_retry_budget(self) -> float:
+        """Fleet retry-budget ratio (``DL4J_TPU_FLEET_RETRY_BUDGET``):
+        failovers and hedges may add at most this fraction of recent
+        primary dispatches; 0 = one request, one attempt."""
+        return min(max(_float(self.property("fleet_retry_budget"), 0.2),
+                       0.0), 1.0)
+
+    def fleet_hedge_pctl(self) -> float:
+        """Percentile of the router's observed per-model dispatch
+        latencies used as the hedge delay (``DL4J_TPU_FLEET_HEDGE_PCTL``);
+        <= 0 disables hedging."""
+        return min(_float(self.property("fleet_hedge_pctl"), 95.0), 100.0)
+
+    def fleet_brownout_frac(self) -> float:
+        """Ready-capacity fraction below which the front door browns out
+        (``DL4J_TPU_FLEET_BROWNOUT_FRAC``); <= 0 disables brownout."""
+        return min(max(_float(self.property("fleet_brownout_frac"), 0.5),
+                       0.0), 1.0)
+
+    def fleet_default_priority(self) -> int:
+        """Priority of a request without ``X-Priority``
+        (``DL4J_TPU_FLEET_DEFAULT_PRIORITY``), clamped to [0, 9]."""
+        return min(_int(self.property("fleet_default_priority"), 5, 0), 9)
+
+    def fleet_agg_retention_s(self) -> float:
+        """Seconds the fleet aggregator's signal ring keeps
+        (``DL4J_TPU_FLEET_AGG_RETENTION_S``)."""
+        return max(_float(self.property("fleet_agg_retention_s"), 600.0),
+                   1.0)
+
+    def fleet_agg_max_samples(self) -> int:
+        """Hard cap on samples in the aggregator's signal ring
+        (``DL4J_TPU_FLEET_AGG_MAX_SAMPLES``)."""
+        return _int(self.property("fleet_agg_max_samples"), 512, 1)
 
     # -- training knobs (nn/fit_fastpath.py) --------------------------------
     def training_remat(self) -> str:

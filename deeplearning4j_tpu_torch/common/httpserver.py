@@ -147,6 +147,11 @@ def device_memory_stats() -> dict:
 
 
 
+def debug_enabled() -> bool:
+    from .environment import environment
+    return environment().debug_endpoints_enabled()
+
+
 def handle_debug_get(handler: "JsonRequestHandler", path: str) -> bool:
     """Serve the shared GET ``/debug/*`` endpoints; returns True when the
     path was handled (the caller 404s otherwise)."""

@@ -29,6 +29,7 @@ gradients of one micro-batch), ``_apply_update``, ``_step_fn``,
 from __future__ import annotations
 
 import contextlib
+import threading
 import functools
 
 import torch
@@ -58,20 +59,37 @@ _dots_saveable = functools.partial(create_selective_checkpoint_contexts,
                                    _keep_products)
 
 
+_f32_lock = threading.Lock()
+_f32_holders = 0
+_f32_saved = None
+
+
 @contextlib.contextmanager
 def full_f32():
     """TF32 off for the matmuls and convolutions run inside (restored
     after): the port computes f32 products in f32, as the JAX package
-    does on the CPU."""
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    does on the CPU.
+
+    The flags are process-wide, and two threads (two engines' batchers,
+    or a batcher and a caller) may hold this at once: the first holder
+    saves and clears them, the last one out restores them, so no holder
+    sees TF32 come back while its products run."""
+    global _f32_holders, _f32_saved
+    with _f32_lock:
+        if _f32_holders == 0:
+            _f32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _f32_holders += 1
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
+        with _f32_lock:
+            _f32_holders -= 1
+            if _f32_holders == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _f32_saved
 
 
 def _batch_rows(x) -> int:

@@ -9,10 +9,12 @@ train step is forward, loss and autograd backward, then the updater and
 the post-update constraints, functionally: each step returns new
 parameter tensors, as the JAX package's donated step does.
 
-``distribute`` (queue 1 item 10), ``warm_buckets`` (item 7),
-``warm_compile`` (item 12) and ``save`` / ``load`` (``nn/serde.py``,
-item 9) are not ported and raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+``output()`` pads the batch up the inference bucket ladder
+(``runtime.inference.maybe_pad_tree``) and ``warm_buckets`` runs that
+ladder ahead of traffic, as the JAX package's do. ``distribute`` (queue
+1 item 10), ``warm_compile`` (item 12) and ``save`` / ``load``
+(``nn/serde.py``, item 9) are not ported and raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -90,8 +92,18 @@ class MultiLayerNetwork(FitFastPathMixin):
     def distribute(self, mesh):
         raise _unported("distribute", 10)
 
-    def warm_buckets(self, example, batch_sizes=None):
-        raise _unported("warm_buckets", 7)
+    def warm_buckets(self, example, batch_sizes=None) -> List[int]:
+        """Run the inference bucket ladder of the direct ``output()`` /
+        ``predict()`` paths ahead of traffic (without a standing
+        InferenceEngine). Delegates to ``InferenceEngine.warmup``: the
+        engine dispatches through the same ``_output_fn(False)`` that
+        ``output()`` uses, so the shapes land in one census. Returns the
+        buckets warmed."""
+        from ..common.environment import environment
+        from ..runtime.inference import InferenceEngine
+        return InferenceEngine(
+            self, max_batch=environment().inference_max_batch()).warmup(
+                example, batch_sizes=batch_sizes)
 
     def warm_compile(self, data, labels=None):
         raise _unported("warm_compile", 12)
@@ -176,16 +188,44 @@ class MultiLayerNetwork(FitFastPathMixin):
         """Inference forward pass (reference MultiLayerNetwork.output),
         without autograd.
 
-        Runs the batch at its exact shape. The JAX package pads it up a
-        bucket ladder so that request sizes share compiled executables;
-        eager PyTorch compiles nothing per shape, so the ladder returns
-        with CUDA-graph capture (``ROADMAP.md`` queue 1 #12)."""
+        Batch-bucketed by default (``Environment.inference_bucketing``):
+        the batch dim is zero-padded up to the next bucket of the ladder
+        so K distinct request sizes share at most ceil(log2(max_batch))+1
+        dispatch shapes (the census CUDA-graph capture will replay,
+        ``ROADMAP.md`` queue 1 #12); padded rows are sliced off. Exact
+        shape when disabled, training=True, or above the ladder."""
         self._check_init()
         from ..common.tracing import span
-        x = self._stage(x)
-        with span("mln/output"), torch.no_grad(), full_f32():
-            out = self._forward(self._params, x, training)
+        from ..runtime.inference import maybe_pad_tree
+        xp, pad = maybe_pad_tree(self._stage(x), training=training)
+        with span("mln/output"):
+            out = self._output_fn(training)(self._params, xp)
+        if pad is not None:
+            out = out[:pad[0]]
         return NDArray(out)
+
+    def _output_fn(self, training=False):
+        """The census-counted inference forward (``counted_dispatch``)
+        that ``output()`` and ``InferenceEngine`` share, one per
+        ``training`` flag. Its input is staged on the network's device."""
+        fns = self.__dict__.setdefault("_out_fns", {})
+        fn = fns.get(training)
+        if fn is None:
+            from ..runtime.inference import counted_dispatch
+            # a quantized twin carries _precision: its census tag stays
+            # apart from its full-precision original's (the first tag
+            # segment is the metric's kind label)
+            tag = f"mln:{id(self)}:{int(training)}"
+            prec = getattr(self, "_precision", None)
+            if prec:
+                tag += f":{prec}"
+
+            def forward(params, x):
+                with torch.no_grad(), full_f32():
+                    return self._forward(params, self._stage(x), training)
+            fn = counted_dispatch(forward, tag=tag)
+            fns[training] = fn
+        return fn
 
     def feed_forward(self, x, training: bool = False) -> List[NDArray]:
         """All layer activations (reference feedForward), at the params'

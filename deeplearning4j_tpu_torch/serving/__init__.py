@@ -1,7 +1,8 @@
-"""Model serving: the HTTP front end over the port's ``DecodeEngine``.
+"""Model serving: the HTTP front end over the port's ``InferenceEngine``
+and ``DecodeEngine``.
 
-Counterpart of the JAX package's ``serving/`` (less ``serving/fleet/``,
-the multi-replica router, which is the next serving slice): a versioned
+Counterpart of the JAX package's ``serving/`` (the multi-replica router
+is ``serving.fleet``): a versioned
 registry with warm-before-cutover hot swap, rollback and the
 quantized-deploy divergence gate (``registry.ModelRegistry``), admission
 control with deadlines and load shedding (``admission``), per-version
@@ -23,8 +24,11 @@ SLOs gating ``/readyz`` (``slo``), the stdlib HTTP server
     GracefulLifecycle(registry, server).install()   # SIGTERM drains
     # POST /v1/models/lm/generate {"prompt": [1, 5, 9], "max_tokens": 32}
 
-Only generative models deploy: the ``InferenceEngine`` behind the JAX
-package's predict route is ``ROADMAP.md`` queue 1 item 7.
+    registry.deploy("mnist", "v1", net, example=x)   # a MultiLayerNetwork
+    # POST /v1/models/mnist/predict {"inputs": [[...], ...]}
+
+A ``ComputationGraph`` or ``SameDiff`` model waits for ``ROADMAP.md``
+queue 1 item 9.
 
 Env knobs (the JAX package's names): ``DL4J_TPU_SERVING_{MAX_CONCURRENT,
 QUEUE_DEPTH,HIGH_WATER,TIMEOUT_S,DRAIN_TIMEOUT_S,RETAIN,MANIFEST_DIR}``,
@@ -33,7 +37,8 @@ QUEUE_DEPTH,HIGH_WATER,TIMEOUT_S,DRAIN_TIMEOUT_S,RETAIN,MANIFEST_DIR}``,
 ``DL4J_TPU_PROFILE_DIR``, ``DL4J_TPU_FLIGHT_RECORDER_DIR``,
 ``DL4J_TPU_BREAKER_{THRESHOLD,PROBE_S}``,
 ``DL4J_TPU_AUTO_ROLLBACK{,_OPENS}``, ``DL4J_TPU_WATCHDOG_FACTOR`` and
-``DL4J_TPU_QUANT{,_MAX_DIVERGENCE,_MIN_TOP1}``.
+``DL4J_TPU_QUANT{,_MAX_DIVERGENCE,_MIN_TOP1}``, and for the
+``InferenceEngine`` ``DL4J_TPU_INFERENCE_{BUCKETING,MAX_BATCH}``.
 """
 from ..runtime.inference import PoisonRequestError  # noqa: F401
 from .admission import (AdmissionController, DeadlineExceededError,  # noqa: F401

@@ -1,14 +1,20 @@
 """Versioned multi-model registry with warm-before-cutover hot swap.
 
-Counterpart of the JAX package's ``serving/registry.py``, for generative
-models: each deployed version runs behind the port's ``DecodeEngine``.
+Counterpart of the JAX package's ``serving/registry.py``: each deployed
+version runs behind the port's ``InferenceEngine`` (a layer-API network)
+or ``DecodeEngine`` (a generative model).
 
 1. ``deploy(name, version, model)`` builds the version's engine and warms
-   it (one prefill per prompt bucket and batch rung, plus the decode
-   step) BEFORE any traffic sees it. A quantized deploy
-   (``quantize="int8"``/``"fp8"``/a ``QuantSpec``) calibrates and
-   quantizes the model on its own device first, and the twin must pass
-   the divergence gate (``quant.validate``) between warmup and cutover.
+   it BEFORE any traffic sees it: an ``InferenceEngine`` runs its bucket
+   ladder, replaying (in priority order) the explicit ``example``, the
+   live traffic shapes of the outgoing version
+   (``InferenceEngine.observed_entries()``) or the on-disk warmup
+   manifest a previous replica saved; a ``DecodeEngine`` runs one
+   prefill per prompt bucket and batch rung, plus the decode step. A
+   quantized deploy (``quantize="int8"``/``"fp8"``/a ``QuantSpec``)
+   calibrates and quantizes the model on its own device first, and the
+   twin must pass the divergence gate (``quant.validate``) between
+   warmup and cutover.
 2. The registry then atomically repoints the model's current version.
    The outgoing engine drains its in-flight requests and is *parked*
    (drained, but retained warm) so that…
@@ -16,18 +22,16 @@ models: each deployed version runs behind the port's ``DecodeEngine``.
    Retention is bounded by ``DL4J_TPU_SERVING_RETAIN``; evicted versions
    are closed for good.
 
-``generate()`` routes a request to the current (or a pinned) version and
-retries a request that raced a cutover. Each dispatch is accounted
-against the version's circuit breaker (``resilience.CircuitBreaker``),
-with the JAX package's env-gated auto-rollback.
+``predict()`` (micro-batched) and ``generate()`` route a request to the
+current (or a pinned) version and retry a request that raced a cutover.
+Each dispatch is accounted against the version's circuit breaker
+(``resilience.CircuitBreaker``), with the JAX package's env-gated
+auto-rollback.
 
 What waits for other slices, and is refused before anything is allocated
-or registered:
-
-- a non-generative model: its ``InferenceEngine`` is ``ROADMAP.md`` queue
-  1 item 7 (``NotImplementedError``); ``predict()`` on a generative model
-  raises the JAX package's ``TypeError``;
-- ``mesh=`` / ``param_spec=``: sharded deploys are item 10.
+or registered: a ``ComputationGraph`` or ``SameDiff`` model (their
+adapters wait for ``ROADMAP.md`` queue 1 item 9) and ``mesh=`` /
+``param_spec=`` (sharded deploys are item 10).
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from ..quant.transforms import (param_bytes_of, precision_of_model,
 from ..quant.validate import validate as quant_validate
 from ..runtime import compile_cache
 from ..runtime.generation import DecodeEngine, is_generative_model
-from ..runtime.inference import EngineClosedError
+from ..runtime.inference import (EngineClosedError, InferenceEngine,
+                                 _make_adapter)
 from . import resilience
 from .resilience import CircuitBreaker
 
@@ -71,7 +76,7 @@ class ModelVersion:
     __slots__ = ("name", "version", "engine", "state", "deployed_at",
                  "precision", "param_bytes", "divergence")
 
-    def __init__(self, name: str, version: str, engine: DecodeEngine):
+    def __init__(self, name: str, version: str, engine):
         self.name = name
         self.version = version
         self.engine = engine
@@ -89,7 +94,7 @@ class ModelVersion:
              "deployed_at": self.deployed_at,
              "buckets": list(self.engine.ladder),
              "max_batch": self.engine.max_batch,
-             "generative": True,
+             "generative": isinstance(self.engine, DecodeEngine),
              "precision": self.precision,
              "param_bytes": self.param_bytes}
         if self.divergence is not None:
@@ -206,34 +211,38 @@ class ModelRegistry:
         """Deploy ``model`` as ``name``:``version`` with warm-before-
         cutover; returns the new (current) ModelVersion.
 
-        ``model`` follows the generative protocol (``models.causal_lm.
-        CausalLM``) and deploys behind a ``DecodeEngine`` on the model's
-        own device; the ``decode_*`` knobs size its slot count, context
-        window, prompt bucket ladder, default EOS, paged KV pool,
-        prefill batch, speculative draft and prefix cache (env defaults
-        otherwise). With ``warm=True`` (default) the engine runs every
-        step shape before the swap; ``warm=False`` cuts over in the
-        ``warming`` state and ``/readyz`` stays false until ``warm()``.
-        The outgoing version drains in-flight requests and is parked warm
-        for rollback.
+        A layer-API network (``nn.MultiLayerNetwork``) deploys behind an
+        ``InferenceEngine`` sized by ``max_batch``, ``buckets`` and
+        ``max_delay_ms``; with ``warm=True`` (default) it runs its
+        buckets before the swap, from the first available source:
+        ``example`` (optionally narrowed by ``batch_sizes``) > the live
+        observed shapes of the outgoing version > the model's on-disk
+        warmup manifest. A model that follows the generative protocol
+        (``models.causal_lm.CausalLM``) deploys behind a ``DecodeEngine``
+        on the model's own device; the ``decode_*`` knobs size its slot
+        count, context window, prompt bucket ladder, default EOS, paged
+        KV pool, prefill batch, speculative draft and prefix cache (env
+        defaults otherwise), and warmup runs every step shape.
+        ``warm=False`` cuts over in the ``warming`` state and
+        ``/readyz`` stays false until ``warm()``. The outgoing version
+        drains in-flight requests and is parked warm for rollback.
 
         ``quantize`` opts this deploy into post-training quantization:
         ``True``/``"int8"``/``"fp8"`` pick the storage mode, a
         :class:`~deeplearning4j_tpu_torch.quant.QuantSpec` is used as-is,
         ``None`` defers to ``DL4J_TPU_QUANT`` (off by default), ``False``
         forces full precision. A quantized deploy REQUIRES a gate batch
-        (``calibration_batch`` or ``example``: token ids ``[B, T]``), moved
-        to the model's device once, and runs the divergence gate between
+        (``calibration_batch`` or ``example``: token ids ``[B, T]`` or a
+        network's input batch), moved to the model's device once, and
+        runs the divergence gate between
         warmup and cutover: ``QuantizationRejectedError`` aborts the swap
         with the incoming engine closed and the current version still
         live. ``quant_max_divergence``/``quant_min_top1`` override the env
         budgets for this deploy only.
 
-        ``outputs``, ``max_batch``, ``buckets``, ``max_delay_ms`` and
-        ``batch_sizes`` size the JAX package's ``InferenceEngine``; the
-        port takes them for the same signature and refuses the
-        non-generative models they apply to (``ROADMAP.md`` queue 1 item
-        7). ``mesh``/``param_spec`` are refused likewise (item 10)."""
+        A ``ComputationGraph`` or ``SameDiff`` model is refused naming
+        ``ROADMAP.md`` queue 1 item 9, ``mesh``/``param_spec`` naming
+        item 10."""
         name, version = str(name), str(version)
         with self._lock:
             if self._draining:
@@ -249,11 +258,9 @@ class ModelRegistry:
         # helpers refuse anything but None, before anything is allocated
         _mesh_shape(mesh)
         spec_desc(param_spec)
-        if not is_generative_model(model):
-            raise NotImplementedError(
-                f"cannot deploy a {type(model).__name__}: the port serves "
-                "generative models only; the InferenceEngine that serves "
-                "the others is not ported yet (ROADMAP.md queue 1 item 7)")
+        generative = is_generative_model(model)
+        if not generative:
+            _make_adapter(model, outputs)  # an unservable model raises
         device = model_device(model)
         # -- optional PTQ: quantize BEFORE the engine is built, fail closed
         # on a missing gate batch (nothing allocated yet)
@@ -284,17 +291,24 @@ class ModelRegistry:
             # never reaches for a card, a card deploy never lands on the
             # CPU
             model = quantize_model(full_model, spec, device=device)
-        engine = DecodeEngine(model, slots=decode_slots,
-                              max_ctx=decode_max_ctx,
-                              prompt_buckets=decode_prompt_buckets,
-                              eos_token=decode_eos_token,
-                              kv_block_size=decode_kv_block_size,
-                              kv_blocks=decode_kv_blocks,
-                              prefill_batch=decode_prefill_batch,
-                              draft_model=decode_draft_model,
-                              spec_k=decode_spec_k,
-                              prefix_cache=decode_prefix_cache,
-                              model_name=name, device=device)
+        if generative:
+            engine = DecodeEngine(model, slots=decode_slots,
+                                  max_ctx=decode_max_ctx,
+                                  prompt_buckets=decode_prompt_buckets,
+                                  eos_token=decode_eos_token,
+                                  kv_block_size=decode_kv_block_size,
+                                  kv_blocks=decode_kv_blocks,
+                                  prefill_batch=decode_prefill_batch,
+                                  draft_model=decode_draft_model,
+                                  spec_k=decode_spec_k,
+                                  prefix_cache=decode_prefix_cache,
+                                  model_name=name, device=device)
+        else:
+            engine = InferenceEngine(model, max_batch=max_batch,
+                                     buckets=buckets,
+                                     max_delay_ms=max_delay_ms,
+                                     outputs=outputs,
+                                     manifest_path=self.manifest_path(name))
         mv = ModelVersion(name, version, engine)
         mv.precision = precision_of_model(model)
         mv.param_bytes = param_bytes_of(model)
@@ -350,9 +364,18 @@ class ModelRegistry:
     @staticmethod
     def _warm_engine(engine, outgoing: Optional[ModelVersion],
                      example, batch_sizes) -> List[int]:
-        # generative warmup is fully shape-determined: prefill bucket
-        # ladder + the one decode step; nothing to replay from traffic
-        return engine.warmup()
+        if isinstance(engine, DecodeEngine):
+            # generative warmup is fully shape-determined: prefill bucket
+            # ladder + the one decode step; nothing to replay from traffic
+            return engine.warmup()
+        if example is not None:
+            return engine.warmup(example, batch_sizes=batch_sizes)
+        if outgoing is not None and isinstance(outgoing.engine,
+                                               InferenceEngine):
+            entries = outgoing.engine.observed_entries()
+            if entries:
+                return engine.warmup(entries=entries)
+        return engine.warmup()  # on-disk manifest of a previous replica
 
     def warm(self, name: str, example=None,
              batch_sizes: Optional[Sequence[int]] = None) -> List[int]:
@@ -454,7 +477,8 @@ class ModelRegistry:
 
     #: dispatch outcomes that must NOT count as breaker failures: drain
     #: races (the swap retry handles them), deadline/shed pressure (load,
-    #: not fault), and client-side input errors
+    #: not fault), quarantined poison (the request's own fault), and
+    #: client-side input errors
     _BREAKER_EXEMPT = (EngineClosedError, TimeoutError, KeyError, TypeError,
                        ValueError)
 
@@ -515,16 +539,44 @@ class ModelRegistry:
     def predict(self, name: str, request,
                 version: Optional[str] = None,
                 timeout_s: Optional[float] = None):
-        """The JAX package's micro-batched predict. Every version the
-        port deploys is generative, so after resolving ``name`` (an
-        unknown one raises KeyError) this raises the JAX package's
-        TypeError, which the HTTP layer answers with 400."""
+        """Route one request through the micro-batcher of the resolved
+        version. A request that races a hot swap (the engine drains
+        between resolution and dispatch) is retried against the
+        replacement: in-flight traffic never fails on a deploy or
+        rollback. TimeoutError propagates when ``timeout_s`` expires
+        before dispatch. Runs in a ``serving/predict`` span of the
+        caller's trace (the engine's queue/dispatch spans nest under
+        it). Each attempt is accounted against the version's circuit
+        breaker: an open breaker fails fast with ``BreakerOpenError``
+        (503 + Retry-After at the HTTP layer). A generative version
+        raises TypeError (400)."""
         with span("serving/predict", model=name,
                   version=str(version) if version is not None else ""):
-            self.get(name, version)
-            raise TypeError(
-                f"model '{name}' is generative; use generate() "
-                "(POST /v1/models/<name>/generate)")
+            last_exc: Optional[Exception] = None
+            for _ in range(4):
+                mv = self.get(name, version)
+                if isinstance(mv.engine, DecodeEngine):
+                    raise TypeError(
+                        f"model '{name}' is generative; use generate() "
+                        "(POST /v1/models/<name>/generate)")
+
+                def attempt(mv=mv):
+                    try:
+                        return mv.engine.submit(
+                            request, timeout_s=timeout_s).result()
+                    except ValueError:
+                        # batch larger than max_batch: the chunked sync
+                        # path (re-raises genuine bad-request errors)
+                        return mv.engine.infer(request)
+
+                try:
+                    return self._dispatch_guarded(mv, attempt)
+                except EngineClosedError as e:
+                    last_exc = e
+                    if version is not None:
+                        raise  # pinned to a retired/closed version
+                    continue  # current swapped mid-flight; re-resolve
+            raise last_exc  # registry is shutting down (drain_all)
 
     # -- generation -------------------------------------------------------
     def generate(self, name: str, prompt,
@@ -542,6 +594,9 @@ class ModelRegistry:
             last_exc: Optional[Exception] = None
             for _ in range(4):
                 mv = self.get(name, version)
+                if not isinstance(mv.engine, DecodeEngine):
+                    raise TypeError(
+                        f"model '{name}' is not generative; use predict()")
                 try:
                     return self._dispatch_guarded(
                         mv, lambda mv=mv: mv.engine.generate(

@@ -6,9 +6,9 @@ nothing from that package). Reference: the Clipper (NSDI '17) practice of isolat
 model container behind a fallback, and the Clockwork (OSDI '20) rule
 that predictable serving requires actively refusing work that cannot be
 served well. The engine-level half of the story lives in the engines
-themselves (the supervised decode-loop restart in
-``runtime/generation.py``, backed by ``common.faults``); this module is
-the *serving-layer* half:
+themselves (supervised worker restart and poison-request quarantine in
+``runtime/inference.py`` / ``runtime/generation.py``, backed by
+``common.faults``); this module is the *serving-layer* half:
 
 - :class:`CircuitBreaker` — per model *version*. Consecutive dispatch
   failures open it; open fails fast (:class:`BreakerOpenError` → HTTP
@@ -38,6 +38,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 from typing import Dict, Optional, Tuple
 
 from ..common.environment import environment
@@ -341,3 +342,77 @@ def watchdog_budget_s() -> Optional[float]:
         return None
     deadline = env.serving_default_timeout_s() or 30.0
     return deadline * factor
+
+
+# ---------------------------------------------------------------------------
+# rolling dispatch outcomes (outlier detection substrate)
+# ---------------------------------------------------------------------------
+
+class DispatchStats:
+    """Rolling window over actual dispatch outcomes of one upstream —
+    the Envoy-style outlier-detection substrate. ``/readyz`` polls only
+    prove a replica can answer its health endpoint; a *zombie* answers
+    those and fails traffic, so ejection decisions must come from the
+    outcomes of real dispatches. Deliberately unsynchronized: the owner
+    (``FleetRouter``) already serializes access under its own lock."""
+
+    __slots__ = ("window", "_outcomes")
+
+    def __init__(self, window: int = 20):
+        self.window = max(int(window), 1)
+        self._outcomes: deque = deque(maxlen=self.window)
+
+    def record(self, ok: bool, latency_s: Optional[float] = None):
+        self._outcomes.append((bool(ok), latency_s))
+
+    def __len__(self) -> int:
+        return len(self._outcomes)
+
+    def error_rate(self) -> float:
+        if not self._outcomes:
+            return 0.0
+        errors = sum(1 for ok, _ in self._outcomes if not ok)
+        return errors / len(self._outcomes)
+
+    def mean_latency_s(self) -> Optional[float]:
+        """Mean over outcomes that carry a latency (errors usually
+        don't); None until one does."""
+        vals = [lat for _, lat in self._outcomes if lat is not None]
+        if not vals:
+            return None
+        return sum(vals) / len(vals)
+
+    def reset(self):
+        """Forget history (probe re-admission: the replica restarts its
+        audition from a clean slate)."""
+        self._outcomes.clear()
+
+    def snapshot(self) -> Dict[str, object]:
+        mean = self.mean_latency_s()
+        return {"samples": len(self._outcomes),
+                "error_rate": round(self.error_rate(), 4),
+                "mean_latency_s": None if mean is None else round(mean, 6)}
+
+
+def latency_zscore(mean_s: float, peer_means_s: "list[float]",
+                   min_peers: int = 2, min_ratio: float = 2.0) -> float:
+    """How many standard deviations ``mean_s`` sits above its peers'
+    mean latencies. Too few peers → 0 (no basis to call an outlier).
+    Statistical significance alone is not enough: when peers agree to
+    the microsecond the std collapses and a replica 0.2 ms slower would
+    score z > 3, so the candidate must ALSO be at least ``min_ratio``
+    times the peer mean before any non-zero score is returned.
+    Degenerate peer spread (std ~ 0, the common case on a quiet fleet)
+    then falls back to that ratio test alone: past it reads as +inf —
+    a lone slow replica must not hide behind zero variance."""
+    peers = [m for m in peer_means_s if m is not None]
+    if len(peers) < max(int(min_peers), 1):
+        return 0.0
+    pmean = sum(peers) / len(peers)
+    if pmean <= 0 or mean_s <= min_ratio * pmean:
+        return 0.0
+    var = sum((m - pmean) ** 2 for m in peers) / len(peers)
+    std = var ** 0.5
+    if std < 1e-9:
+        return float("inf")
+    return (mean_s - pmean) / std

@@ -1,13 +1,15 @@
 """Model-serving HTTP front end (stdlib ThreadingHTTPServer).
 
 Counterpart of the JAX package's ``serving/server.py``, over the port's
-generative registry:
+registry:
 
     POST /v1/models/<name>/generate           autoregressive generation
+    POST /v1/models/<name>/predict            current version
+    POST /v1/models/<name>:<version>/predict  pinned version
+                                              (InferenceEngine's
+                                              micro-batcher)
     POST /v1/models/<name>:<version>/generate (DecodeEngine; optional
                                               chunked token streaming)
-    POST /v1/models/<name>/predict            400: every model the port
-                                              serves is generative
     GET  /v1/models                           registry listing
     GET  /healthz                             liveness (process is up)
     GET  /readyz                              readiness (all current
@@ -24,23 +26,27 @@ generative registry:
     GET  /debug/memory                        torch.cuda memory stats
     POST /debug/profile?seconds=              torch.profiler capture
 
-``/generate`` takes ``{"prompt": [ids...], "max_tokens", "temperature",
+``/predict`` takes JSON (``{"inputs": ..., "timeout_s": ...}``: a list
+becomes one array; f64 / i64 numbers arrive as f32 / i32) or a raw
+``.npy`` payload (``Content-Type: application/x-npy``; the response
+mirrors the format). ``/generate`` takes ``{"prompt": [ids...],
+"max_tokens", "temperature",
 "top_k", "eos_token", "stream", "timeout_s"}``. Requests ride the
 per-model admission controller (429 + ``Retry-After`` past the
 high-water mark, 504 when the deadline expires first) and the request's
 trace: an inbound W3C ``traceparent`` joins the caller's trace, else a
 fresh trace id is minted, and every response echoes ``X-Trace-Id``. The
-latency fed to the per-model SLO tracker is time-to-first-token. With
+latency fed to the per-model SLO tracker is the request's (for a
+generate, time-to-first-token). With
 ``"stream": true`` the response is ``application/x-ndjson`` over chunked
 transfer encoding: one ``{"token": id}`` line per sampled token, then a
 ``{"done": true, ...}`` summary line. Token ids go out as Python ints.
 
 Status mapping (the JAX package's): 404 unknown model/version, 400
-malformed input, 409 pinned to a retired version, 422 quarantined, 429
-shed, 503 draining or breaker open, 504 deadline, 500 anything else.
-No engine of the port raises ``PoisonRequestError`` yet (the JAX
-package's ``InferenceEngine`` does, on its isolated re-dispatch; it is
-``ROADMAP.md`` queue 1 item 7), so no handler answers 422 until it does.
+malformed input, 409 pinned to a retired version, 422 quarantined (a
+poison request: it failed its coalesced dispatch and its isolated
+re-dispatch; the body carries its ``trace_id``), 429 shed, 503 draining
+or breaker open, 504 deadline, 500 anything else.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ from ..common.httpserver import (CLIENT_DISCONNECTS, JsonRequestHandler,
                                  handle_debug_post, metrics_payload)
 from ..common.tracing import (context_from_traceparent, pop_disposition,
                               span, span_tree, tracer, use_context)
-from ..runtime.inference import EngineClosedError
+from ..runtime.inference import EngineClosedError, PoisonRequestError
 from . import resilience
 from .admission import AdmissionController, DeadlineExceededError, ShedError
 from .registry import ModelRegistry
@@ -76,6 +82,40 @@ log = logging.getLogger(__name__)
 _PREDICT_RE = re.compile(r"^/v1/models/([^/:]+)(?::([^/]+))?/predict$")
 _GENERATE_RE = re.compile(r"^/v1/models/([^/:]+)(?::([^/]+))?/generate$")
 _NPY_TYPES = ("application/x-npy", "application/octet-stream")
+
+def _np_cast(a: np.ndarray) -> np.ndarray:
+    """JSON numbers arrive as f64/i64; the networks run f32/i32 (the JAX
+    package's x64-off types)."""
+    if a.dtype == np.float64:
+        return a.astype(np.float32)
+    if a.dtype == np.int64:
+        return a.astype(np.int32)
+    return a
+
+
+def _parse_inputs(obj):
+    if isinstance(obj, dict):
+        return {k: _np_cast(np.asarray(v)) for k, v in obj.items()}
+    return _np_cast(np.asarray(obj))
+
+
+def _host_array(x) -> np.ndarray:
+    """An output (``NDArray`` or tensor) as a host numpy array."""
+    if hasattr(x, "numpy") and hasattr(x, "torch"):
+        return x.numpy()
+    if hasattr(x, "detach"):
+        return x.detach().float().cpu().numpy() \
+            if x.dtype.is_floating_point else x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _jsonable_outputs(out):
+    if isinstance(out, dict):
+        return {k: _host_array(v).tolist() for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return [_host_array(v).tolist() for v in out]
+    return _host_array(out).tolist()
+
 
 #: response status -> ring/SLO outcome label
 _OUTCOMES = {200: "ok", 400: "bad_request", 404: "not_found",
@@ -451,6 +491,18 @@ class ModelServer:
                         self._predict(name, version)
                 except KeyError as e:
                     self.send_json({"error": str(e.args[0])}, 404)
+                except PoisonRequestError as e:
+                    # quarantined: failed its coalesced dispatch AND the
+                    # one isolated retry: the fault follows the request,
+                    # so answer 4xx with the trace id and keep serving
+                    self._disposition = "quarantined"
+                    try:
+                        server.slo_for(name).record_excluded("quarantined")
+                    except Exception:
+                        pass
+                    self.send_json(
+                        {"error": str(e), "quarantined": True,
+                         "trace_id": self._trace_id}, 422)
                 except ShedError as e:
                     retry = max(1, int(np.ceil(e.retry_after_s)))
                     self.send_json(
@@ -488,21 +540,54 @@ class ModelServer:
                         {"error": f"{type(e).__name__}: {e}"}, 500)
 
             def _predict(self, name: str, version: Optional[str]):
-                """The JAX package's predict route. The request is parsed
-                (400 when malformed) and the model resolved (404 when
-                unknown) as there; ``registry.predict`` then raises the
-                TypeError every generative model answers with (400)."""
                 body = self.read_body()
                 ctype = (self.headers.get("Content-Type") or
                          "application/json").split(";")[0].strip()
+                timeout_s = None
+                hdr = self.headers.get("X-Request-Timeout-S")
+                if hdr:
+                    timeout_s = float(hdr)
                 if ctype in _NPY_TYPES:
-                    np.load(io.BytesIO(body), allow_pickle=False)
-                elif "inputs" not in json.loads(body or b"{}"):
-                    raise ValueError('JSON body must carry "inputs"')
+                    request = _np_cast(
+                        np.load(io.BytesIO(body), allow_pickle=False))
+                    as_npy = True
+                else:
+                    doc = json.loads(body or b"{}")
+                    if "inputs" not in doc:
+                        raise ValueError('JSON body must carry "inputs"')
+                    request = _parse_inputs(doc["inputs"])
+                    if doc.get("timeout_s") is not None:
+                        timeout_s = float(doc["timeout_s"])
+                    as_npy = False
+                self._timeout_s = timeout_s
+                # resolve first so unknown models 404 before admission
                 mv = server.registry.get(name, version)
                 self._served_version = mv.version
                 self._precision = mv.precision
-                server.registry.predict(name, None, version=version)
+                ctrl = server.admission_for(name)
+                with ctrl.admit(timeout_s if timeout_s is not None
+                                else "default",
+                                version=mv.version) as permit:
+                    out = server.registry.predict(
+                        name, request, version=version,
+                        timeout_s=permit.remaining_s())
+                    mv = server.registry.get(name, version)
+                    self._served_version = mv.version
+                    self._precision = mv.precision
+                if as_npy:
+                    first = out
+                    if isinstance(out, dict):
+                        first = next(iter(out.values()))
+                    elif isinstance(out, (list, tuple)):
+                        first = out[0]
+                    buf = io.BytesIO()
+                    np.save(buf, _host_array(first))
+                    self.send_payload(
+                        buf.getvalue(), "application/x-npy",
+                        headers=[("X-Model-Version", mv.version)])
+                else:
+                    self.send_json({"model": name, "version": mv.version,
+                                    "outputs": _jsonable_outputs(out)})
 
             # -- generation (KV-cached decode engine) ---------------------
             def _generate(self, name: str, version: Optional[str]):
@@ -565,6 +650,10 @@ class ModelServer:
                 import queue
 
                 mv = server.registry.get(name, version)
+                from ..runtime.generation import DecodeEngine
+                if not isinstance(mv.engine, DecodeEngine):
+                    raise TypeError(f"model '{name}' is not generative; "
+                                    "use predict()")
                 q: "queue.Queue" = queue.Queue()
                 fut = mv.engine.generate(
                     prompt, timeout_s=permit.remaining_s(),

@@ -269,6 +269,77 @@ def test_multilayer_twin_output_matches_the_cpu(cuda):
                                rtol=0)
 
 
+@pytest.mark.parametrize("K,N,dtype,rtol,atol", [
+    (512, 2048, torch.bfloat16, 1e-2, 1e-2),
+    (2048, 2048, torch.bfloat16, 1e-2, 1e-2),
+    (2048, 64, torch.float32, 0.0, 1e-4)],
+    ids=["512x2048_bf16", "2048x2048_bf16", "2048x64_f32"])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_dequant_matmul_predict_ladder(cuda, M, K, N, dtype, rtol, atol):
+    """Every rung of the predict path's bucket ladder (max_batch 128) at
+    the quantized MLP twin's three shapes, in the twin's dtypes (bf16
+    body, f32 head); two calls give identical bits."""
+    g = torch.Generator(device=cuda).manual_seed(M * 3 + K + N)
+    qt = quantize_tensor(0.02 * torch.randn((K, N), generator=g,
+                                            device=cuda))
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    scale = qt.scale.reshape(-1)
+    before = _fused_dequant_matmul.launches
+    got = _fused_dequant_matmul(x, qt.q, scale)
+    again = _fused_dequant_matmul(x, qt.q, scale)
+    ref = dequant_matmul_plain(x, qt.q, scale)
+    torch.cuda.synchronize()
+    assert _fused_dequant_matmul.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_inference_engine_serves_a_twin_on_the_card(cuda):
+    """The micro-batcher over an int8 twin on the card: each dispatch
+    launches the kernel once per dense layer, futures resolve on the
+    host, and the rows agree with the same twin on the CPU (1e-4 on
+    softmax outputs, the f32 route)."""
+    import threading
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.quant import QuantSpec, quantize_model
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    conf = (NeuralNetConfiguration.builder().seed(1).list()
+            .layer(DenseLayer(n_in=96, n_out=256, activation="gelu"))
+            .layer(OutputLayer(n_in=256, n_out=10)).build())
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    spec = QuantSpec(act_dtype="float32")
+    on_cpu = quantize_model(net, spec, device="cpu")
+    eng = InferenceEngine(quantize_model(net, spec, device=cuda),
+                          max_batch=16, max_delay_ms=5.0)
+    eng.warmup(np.zeros((1, 96), np.float32))
+    xs = [np.random.RandomState(i).randn(1 + i % 4, 96).astype(np.float32)
+          for i in range(12)]
+    outs = [None] * len(xs)
+    before = _fused_dequant_matmul.launches
+    d0 = eng.stats()["dispatches"]
+
+    def client(i):
+        outs[i] = eng.submit(xs[i]).result(timeout=60)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    dispatches = eng.stats()["dispatches"] - d0
+    assert _fused_dequant_matmul.launches - before == 2 * dispatches
+    for x, out in zip(xs, outs):
+        assert out.torch().device.type == "cpu"
+        np.testing.assert_allclose(out.numpy(), on_cpu.output(x).numpy(),
+                                   atol=1e-4, rtol=0)
+    eng.close()
+
+
 def test_dequant_matmul_refuses_what_it_cannot_run(cuda):
     qt = quantize_tensor(torch.randn((64, 32), device=cuda))
     with pytest.raises(TypeError):

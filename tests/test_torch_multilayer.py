@@ -217,8 +217,10 @@ class TestConfig:
 
     def test_unported_entry_points_name_their_item(self):
         net = TMLN(_lenet(*TORCH_NS), device="cpu").init()
+        # warm_buckets is ported (item 7): with no example and no
+        # manifest it has nothing to replay, as the JAX package's
+        assert net.warm_buckets(None) == []
         for call, item in ((lambda: net.distribute(None), "item 10"),
-                           (lambda: net.warm_buckets(None), "item 7"),
                            (lambda: net.warm_compile(None), "item 12"),
                            (lambda: net.save("x"), "item 9"),
                            (lambda: TMLN.load("x"), "item 9"),
