@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-(the CausalLM, BERT-base and the layer API's LeNet and quantized MLP,
-directly, behind the predict route and behind the fleet front door).
+(the CausalLM, BERT-base, the layer API's LeNet, quantized MLP and
+ResNet-50, directly, behind the predict route and behind the fleet front
+door).
 
     python3 chip_smoke.py
 
@@ -134,6 +135,38 @@ exits non-zero without printing a result:
               and their merged sum. Prints fleet samples/s against one
               replica's (the same clients straight at one replica),
               attempts by kind and ejections.
+   resnet50 — ResNet-50 at BASELINE config 2's width through the
+              ComputationGraph (``zoo.ResNet50(num_classes=1000,
+              input_shape=(3, 224, 224), dtype="bfloat16")``, stages
+              [3, 4, 6, 3], ``Nesterovs(0.1, 0.9)``) on 4 device-staged
+              random batches of 128: 2 epochs with a loss a step (the
+              first includes cuDNN's algorithm choice), one epoch timed
+              (host clock: samples/s, ms a step), one under
+              ``torch.profiler`` (device ms a step by kernel, busy
+              share); the losses must be finite and changing. Then an
+              f32 copy of the trained weights: its B=2 ``output()`` and
+              pooled features (the head's input, which one-hot softmax
+              rows cannot hide) on the card against the CPU's with TF32
+              switched on in the process (``RESNET_F32_ATOL``,
+              ``RESNET_F32_FEATURE_RTOL``).
+   resnet50_int8 — the trained network's int8 twin (``quantize_model``:
+              convolution weights dequantized at use, the 2048->1000 head
+              through the dequant kernel's f32 route): ``output()`` at
+              every rung 1..128, one kernel launch each; top-1 agreement
+              with the bf16 network, ``divergence_report`` and, at the
+              head's input, the twin's error against the bf16 network;
+              ``InferenceEngine.infer`` and ``output()`` host ms at each
+              rung; the host ms of the bf16 network's per-dispatch param
+              casts and of the twin's convolution dequantizes. Then the
+              twin deployed in a ``ModelRegistry`` (max_batch 16) behind
+              a ``ModelServer``: 4 client processes send 16 requests each
+              of 1-4 images from a seeded pool, every answer held against
+              the twin's own ``output()`` (``RESNET_PREDICT_ATOL``);
+              prints samples/s (paced by the server's JSON parsing, ~1.5
+              MB an image), client p50 / p99, rows a dispatch, the census
+              after warmup (must be 0) and ``launches_resnet50_int8``:
+              its own main path, the dequant count set to 0 just before
+              the clients start (one launch a dispatch).
    host_profile — ``torch.profiler`` (CPU activities, every thread)
               and a 1 kHz sampling of every thread's innermost Python
               frame over a second run of serve_http's 16 requests and a
@@ -174,6 +207,12 @@ exits non-zero without printing a result:
               row carries ``launches_predict_http``. The parity phase
               holds the kernel at those shapes in bf16 and f32 and at
               every rung of the predict ladder in the twin's dtypes.
+              ResNet-50's head, (M, 2048, 1000) f32 at M = 1, 8, 16 and
+              128, L2 flushed before each call (``ms_warm`` too), beside
+              ``torch.matmul`` on an f32 copy under ``full_f32()``, rows
+              with ``main_path`` "resnet50_int8" and that path's
+              launches; parity holds the head at every rung in f32 and
+              at those M in bf16.
    flash_backward — the whole port backward (``_flash_bwd``: the dq
               kernel with its delta prologue, then dk/dv) beside SDPA's
               whole backward, at both flash shapes.
@@ -300,6 +339,43 @@ PREDICT_ROW_MS = (1, 8, 16, 128)
 # requests from FLEET_CLIENTS client threads; the second replica stops
 # after the first third has been answered
 FLEET_REQUESTS, FLEET_CLIENTS = 200, 4
+# ResNet-50 at BASELINE config 2's width (bench.py bench_resnet50):
+# 1000 classes, 3x224x224, bf16 body, Nesterovs(0.1, 0.9), B=128; fit
+# over RESNET_BATCHES device-staged random batches for RESNET_EPOCHS
+# epochs (one loss a step), then one epoch timed, then one profiled
+RESNET_B, RESNET_BATCHES, RESNET_EPOCHS = 128, 4, 2
+RESNET_SHAPE, RESNET_CLASSES = (3, 224, 224), 1000
+# an f32 copy of the trained ResNet-50's output() on the card against the
+# CPU's, B=2, same weights: softmax probabilities over 1000 classes after
+# 53 convolutions summed in another order (f32 rounding, ~1e-5 relative
+# on the logits, so ~1e-6 on probabilities of ~0.1 or less);
+# TF32 (10-bit mantissa) would move the logits by ~1e-2
+RESNET_F32_ATOL = 1e-4
+# the same comparison on the head's input (the 2048 pooled features,
+# relative to their largest): a 12-step network's running stats lag its
+# weights, so at inference its activations grow through the blocks and
+# its softmax saturates to one-hot rows, which hide any error; the
+# features do not. f32 summed in another order through 53 convolutions
+# stays near 1e-5 of the largest feature; TF32 (unit roundoff 2**-11
+# against f32's 2**-24) moves each convolution by ~1e-3 and the stack's
+# output by ~1e-2
+RESNET_F32_FEATURE_RTOL = 1e-3
+# probabilities above this count a row as saturated (reported)
+SATURATED_P = 0.999
+# the twin behind the predict route: a ModelRegistry with max_batch 16,
+# 4 client processes of 16 requests of 1-4 images each from a seeded pool
+RESNET_PREDICT_MAX_BATCH = 16
+RESNET_CLIENTS, RESNET_REQUESTS, RESNET_MAX_ROWS = 4, 16, 4
+RESNET_POOL_ROWS = 64
+# a predict answer against the twin's own output() on the same images:
+# the engine ran them padded into another bucket than a direct call, so
+# cuDNN may pick other algorithms and the bf16 body rounds at other
+# places; the f32 head turns that into probabilities within 1e-2
+RESNET_PREDICT_ATOL = 1e-2
+# ResNet-50's head as the twin gives it to the dequant kernel: x f32
+# [M, 2048] (the output vertex's input stays f32), W int8 [2048, 1000]
+RESNET_HEAD = (2048, 1000)
+RESNET_ROW_MS = (1, 8, 16, 128)
 
 
 def emit(obj):
@@ -590,7 +666,13 @@ def phase_parity():
               for _, K, N in MLP_SHAPES[:2]]),
             (torch.float32, DEQ_F32_RTOL, DEQ_F32_ATOL,
              [(M, K, N) for M in PREDICT_LADDER[:-1]
-              for _, K, N in MLP_SHAPES[2:]])):
+              for _, K, N in MLP_SHAPES[2:]]),
+            # ResNet-50's 2048->1000 head (N % 16 != 0) at every rung of
+            # the ladder, f32 as the twin runs it, and bf16 at the rows' M
+            (torch.float32, DEQ_F32_RTOL, DEQ_F32_ATOL,
+             [(M,) + RESNET_HEAD for M in PREDICT_LADDER]),
+            (torch.bfloat16, DEQ_RTOL, DEQ_ATOL,
+             [(M,) + RESNET_HEAD for M in RESNET_ROW_MS])):
         for M, K, N in shapes:
             w = 0.02 * torch.randn((K, N), generator=g, device="cuda")
             qt = quantize_tensor(w)
@@ -615,7 +697,7 @@ def phase_parity():
                 raise RuntimeError(f"dequant_matmul {dtype} {M}x{K}x{N}: "
                                    f"max abs err {err} outside rtol {rtol}"
                                    f" atol {atol}, or two calls differ")
-            if (M, K, N) in MLP_SHAPES or (
+            if (M, K, N) in MLP_SHAPES or (K, N) == RESNET_HEAD or (
                     M in PREDICT_LADDER and (MLP_B, K, N) in MLP_SHAPES):
                 errs["dequant_mlp"][(M, K, N, str(dtype).split(".")[-1])] \
                     = err
@@ -2590,6 +2672,384 @@ def phase_fleet(mlp, pool):
         raise RuntimeError(f"the fleet's answers disagree on top-1: {top1}")
 
 
+#: substrings of a device kernel's name -> its group in a step's breakdown
+#: (the first group that matches; cuDNN's and CUTLASS's convolution
+#: kernels, with the layout transposes cuDNN adds around NCHW)
+KERNEL_GROUPS = (
+    ("convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad",
+                     "xmma", "sm90", "cutlass", "nchw", "nhwc", "fprop")),
+    ("gemm", ("gemm", "cublas")),
+    ("reduction", ("reduce_kernel",)),
+    ("copy_cast", ("copy",)),
+    ("elementwise", ("elementwise",)))
+
+
+def kernel_group(name):
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def phase_resnet50():
+    """ResNet-50 training through ``ComputationGraph.fit`` at BASELINE
+    config 2's width (bf16 body, Nesterovs(0.1, 0.9), B=128): RESNET_EPOCHS
+    epochs over RESNET_BATCHES device-staged batches with a loss a step,
+    one more epoch timed (host clock), one under the profiler (device ms a
+    step by kernel, busy share); then an f32 copy of the trained weights:
+    its ``output()`` and pooled features on the card against the CPU's
+    with TF32 switched on in the process (``RESNET_F32_ATOL``,
+    ``RESNET_F32_FEATURE_RTOL``). Returns the trained network and the
+    first batch's images."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.learning import tree_map
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    zoo = ResNet50(num_classes=RESNET_CLASSES, input_shape=RESNET_SHAPE,
+                   dtype="bfloat16")
+    net = zoo.init_model()
+    batches = zoo_batches(np.random.RandomState(0), RESNET_BATCHES,
+                          RESNET_B, RESNET_SHAPE, RESNET_CLASSES)
+    n0 = _fused_dequant_matmul.launches
+    scores = CollectScoresListener()
+    net.set_listeners(scores)
+    epoch_s = []
+    for _ in range(RESNET_EPOCHS):   # the first includes cuDNN's choice
+        t0 = time.perf_counter()
+        net.fit(batches, num_epochs=1)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    net.set_listeners()
+    # one epoch on the staged path (no listener: the losses stay on the
+    # card until it ends), the steady state
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = wall * 1e3 / RESNET_BATCHES
+    by_name = {k: v / RESNET_BATCHES for k, v in device_ms_by_kernel(
+        lambda: net.fit(batches, num_epochs=1), 1).items()}
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    groups = {}
+    for k, v in by_name.items():
+        g = kernel_group(k)
+        groups[g] = groups.get(g, 0.0) + v
+    # an f32 copy of the trained weights on the card and on the CPU
+    conf = ResNet50(num_classes=RESNET_CLASSES,
+                    input_shape=RESNET_SHAPE).build_conf()
+    params = tree_map(torch.clone, net._params)
+    f32 = ComputationGraph(conf, device="cuda").init(params=params)
+    cpu = ComputationGraph(conf, device="cpu").init(
+        params=tree_map(lambda v: v.cpu(), params))
+    x = batches[0].features.torch()[:2]
+    ref = cpu.output(x.cpu())[0].numpy()
+    ref_feat = cpu.feed_forward(x.cpu())["avgpool"].numpy()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = f32.output(x)[0].numpy()
+        feat = f32.feed_forward(x)["avgpool"].numpy()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    err = float(np.abs(got - ref).max())
+    feat_err = float(np.abs(feat - ref_feat).max()
+                     / max(float(np.abs(ref_feat).max()), 1e-30))
+    losses = [float(v) for v in scores.scores]
+    rec = {"phase": "resnet50", "B": RESNET_B, "batches": RESNET_BATCHES,
+           "epochs": RESNET_EPOCHS, "dtype": "bfloat16",
+           "updater": "Nesterovs(0.1, 0.9)",
+           "params": net.num_params(), "epoch_s": epoch_s,
+           "loss_per_step": losses, "wall_s_timed_epoch": wall,
+           "step_ms": step_ms,
+           "samples_per_s": RESNET_BATCHES * RESNET_B / wall,
+           "loss_after_timed_epoch": net.score_value,
+           "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / step_ms,
+           "ms_per_step_by_group": groups, "kernels_seen": len(by_name),
+           "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+           "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "dequant_launches": _fused_dequant_matmul.launches - n0,
+           "f32_output_vs_cpu_max_abs_err": err,
+           "f32_output_vs_cpu_tol": RESNET_F32_ATOL,
+           "f32_output_top1_agree_cpu": float(
+               (got.argmax(-1) == ref.argmax(-1)).mean()),
+           "f32_output_saturated_rows": int(
+               (ref.max(-1) > SATURATED_P).sum()),
+           "f32_head_input_vs_cpu_rel_err": feat_err,
+           "f32_head_input_vs_cpu_rtol": RESNET_F32_FEATURE_RTOL,
+           "f32_head_input_max_abs": float(np.abs(ref_feat).max())}
+    emit(rec)
+    if not (len(losses) == RESNET_EPOCHS * RESNET_BATCHES
+            and np.isfinite(losses).all() and len(set(losses)) > 1
+            and np.isfinite(net.score_value)):
+        raise RuntimeError(f"ResNet-50 losses not finite and changing: "
+                           f"{losses}, then {net.score_value}")
+    if not (err <= RESNET_F32_ATOL
+            and feat_err <= RESNET_F32_FEATURE_RTOL):
+        raise RuntimeError(f"f32 ResNet-50 on the card differs from the "
+                           f"CPU's: output by {err} (tol {RESNET_F32_ATOL}),"
+                           f" pooled features by {feat_err} of their "
+                           f"largest (tol {RESNET_F32_FEATURE_RTOL})")
+    del f32, cpu, params
+    return net, batches[0].features.torch()
+
+
+def resnet_check(results, requests, pool_refs, atol):
+    """Each predict answer (status, doc) against the twin's own
+    ``output()`` on the request's images: status 200, one output of
+    [rows, 1000], finite, within ``atol``. Returns (max abs err, top-1
+    agreement with those outputs)."""
+    import numpy as np
+    err, agree, n = 0.0, 0, 0
+    for i, ((status, doc, _, _), r) in enumerate(zip(results, requests)):
+        want = pool_refs[r["lo"]:r["lo"] + r["rows"]]
+        outs = doc.get("outputs") or [[]]
+        got = np.asarray(outs[0], np.float32)
+        if status != 200 or len(outs) != 1 or got.shape != want.shape \
+                or not np.isfinite(got).all():
+            raise RuntimeError(f"resnet predict {i}: status {status}, "
+                               f"shape {got.shape}: {str(doc)[:300]}")
+        e = float(np.abs(got - want).max())
+        if e > atol:
+            raise RuntimeError(f"resnet predict {i}: max abs err {e} > "
+                               f"{atol} against the twin's output()")
+        err = max(err, e)
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        n += r["rows"]
+    return err, agree / max(n, 1)
+
+
+def phase_resnet50_int8(net, images):
+    """The trained ResNet-50's int8 twin (``quantize_model``: 4-D
+    convolution weights dequantized at use, the 2048->1000 head through
+    the dequant kernel's f32 route): ``output()`` at every rung of the
+    ladder 1..128 (one kernel launch an output()), top-1 agreement with
+    the bf16 network, ``divergence_report``, ``InferenceEngine.infer``
+    timed at each rung; then deployed in a ModelRegistry (max_batch 16)
+    behind a ModelServer and served 64 ``POST /predict`` of 1-4 images
+    from 4 client processes, each answer held against the twin's own
+    ``output()``. Its own main path: the dequant count set to 0 just
+    before the client traffic. Returns (those launches, the twin)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.quant import (divergence_report,
+                                                param_bytes_of,
+                                                quantize_model)
+    from deeplearning4j_tpu_torch.quant.transforms import (
+        _fused_dequant_matmul, dequantize)
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    twin = quantize_model(net, device="cuda")
+    env = environment()
+    rec = {"phase": "resnet50_int8", "twin_conf_dtype": twin.conf.dtype,
+           "precision": twin._precision,
+           "param_bytes_bf16_net": param_bytes_of(net),
+           "param_bytes_int8": param_bytes_of(twin)}
+
+    def host_ms(fn, reps=5):
+        """Median host ms of ``fn()`` followed by a synchronise."""
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    xb = images[:PREDICT_LADDER[-1]]
+    rungs = {}
+    for M in PREDICT_LADDER:
+        n0 = _fused_dequant_matmul.launches
+        out = twin.output(xb[:M])
+        launches = _fused_dequant_matmul.launches - n0
+        if launches != 1 or out[0].shape != (M, RESNET_CLASSES) \
+                or not torch.isfinite(out[0].torch()).all():
+            raise RuntimeError(f"twin output() at M={M}: {launches} dequant "
+                               f"launches (want 1), shape {out[0].shape}")
+        rungs[M] = {"dequant_launches": launches,
+                    "output_host_ms": host_ms(lambda: twin.output(xb[:M]))}
+    eng = InferenceEngine(twin, max_batch=PREDICT_LADDER[-1])
+    for M in PREDICT_LADDER:
+        rungs[M]["engine_infer_host_ms"] = host_ms(
+            lambda: eng.infer(xb[:M]))
+    eng.close()
+    q_out = twin.output(xb)[0].numpy()
+    f_out = net.output(xb)[0].numpy()
+    rep = divergence_report(net, twin, xb)
+    # the head's input, where one-hot softmax rows do not hide the twin's
+    # int8 error (see RESNET_F32_FEATURE_RTOL)
+    q_feat = twin.feed_forward(xb[:16])["avgpool"].numpy()
+    f_feat = net.feed_forward(xb[:16])["avgpool"].numpy()
+    # per-dispatch host work beside the kernels: the bf16 network casts
+    # every floating param of its body to bf16 in each forward, and the
+    # twin dequantizes each 4-D weight at use
+    cast_ms = host_ms(lambda: [net._cast_layer_params(p, torch.bfloat16)
+                               for n, p in net._params.items()
+                               if n not in net.conf.outputs])
+    convs = [p["W"] for p in twin._params.values()
+             if "W" in p and getattr(p["W"], "q", None) is not None
+             and p["W"].q.dim() == 4]
+    deq_ms = host_ms(lambda: [dequantize(w, torch.bfloat16) for w in convs])
+    rec.update({
+        "rungs": rungs, "top1_agreement_vs_bf16":
+            float((q_out.argmax(-1) == f_out.argmax(-1)).mean()),
+        "max_abs_err_vs_bf16": float(np.abs(q_out - f_out).max()),
+        "saturated_rows_bf16": int((f_out.max(-1) > SATURATED_P).sum()),
+        "head_input_vs_bf16_rel_err": float(
+            np.abs(q_feat - f_feat).max() / max(float(np.abs(f_feat).max()),
+                                                1e-30)),
+        "divergence_report": rep,
+        "bf16_output_host_ms_B1": host_ms(lambda: net.output(xb[:1])),
+        "bf16_param_casts_host_ms": cast_ms,
+        "param_leaves_cast": sum(
+            1 for n, p in net._params.items() if n not in net.conf.outputs
+            for k in p if not k.startswith("state_")),
+        "twin_conv_dequantize_host_ms": deq_ms,
+        "twin_conv_weights_dequantized": len(convs)})
+    # the predict route
+    rng = np.random.RandomState(51)
+    pool = rng.randn(RESNET_POOL_ROWS, *RESNET_SHAPE).astype(np.float32)
+    refs = np.concatenate([twin.output(pool[i:i + RESNET_PREDICT_MAX_BATCH])
+                           [0].numpy() for i in range(
+                               0, RESNET_POOL_ROWS, RESNET_PREDICT_MAX_BATCH)])
+    env.reset_compile_count()
+    reg = ModelRegistry(manifest_dir=None)
+    srv = ModelServer(reg, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{srv.start()}"
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        reg.deploy("resnet", "v1", twin, example=pool[:1],
+                   max_batch=RESNET_PREDICT_MAX_BATCH,
+                   max_delay_ms=PREDICT_DELAY_MS)
+        rec["deploy_s"] = time.perf_counter() - t0
+        engine = reg.get("resnet").engine
+        rec["ladder"] = list(engine.ladder)
+        path = os.path.join(tmp.name, "resnet.npy")
+        np.save(path, pool)
+        jobs = []
+        for c in range(RESNET_CLIENTS):
+            reqs = []
+            for _ in range(RESNET_REQUESTS):
+                rows = int(rng.randint(1, RESNET_MAX_ROWS + 1))
+                reqs.append({"model": "resnet", "rows": rows,
+                             "lo": int(rng.randint(
+                                 0, RESNET_POOL_ROWS - rows + 1))})
+            jobs.append({"kind": "predict", "base": base,
+                         "pools": {"resnet": path}, "requests": reqs})
+        s0 = engine.stats()
+        c0 = env.compile_count()
+        # the main path: the dequant count starts at 0 here
+        _fused_dequant_matmul.launches = 0
+        start = time.time() + 4.0   # every client process is up by then
+        for job in jobs:
+            job["start_at"] = start
+        outs = run_client_processes(jobs)
+        launches = _fused_dequant_matmul.launches
+        census = env.compile_count() - c0
+        s1 = engine.stats()
+        results = [r for o in outs for r in o["results"]]
+        requests = [r for job in jobs for r in job["requests"]]
+        err, top1 = resnet_check(results, requests, refs,
+                                 RESNET_PREDICT_ATOL)
+        wall = max(r[3] for r in results) - min(r[2] for r in results)
+        lat = [r[3] - r[2] for r in results]
+        rows = sum(r["rows"] for r in requests)
+        d = s1["dispatches"] - s0["dispatches"]
+        rec.update({
+            "requests": len(results), "rows": rows, "wall_s": wall,
+            "samples_per_s": rows / wall,
+            "client_latency_s_p50": percentile(lat, 0.5),
+            "client_latency_s_p99": percentile(lat, 0.99),
+            "dispatches": d,
+            "rows_per_dispatch": (s1["rows_real"] - s0["rows_real"])
+            / max(d, 1),
+            "census_events_after_warmup": census,
+            "launches_resnet50_int8": launches,
+            "max_abs_err_vs_output": err, "top1_vs_output": top1,
+            "request_json_mb_per_image": len(json.dumps(
+                pool[:1].tolist())) / 1e6,
+            "paced_by": "JSON: each 3x224x224 image is ~150k floats, "
+                        "parsed by the server's one interpreter"})
+        rec["drained"] = reg.drain_all(save_manifests=False)
+    finally:
+        srv.stop()
+        reg.drain_all(timeout_s=60, save_manifests=False)
+        tmp.cleanup()
+    emit(rec)
+    if census != 0:
+        raise RuntimeError(f"{census} new dispatch shapes after warmup")
+    if launches != d or d < 1:
+        raise RuntimeError(f"the twin launched the dequant kernel "
+                           f"{launches} times in {d} dispatches, want 1 "
+                           "each")
+    return launches, twin
+
+
+def resnet_head_rows(twin, launches, errs):
+    """The dequant kernel at ResNet-50's head, (M, 2048, 1000) f32 as the
+    twin's output vertex runs it, for M in RESNET_ROW_MS, beside its plain
+    version, ``torch.matmul`` on an f32 copy of the weight under
+    ``full_f32()`` and the bound; the L2 flushed before each call (a
+    forward streams ~50 MB of convolution weights and activations between
+    two uses of the head), and also warm; ``launches`` are those of
+    ``resnet50_int8``'s client traffic."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.fit_fastpath import full_f32
+    from deeplearning4j_tpu_torch.quant.transforms import (
+        _fused_dequant_matmul, dequant_matmul_plain, dequantize)
+    w = twin._params["output"]["W"]
+    K, N = RESNET_HEAD
+    if tuple(w.q.shape) != (K, N):
+        raise RuntimeError(f"the twin's head is {tuple(w.q.shape)}")
+    scale = w.scale.reshape(-1)
+    wd = dequantize(w, torch.float32)
+    flush = l2_flusher()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for M in RESNET_ROW_MS:
+        x = torch.randn((M, K), generator=g, device="cuda")
+        byt = M * K * 4 + K * N + N * 4 + M * N * 4
+        b_ms, b_by = bound_ms(byt, 2 * M * K * N, F32_FLOPS_PER_S)
+
+        def lib():
+            with full_f32():
+                torch.matmul(x, wd)
+        rec = {"name": "dequant_matmul", "route": "cuda",
+               "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                         "dequant_matmul.cu",
+               "replaces": "deeplearning4j_tpu/quant/transforms.py:216",
+               "main_path": "resnet50_int8", "M": M, "K": K, "N": N,
+               "dtype": "float32", "launches": launches,
+               "max_abs_err": errs["dequant_mlp"][(M, K, N, "float32")],
+               "plain_ms": time_ms(lambda: dequant_matmul_plain(x, w.q,
+                                                                scale),
+                                   flush=flush),
+               "ms_warm": time_ms(lambda: _fused_dequant_matmul(x, w.q,
+                                                                scale)),
+               "library_ms_warm": time_ms(lib),
+               "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS,
+               "l2": "flushed before each call (ms, library_ms, plain_ms)"}
+        timed(rec, "ms", lambda: _fused_dequant_matmul(x, w.q, scale),
+              flush=flush)
+        timed(rec, "library_ms", lib, flush=flush)
+        rows.append(rec)
+    return rows
+
+
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
@@ -2637,6 +3097,14 @@ def main():
     mlp_launches, mlp_twin = phase_mlp_int8()
     predict_launches, predict_twin, mlp_f32, mlp_pool = phase_predict_http()
     phase_fleet(mlp_f32, mlp_pool)
+    del mlp_f32, mlp_pool
+    torch.cuda.empty_cache()
+    resnet, images = phase_resnet50()
+    resnet_launches, resnet_twin = phase_resnet50_int8(resnet, images)
+    if resnet_launches < 1:
+        raise RuntimeError("kernel dequant_matmul was never launched on "
+                           "resnet50_int8's main path")
+    del resnet, images
     emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:
@@ -2646,6 +3114,7 @@ def main():
     rows += mlp_kernel_rows(mlp_twin, mlp_launches, errs)
     rows += mlp_kernel_rows(predict_twin, predict_launches, errs,
                             Ms=PREDICT_ROW_MS, main_path="predict_http")
+    rows += resnet_head_rows(resnet_twin, resnet_launches, errs)
     for row in rows:
         if row["name"] == "dequant_matmul":
             row["launches_predict_http"] = predict_launches

@@ -63,6 +63,21 @@ Ported so far:
   manifests), which ``ModelRegistry.deploy`` puts behind
   ``POST /v1/models/<name>/predict``;
 
+- the layer API's DAG network (``nn.graph``: ``GraphBuilder``, the
+  vertices, ``ComputationGraph`` training and inference with
+  ``MultiDataSet``) and the graph zoo (ResNet-50, SqueezeNet,
+  InceptionResNetV1, FaceNetNN4Small2), whose int8 twin sends its dense
+  head through the dequant-matmul kernel and serves behind the same
+  predict route::
+
+    from deeplearning4j_tpu_torch.quant import quantize_model
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    net = ResNet50(dtype="bfloat16").init_model(device="cuda")
+    net.fit(datasets, num_epochs=2)             # DataSets of [B, 3, 224, 224]
+    probs = net.output(x)[0]                    # one entry per output vertex
+    registry.deploy("resnet", "v1", quantize_model(net), example=x[:1])
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 """

@@ -63,7 +63,8 @@ def params_from_numpy(tree, device="cuda"):
 
 def load_multilayer(net, params, updater_state=None, iteration: int = 0):
     """Carry a JAX ``MultiLayerNetwork``'s state into ``net``, a port
-    network built from the same configuration, and return ``net``.
+    network built from the same configuration, and return ``net``
+    (:func:`load_graph` does the same for a ``ComputationGraph``).
 
     ``params`` is the JAX network's ``_params`` as numpy (a list of
     per-layer dicts, ``state_*`` running stats included, convolution
@@ -77,3 +78,14 @@ def load_multilayer(net, params, updater_state=None, iteration: int = 0):
         net._updater_state = params_from_numpy(updater_state, net.device)
     net._iteration = int(iteration)
     return net
+
+
+def load_graph(net, params, updater_state=None, iteration: int = 0):
+    """Carry a JAX ``ComputationGraph``'s state into ``net``, a port graph
+    built from the same configuration, and return ``net``.
+
+    ``params`` is the JAX graph's ``_params`` as numpy (a vertex-name ->
+    dict of ``W``, ``b``, ``gamma``, ``beta``, ``state_*``; convolution
+    weights HWIO as on both sides); ``updater_state`` and ``iteration``
+    as for :func:`load_multilayer`."""
+    return load_multilayer(net, params, updater_state, iteration)

@@ -1,3 +1,3 @@
-from .dataset import DataSet  # noqa: F401
+from .dataset import DataSet, MultiDataSet  # noqa: F401
 from .iterators import (ArrayDataSetIterator, AsyncDataSetIterator,  # noqa: F401
                         DataSetIterator, ListDataSetIterator)

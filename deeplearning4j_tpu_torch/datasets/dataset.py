@@ -2,8 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/datasets/dataset.py`` (the
 reference's ``DataSet.java``): features + labels (+ masks) with the
-split/shuffle/batch helpers. ``MultiDataSet`` waits for the
-ComputationGraph (``ROADMAP.md`` queue 1 item 9).
+split/shuffle/batch helpers, and ``MultiDataSet``, the several inputs
+and labels of a ComputationGraph.
 """
 from __future__ import annotations
 
@@ -94,3 +94,22 @@ class DataSet:
     def __repr__(self):
         return (f"DataSet(features={None if self.features is None else self.features.shape}, "
                 f"labels={None if self.labels is None else self.labels.shape})")
+
+
+class MultiDataSet:
+    """Multiple feature/label arrays (reference MultiDataSet): a
+    ComputationGraph's inputs in ``conf.inputs`` order and its labels in
+    ``conf.outputs`` order."""
+
+    def __init__(self, features: Sequence = (), labels: Sequence = (),
+                 features_masks: Sequence = None,
+                 labels_masks: Sequence = None):
+        self.features = [_wrap(f) for f in features]
+        self.labels = [_wrap(y) for y in labels]
+        self.features_masks = ([_wrap(m) for m in features_masks]
+                               if features_masks else None)
+        self.labels_masks = ([_wrap(m) for m in labels_masks]
+                             if labels_masks else None)
+
+    def num_examples(self) -> int:
+        return self.features[0].shape[0] if self.features else 0

@@ -1,8 +1,11 @@
 """Layer-based NN API (the DL4J layer API): the configuration DSL,
-``MultiLayerNetwork``, evaluation and listeners. The ComputationGraph
-waits for ``ROADMAP.md`` queue 1 item 9."""
+``MultiLayerNetwork``, the ``ComputationGraph`` and its vertices,
+evaluation and listeners. SameDiff and the layers listed in
+``ROADMAP.md`` queue 1 item 9 wait for that item."""
 from .conf.config import (InputType, MultiLayerConfiguration,  # noqa: F401
                           NeuralNetConfiguration)
 from .conf import layers  # noqa: F401
 from .evaluation import Evaluation, RegressionEvaluation, ROC  # noqa: F401
+from .graph import (ComputationGraph,  # noqa: F401
+                    ComputationGraphConfiguration, GraphBuilder)
 from .multilayer import MultiLayerNetwork  # noqa: F401

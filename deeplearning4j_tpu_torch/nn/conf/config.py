@@ -2,10 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/config.py`` (the reference's
 ``NeuralNetConfiguration.Builder`` → ``MultiLayerConfiguration``, with
-InputType shape inference and the automatic input preprocessors). The
+InputType shape inference and the automatic input preprocessors), and
+``graph_builder()``, the ComputationGraph's DSL (``nn/graph/``). The
 fields and the JSON are the JAX package's, so one configuration's JSON
-loads on either side. ``graph_builder()`` (the ComputationGraph) waits
-for ``ROADMAP.md`` queue 1 item 9.
+loads on either side.
 """
 from __future__ import annotations
 
@@ -140,10 +140,44 @@ def infer_preprocessor(prev_type, layer):
     return None
 
 
-_PREPROCESSORS = {c.__name__: c for c in
-                  [CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
-                   RnnToFeedForwardPreProcessor, FeedForwardToRnnPreProcessor,
-                   CnnToRnnPreProcessor]}
+PREPROCESSORS = {c.__name__: c for c in
+                 [CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
+                  RnnToFeedForwardPreProcessor, FeedForwardToRnnPreProcessor,
+                  CnnToRnnPreProcessor]}
+
+
+def layer_to_dict(layer) -> dict:
+    """A layer's JSON form, the JAX package's: its class name and fields,
+    a wrapped layer nested, weight noise as its dict, a callable by
+    name."""
+    d = {"@class": type(layer).__name__}
+    for f in dataclasses.fields(layer):
+        v = getattr(layer, f.name)
+        if isinstance(v, L.Layer):
+            v = layer_to_dict(v)
+        elif f.name == "weight_noise" and v is not None:
+            v = v.to_dict()
+        elif callable(v) and not isinstance(v, str):
+            v = getattr(v, "__name__", str(v))
+        d[f.name] = v
+    return d
+
+
+def layer_from_dict(d: dict):
+    """The layer of :func:`layer_to_dict`'s form; a layer this port does
+    not run yet raises naming its roadmap item."""
+    d = dict(d)
+    cls = getattr(L, d.pop("@class"))
+    if isinstance(cls, type) and issubclass(cls, L.UnportedLayer):
+        raise cls.error()
+    for k, v in d.items():
+        if k == "weight_noise":
+            d[k] = weightnoise_mod.weight_noise_from_dict(v)
+        elif isinstance(v, dict) and "@class" in v:
+            d[k] = layer_from_dict(v)
+        elif isinstance(v, list):
+            d[k] = tuple(v)
+    return cls(**d)
 
 
 def check_ported(layers):
@@ -194,22 +228,9 @@ class MultiLayerConfiguration:
         return types
 
     def to_json(self) -> str:
-        def layer_dict(layer):
-            d = {"@class": type(layer).__name__}
-            for f in dataclasses.fields(layer):
-                v = getattr(layer, f.name)
-                if isinstance(v, L.Layer):
-                    v = layer_dict(v)
-                elif f.name == "weight_noise" and v is not None:
-                    v = v.to_dict()
-                elif callable(v) and not isinstance(v, str):
-                    v = getattr(v, "__name__", str(v))
-                d[f.name] = v
-            return d
-
         check_ported(self.layers)
         return json.dumps({
-            "layers": [layer_dict(l) for l in self.layers],
+            "layers": [layer_to_dict(l) for l in self.layers],
             "input_type": self.input_type,
             "preprocessors": {str(k): {"@class": type(v).__name__,
                                        **dataclasses.asdict(v)}
@@ -228,28 +249,13 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         data = json.loads(s)
-
-        def mk_layer(d):
-            d = dict(d)
-            cls = getattr(L, d.pop("@class"))
-            if isinstance(cls, type) and issubclass(cls, L.UnportedLayer):
-                raise cls.error()
-            for k, v in d.items():
-                if k == "weight_noise":
-                    d[k] = weightnoise_mod.weight_noise_from_dict(v)
-                elif isinstance(v, dict) and "@class" in v:
-                    d[k] = mk_layer(v)
-                elif isinstance(v, list):
-                    d[k] = tuple(v)
-            return cls(**d)
-
         pres = {}
         for k, v in data.get("preprocessors", {}).items():
             v = dict(v)
-            cls = _PREPROCESSORS[v.pop("@class")]
+            cls = PREPROCESSORS[v.pop("@class")]
             pres[int(k)] = cls(**v)
         return MultiLayerConfiguration(
-            layers=[mk_layer(d) for d in data["layers"]],
+            layers=[layer_from_dict(d) for d in data["layers"]],
             input_type=tuple(data["input_type"]) if data.get("input_type") else None,
             preprocessors=pres,
             updater=IUpdater.from_dict(data["updater"]),
@@ -398,10 +404,11 @@ class NeuralNetConfigurationBuilder:
         return ListBuilder(self)
 
     def graph_builder(self):
-        """The ComputationGraph builder waits for the graph port."""
-        raise NotImplementedError(
-            f"ComputationGraph is not ported yet; it waits for "
-            f"{L.ROADMAP_ITEM}")
+        """The ComputationGraph builder (reference
+        ComputationGraphConfiguration.GraphBuilder) over this builder's
+        network-wide settings."""
+        from ..graph.computation_graph import GraphBuilder
+        return GraphBuilder(self)
 
 
 class NeuralNetConfiguration:

@@ -22,9 +22,13 @@ Counterpart of ``deeplearning4j_tpu/nn/fit_fastpath.py``:
   into k micro-batches whose gradients are averaged before one updater
   step; stateful layers refresh per micro-batch.
 
-Subclasses provide ``_micro_grads`` (loss, refreshed states and
-gradients of one micro-batch), ``_apply_update``, ``_step_fn``,
-``_materialize_batches``, ``_stage_batch`` and ``_coerce_fit_data``.
+The mixin serves both network classes, whose params are a list
+(``MultiLayerNetwork``) or a vertex-name -> dict (``ComputationGraph``)
+of per-layer dicts: it stages inputs, adds the L1/L2 penalties and runs
+clip -> updater -> weight decay -> constraints (``_apply_update``) over
+either. Subclasses provide ``_micro_grads`` (loss, refreshed states and
+gradients of one micro-batch), ``_step_fn``, ``_materialize_batches``,
+``_stage_batch`` and ``_coerce_fit_data``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import contextlib
 import threading
 import functools
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -39,6 +44,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..common import rng
 from ..common.environment import environment
 from ..common.tracing import span
+from ..learning import tree_map
+from ..ndarray.ndarray import NDArray
+from .conf.constraints import apply_constraints
 
 REMAT_MODES = ("none", "layer", "dots_saveable")
 
@@ -92,19 +100,42 @@ def full_f32():
                  torch.backends.cudnn.allow_tf32) = _f32_saved
 
 
-def _batch_rows(x) -> int:
-    return int(x.shape[0]) if x.dim() else 0
+def _leaves(tree) -> list:
+    """The tensors of a dict/list/tuple nest (dict keys in order)."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
 
 
-def _split_rows(t, k):
-    if t.shape[0] % k:
-        raise ValueError(f"grad_accum={k} does not divide batch dim "
-                         f"{t.shape[0]} (shape {tuple(t.shape)})")
-    return t.chunk(k, dim=0)
+def _batch_rows(tree) -> int:
+    """Leading dim of the first batched tensor of ``tree`` (0 if none)."""
+    for leaf in _leaves(tree):
+        if leaf.dim():
+            return int(leaf.shape[0])
+    return 0
 
 
-def _tree_add(a, b):
-    return [{k: a[i][k] + b[i][k] for k in a[i]} for i in range(len(a))]
+def _micro_batches(tree, k):
+    """``tree`` cut into k trees of equal row count along dim 0."""
+    def rows(t):
+        if t.shape[0] % k:
+            raise ValueError(f"grad_accum={k} does not divide batch dim "
+                             f"{t.shape[0]} (shape {tuple(t.shape)})")
+        return t.shape[0] // k
+    return [tree_map(lambda t, _i=i: t[_i * rows(t):(_i + 1) * rows(t)],
+                     tree) for i in range(k)]
+
+
+def _per_layer(fn, *trees):
+    """``fn`` over each per-layer param dict of a network's params: a
+    list (``MultiLayerNetwork``) or a vertex-name -> dict
+    (``ComputationGraph``), with the matching dicts of ``trees[1:]``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {n: fn(*(t[n] for t in trees)) for n in first}
+    return [fn(*ps) for ps in zip(*trees)]
 
 
 class FitFastPathMixin:
@@ -161,6 +192,52 @@ class FitFastPathMixin:
     def _cast_act(h, dt):
         return h.to(dt) if h.is_floating_point() else h
 
+    # -- staging and the update (shared by both network classes) ---------
+    def _stage(self, x) -> torch.Tensor:
+        """An input on the network's device; float64 host data becomes
+        float32, as the JAX package's default does."""
+        t = x.torch() if isinstance(x, NDArray) else x
+        if not isinstance(t, torch.Tensor):
+            t = torch.as_tensor(np.asarray(t))
+        if t.dtype == torch.float64:
+            t = t.float()
+        return t.to(self.device)
+
+    def _regularized(self, loss, trainable):
+        """L1/L2 penalties (reference BaseLayer.calcRegularizationScore)."""
+        if self.conf.l2 > 0 or self.conf.l1 > 0:
+            for v in _leaves(trainable):
+                if self.conf.l2 > 0:
+                    loss = loss + 0.5 * self.conf.l2 * torch.sum(v * v)
+                if self.conf.l1 > 0:
+                    loss = loss + self.conf.l1 * torch.sum(torch.abs(v))
+        return loss
+
+    def _clip_grads(self, grads):
+        """conf.gradient_normalization (clip_l2 / clip_value) applied."""
+        grad_norm = self.conf.gradient_normalization
+        clip = self.conf.gradient_clip
+        if grad_norm == "clip_l2":
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in _leaves(grads)))
+            scale = torch.clamp_max(clip / torch.clamp_min(gnorm, 1e-12), 1.0)
+            return tree_map(lambda g: g * scale, grads)
+        if grad_norm == "clip_value":
+            return tree_map(lambda g: torch.clamp(g, -clip, clip), grads)
+        return grads
+
+    @torch.no_grad()
+    def _apply_update(self, trainable, updater_state, iteration, grads):
+        """Clip -> updater -> weight decay -> constraints."""
+        grads = self._clip_grads(grads)
+        update, updater_state = self.conf.updater.apply(grads, updater_state,
+                                                        iteration)
+        wd = self.conf.weight_decay
+        new = _per_layer(
+            lambda p, u: {k: p[k] - u[k].to(p[k].dtype) - wd * p[k]
+                          for k in p}, trainable, update)
+        return apply_constraints(getattr(self.conf, "constraints", None),
+                                 new), updater_state
+
     # -- steps -----------------------------------------------------------
     def _train_step_fn(self):
         """The step of one logical batch: ``_step_fn()`` when grad_accum
@@ -174,12 +251,14 @@ class FitFastPathMixin:
                  key):
             host = torch.Generator().manual_seed(int(key))
             gsum, lsum = None, 0.0
-            for mx, my in zip(_split_rows(data, k), _split_rows(labels, k)):
+            for mx, my in zip(_micro_batches(data, k),
+                              _micro_batches(labels, k)):
                 loss, states, grads = self._micro_grads(
                     trainable, states, mx, my, rng.split(host))
-                gsum = grads if gsum is None else _tree_add(gsum, grads)
+                gsum = grads if gsum is None else tree_map(torch.add, gsum,
+                                                           grads)
                 lsum = lsum + loss
-            grads = [{n: g / k for n, g in p.items()} for p in gsum]
+            grads = tree_map(lambda g: g / k, gsum)
             new_trainable, updater_state = self._apply_update(
                 trainable, updater_state, iteration, grads)
             return new_trainable, states, updater_state, lsum / k
@@ -227,7 +306,7 @@ class FitFastPathMixin:
                            if self._listener_overrides(l, "on_epoch_end")]
 
         def sig(b):
-            return tuple((tuple(a.shape), a.dtype) for a in b)
+            return [(tuple(a.shape), a.dtype) for a in _leaves(b)]
 
         use_scan = (batches is not None and batches and not iter_listeners
                     and all(sig(b) == sig(batches[0]) for b in batches[1:]))

@@ -21,14 +21,12 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List
 
-import numpy as np
 import torch
 
 from ..common import rng
 from ..datasets.dataset import DataSet
 from ..ndarray.ndarray import NDArray
 from .conf.config import MultiLayerConfiguration, check_ported
-from .conf.constraints import apply_constraints
 from .conf.layers import LossLayer, OutputLayer
 from .fit_fastpath import FitFastPathMixin, full_f32
 
@@ -44,10 +42,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _unported(what, item):
-    return NotImplementedError(f"MultiLayerNetwork.{what} is not ported yet;"
-                               f" it waits for ROADMAP.md queue 1 item "
-                               f"{item}")
+def unported(what, item, owner="MultiLayerNetwork"):
+    """The error an entry point not ported yet raises, naming its
+    ``ROADMAP.md`` queue 1 item."""
+    return NotImplementedError(f"{owner}.{what} is not ported yet; it waits"
+                               f" for ROADMAP.md queue 1 item {item}")
 
 
 class MultiLayerNetwork(FitFastPathMixin):
@@ -90,7 +89,7 @@ class MultiLayerNetwork(FitFastPathMixin):
             raise RuntimeError("call init() first")
 
     def distribute(self, mesh):
-        raise _unported("distribute", 10)
+        raise unported("distribute", 10)
 
     def warm_buckets(self, example, batch_sizes=None) -> List[int]:
         """Run the inference bucket ladder of the direct ``output()`` /
@@ -106,14 +105,14 @@ class MultiLayerNetwork(FitFastPathMixin):
                 example, batch_sizes=batch_sizes)
 
     def warm_compile(self, data, labels=None):
-        raise _unported("warm_compile", 12)
+        raise unported("warm_compile", 12)
 
     def save(self, path, save_updater: bool = False):
-        raise _unported("save (nn/serde.py)", 9)
+        raise unported("save (nn/serde.py)", 9)
 
     @staticmethod
     def load(path, load_updater: bool = False):
-        raise _unported("load (nn/serde.py)", 9)
+        raise unported("load (nn/serde.py)", 9)
 
     def _trainable(self, params):
         """Trainable subset (excludes ``state_*`` running stats)."""
@@ -126,16 +125,6 @@ class MultiLayerNetwork(FitFastPathMixin):
 
     def _merge_states(self, trainable, states):
         return [{**t, **s} for t, s in zip(trainable, states)]
-
-    def _stage(self, x) -> torch.Tensor:
-        """An input on the network's device; float64 host data becomes
-        float32, as the JAX package's default does."""
-        t = x.torch() if isinstance(x, NDArray) else x
-        if not isinstance(t, torch.Tensor):
-            t = torch.as_tensor(np.asarray(t))
-        if t.dtype == torch.float64:
-            t = t.float()
-        return t.to(self.device)
 
     def _weight_noised(self, layer, p, host):
         """Train-time weight noise: the layer's setting wins over the
@@ -252,17 +241,6 @@ class MultiLayerNetwork(FitFastPathMixin):
             raise ValueError("last layer must be an output/loss layer for fit()")
         return last
 
-    def _regularized(self, loss, trainable):
-        """L1/L2 penalties (reference BaseLayer.calcRegularizationScore)."""
-        if self.conf.l2 > 0 or self.conf.l1 > 0:
-            for p in trainable:
-                for v in p.values():
-                    if self.conf.l2 > 0:
-                        loss = loss + 0.5 * self.conf.l2 * torch.sum(v * v)
-                    if self.conf.l1 > 0:
-                        loss = loss + self.conf.l1 * torch.sum(torch.abs(v))
-        return loss
-
     def _loss_with_bn(self, trainable, states, x, y, key):
         """Loss + collected stateful-layer inputs (the train-step loss)."""
         params = self._merge_states(trainable, states)
@@ -285,32 +263,6 @@ class MultiLayerNetwork(FitFastPathMixin):
         return float(loss)
 
     # -- training --------------------------------------------------------
-    def _clip_grads(self, grads):
-        """conf.gradient_normalization (clip_l2 / clip_value) applied."""
-        grad_norm = self.conf.gradient_normalization
-        clip = self.conf.gradient_clip
-        if grad_norm == "clip_l2":
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for p in grads
-                                   for g in p.values()))
-            scale = torch.clamp_max(clip / torch.clamp_min(gnorm, 1e-12), 1.0)
-            return [{k: g * scale for k, g in p.items()} for p in grads]
-        if grad_norm == "clip_value":
-            return [{k: torch.clamp(g, -clip, clip) for k, g in p.items()}
-                    for p in grads]
-        return grads
-
-    @torch.no_grad()
-    def _apply_update(self, trainable, updater_state, iteration, grads):
-        """Clip -> updater -> weight decay -> constraints."""
-        grads = self._clip_grads(grads)
-        update, updater_state = self.conf.updater.apply(grads, updater_state,
-                                                        iteration)
-        wd = self.conf.weight_decay
-        new = [{k: p[k] - u[k].to(p[k].dtype) - wd * p[k] for k in p}
-               for p, u in zip(trainable, update)]
-        return apply_constraints(getattr(self.conf, "constraints", None),
-                                 new), updater_state
-
     @torch.no_grad()
     def _refresh_states(self, states, bn_inputs, y):
         """Stateful layers (batch-norm running stats) refresh from the

@@ -169,16 +169,22 @@ def calibrate(model, batch, *, mode: str = "int8",
 
     Observation sites by model family: generative models (the CausalLM
     protocol) record the full-sequence forward logits (``logits``);
-    layer-API networks every layer activation via ``feed_forward``
-    (``layer0..layerN``); anything else with an ``output`` callable its
-    output."""
+    layer-API networks every activation ``feed_forward`` gives: a
+    ``MultiLayerNetwork``'s as ``layer0..layerN``, a ``ComputationGraph``'s
+    by vertex name, inputs included (the JAX package's ``calibrate``
+    enumerates the graph's dict and fails there); anything else with an
+    ``output`` callable its output."""
     ranges: Dict[str, float] = {}
     if _generative(model):
         ranges["logits"] = _range_of(forward_logits(model, batch), method,
                                      percentile)
     elif callable(getattr(model, "feed_forward", None)):
-        for i, a in enumerate(model.feed_forward(batch)):
-            ranges[f"layer{i}"] = _range_of(_tensor(a), method, percentile)
+        acts = model.feed_forward(batch)
+        # a ComputationGraph's activations come keyed by vertex name
+        sites = acts.items() if isinstance(acts, dict) else \
+            ((f"layer{i}", a) for i, a in enumerate(acts))
+        for site, a in sites:
+            ranges[site] = _range_of(_tensor(a), method, percentile)
     elif callable(getattr(model, "output", None)):
         ranges["output"] = _range_of(model_logits(model, batch), method,
                                      percentile)

@@ -23,12 +23,13 @@ the ladder bounds the set of dispatch shapes instead: ``counted_dispatch``
 records each first-seen (tag, padded input signature) in the
 environment's census, the shapes CUDA-graph capture will replay
 (``ROADMAP.md`` queue 1 item 12). The same bucketing rides the direct
-``MultiLayerNetwork.output()`` path through ``maybe_pad_tree``.
+``MultiLayerNetwork.output()`` and ``ComputationGraph.output()`` paths
+through ``maybe_pad_tree``.
 
-Only the ``MultiLayerNetwork`` adapter is ported; a ``ComputationGraph``
-or ``SameDiff`` model raises ``NotImplementedError`` naming queue 1 item
-9, and ``mesh=``/``param_spec=`` raise naming item 10, before anything
-is allocated.
+A ``MultiLayerNetwork`` or a ``ComputationGraph`` is served; a
+``SameDiff`` model raises ``NotImplementedError`` naming queue 1 item 9,
+and ``mesh=``/``param_spec=`` raise naming item 10, before anything is
+allocated.
 """
 from __future__ import annotations
 
@@ -262,6 +263,34 @@ class _MultiLayerAdapter:
         return NDArray(outputs[0])
 
 
+class _GraphAdapter:
+    """ComputationGraph: an array, a list (in ``conf.inputs`` order) or a
+    name -> array dict -> a list of NDArrays ordered as
+    ``conf.outputs``."""
+
+    def __init__(self, model):
+        self.model = model
+        self.input_names = list(model.conf.inputs)
+
+    def inputs_of(self, request) -> List[torch.Tensor]:
+        if isinstance(request, dict):
+            return [_unwrap(request[n]) for n in self.input_names]
+        if not isinstance(request, (list, tuple)):
+            request = [request]
+        if len(request) != len(self.input_names):
+            raise ValueError(f"graph expects {len(self.input_names)} inputs, "
+                             f"got {len(request)}")
+        return [_unwrap(x) for x in request]
+
+    def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        ind = {n: x for n, x in zip(self.input_names, inputs)}
+        return list(self.model._output_fn(False)(self.model._params, ind))
+
+    def package(self, outputs: List[torch.Tensor]):
+        from ..ndarray.ndarray import NDArray
+        return [NDArray(o) for o in outputs]
+
+
 def _make_adapter(model, outputs):
     # duck-typed, as the JAX package's, so runtime never imports nn/
     if hasattr(model, "make_function") and hasattr(model, "_vars"):
@@ -271,9 +300,7 @@ def _make_adapter(model, outputs):
     if hasattr(model, "conf") and hasattr(getattr(model.conf, "outputs", None),
                                           "__iter__") and hasattr(
                                               model, "_order"):
-        raise NotImplementedError(
-            "serving a ComputationGraph is not ported yet; it waits for "
-            "ROADMAP.md queue 1 item 9")
+        return _GraphAdapter(model)
     if hasattr(model, "layers") and hasattr(model, "_output_fn"):
         return _MultiLayerAdapter(model)
     raise TypeError(f"cannot serve a {type(model).__name__}; expected "

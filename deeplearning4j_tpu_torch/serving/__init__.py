@@ -26,9 +26,10 @@ SLOs gating ``/readyz`` (``slo``), the stdlib HTTP server
 
     registry.deploy("mnist", "v1", net, example=x)   # a MultiLayerNetwork
     # POST /v1/models/mnist/predict {"inputs": [[...], ...]}
+    registry.deploy("resnet", "v1", graph, example=x)  # a ComputationGraph
+    # answers {"outputs": [[...]]}, one list per output vertex
 
-A ``ComputationGraph`` or ``SameDiff`` model waits for ``ROADMAP.md``
-queue 1 item 9.
+A ``SameDiff`` model waits for ``ROADMAP.md`` queue 1 item 9.
 
 Env knobs (the JAX package's names): ``DL4J_TPU_SERVING_{MAX_CONCURRENT,
 QUEUE_DEPTH,HIGH_WATER,TIMEOUT_S,DRAIN_TIMEOUT_S,RETAIN,MANIFEST_DIR}``,

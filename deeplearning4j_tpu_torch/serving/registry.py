@@ -1,8 +1,9 @@
 """Versioned multi-model registry with warm-before-cutover hot swap.
 
 Counterpart of the JAX package's ``serving/registry.py``: each deployed
-version runs behind the port's ``InferenceEngine`` (a layer-API network)
-or ``DecodeEngine`` (a generative model).
+version runs behind the port's ``InferenceEngine`` (a layer-API network:
+a ``MultiLayerNetwork`` or a ``ComputationGraph``) or ``DecodeEngine`` (a
+generative model).
 
 1. ``deploy(name, version, model)`` builds the version's engine and warms
    it BEFORE any traffic sees it: an ``InferenceEngine`` runs its bucket
@@ -29,9 +30,9 @@ Each dispatch is accounted against the version's circuit breaker
 auto-rollback.
 
 What waits for other slices, and is refused before anything is allocated
-or registered: a ``ComputationGraph`` or ``SameDiff`` model (their
-adapters wait for ``ROADMAP.md`` queue 1 item 9) and ``mesh=`` /
-``param_spec=`` (sharded deploys are item 10).
+or registered: a ``SameDiff`` model (its adapter waits for ``ROADMAP.md``
+queue 1 item 9) and ``mesh=`` / ``param_spec=`` (sharded deploys are item
+10).
 """
 from __future__ import annotations
 
@@ -240,8 +241,8 @@ class ModelRegistry:
         live. ``quant_max_divergence``/``quant_min_top1`` override the env
         budgets for this deploy only.
 
-        A ``ComputationGraph`` or ``SameDiff`` model is refused naming
-        ``ROADMAP.md`` queue 1 item 9, ``mesh``/``param_spec`` naming
+        A ``SameDiff`` model is refused naming ``ROADMAP.md`` queue 1
+        item 9, ``mesh``/``param_spec`` naming
         item 10."""
         name, version = str(name), str(version)
         with self._lock:

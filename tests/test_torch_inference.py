@@ -39,6 +39,7 @@ from deeplearning4j_tpu.nn import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu.nn import NeuralNetConfiguration as JNNC
 from deeplearning4j_tpu.nn.conf.layers import DenseLayer as JDense
 from deeplearning4j_tpu.nn.conf.layers import OutputLayer as JOutput
+from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.runtime import inference as jinf
 
 from deeplearning4j_tpu_torch import bridge
@@ -56,6 +57,9 @@ from deeplearning4j_tpu_torch.common.tracing import (TraceContext,
 from deeplearning4j_tpu_torch.nn import fit_fastpath
 from deeplearning4j_tpu_torch.nn.conf.config import \
     MultiLayerConfiguration as TConf
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as TGraph
+from deeplearning4j_tpu_torch.nn.graph import \
+    ComputationGraphConfiguration as TGraphConf
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as TMLN
 from deeplearning4j_tpu_torch.runtime import inference as tinf
 
@@ -107,6 +111,23 @@ def _pair(seed=0):
         jnp.asarray, _JPARAMS[seed]))
     tnet = TMLN(TConf.from_json(conf.to_json()), device="cpu")
     bridge.load_multilayer(tnet, _JPARAMS[seed])
+    return jnet, tnet
+
+
+def _graph_pair():
+    """``tests/test_inference_engine.py``'s ``_graph()`` (dense 6->8 relu,
+    softmax 8->3 as a ComputationGraph), bridged into the port."""
+    conf = (JNNC.builder().seed(1)
+            .graph_builder()
+            .add_inputs("in")
+            .add_layer("d1", JDense(n_in=N_IN, n_out=8, activation="relu"),
+                       "in")
+            .add_layer("out", JOutput(n_in=8, n_out=N_OUT), "d1")
+            .set_outputs("out")
+            .build())
+    jnet = JGraph(conf).init()
+    tnet = TGraph(TGraphConf.from_json(conf.to_json()), device="cpu")
+    bridge.load_graph(tnet, jax.tree_util.tree_map(np.asarray, jnet._params))
     return jnet, tnet
 
 
@@ -433,23 +454,79 @@ def test_stats_keys_match_jax(nets):
     assert ts["padding_overhead"] == pytest.approx(js["padding_overhead"])
 
 
-def test_unservable_models_refused():
-    class Graphish:
-        class conf:
-            outputs = ["out"]
-        _order = []
-
+def test_unservable_models_refused(graphs):
+    """A ComputationGraph is served (the graph cases below); a SameDiff
+    model waits for its item, and anything else is no model."""
     class SameDiffish:
         _vars = {}
 
         def make_function(self):
             pass
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tinf.InferenceEngine(Graphish())
+    assert isinstance(tinf._make_adapter(graphs[1], None),
+                      tinf._GraphAdapter)
     with pytest.raises(NotImplementedError, match="item 9"):
         tinf.InferenceEngine(SameDiffish())
     with pytest.raises(TypeError, match="cannot serve"):
         tinf.InferenceEngine(torch.nn.Linear(4, 2))
+
+
+# -- the ComputationGraph adapter ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def graphs():
+    return _graph_pair()
+
+
+def test_graph_infer_matches_jax_for_array_list_and_dict(graphs):
+    """One array, a list in input order and a name -> array dict give the
+    same list of outputs, on both sides, at every size."""
+    jnet, tnet = graphs
+    je = jinf.InferenceEngine(jnet, max_batch=16)
+    te = tinf.InferenceEngine(tnet, max_batch=16)
+    for n in (1, 3, 5, 16):
+        x = _x(n)
+        ref = je.infer(x)
+        for req in (x, [x], {"in": x}):
+            got = te.infer(req)
+            assert isinstance(got, list) and len(got) == len(ref) == 1
+            assert tuple(got[0].shape) == (n, N_OUT)
+            _close(_np(got[0]), _np(ref[0]))
+    with pytest.raises(ValueError, match="expects 1 inputs"):
+        te.infer([_x(2), _x(2)])
+    # three request forms a size on the port's side, one on JAX's
+    assert te.stats()["bucket_dispatches"] == {
+        b: 3 * c for b, c in je.stats()["bucket_dispatches"].items()}
+    te.close()
+    je.close()
+
+
+def test_graph_padded_matches_exact_shape(graphs):
+    """``tests/test_inference_engine.py::test_graph_bitwise``'s cases,
+    held with allclose (see the module docstring)."""
+    jnet, tnet = graphs
+    for n in (3, 5, 9):
+        x = _x(n)
+        tenv().set_inference_bucketing(False)
+        exact = tnet.output(x)[0].numpy()
+        tenv().set_inference_bucketing(True)
+        _close(tnet.output(x)[0].numpy(), exact)
+        _close(exact, np.asarray(jnet.output(x)[0].jax()))
+
+
+def test_graph_submit_and_warmup_census(graphs):
+    """The micro-batcher over a graph: a future resolves to the list of
+    outputs on the host; after warmup the ladder adds no dispatch shape."""
+    _, tnet = graphs
+    te = tinf.InferenceEngine(tnet, max_batch=8)
+    assert te.warmup({"in": _x(1)}) == [1, 2, 4, 8]
+    c0 = tenv().compile_count()
+    futs = [te.submit({"in": _x(n, seed=n)}) for n in (1, 2, 3)]
+    for n, f in zip((1, 2, 3), futs):
+        out = f.result(timeout=30)
+        assert out[0].torch().device.type == "cpu"
+        _close(out[0].numpy(), tnet.output(_x(n, seed=n))[0].numpy())
+    assert tenv().compile_count() == c0
+    te.close()
 
 
 def test_sharded_engine_refused(nets):
@@ -881,3 +958,38 @@ def test_engine_manifest_lands_in_the_registry_dir(tmp_path, nets):
         assert json.load(open(path))["entries"][0]["buckets"] == [1, 2, 4]
     finally:
         reg.drain_all(timeout_s=10, save_manifests=False)
+
+
+def test_graph_deploy_and_predict_over_http_match_jax(graphs):
+    """A ComputationGraph deploys, warms and answers ``POST /predict`` with
+    its list of outputs, as the JAX package's server does; a request it
+    cannot run (wrong width) answers 422 on both."""
+    out = {}
+    try:
+        for side, pkg, net in (("jax", jserving, graphs[0]),
+                               ("torch", tserving, graphs[1])):
+            reg = pkg.ModelRegistry(manifest_dir=None)
+            mv = reg.deploy("cg", "v1", net, example=_x(1), max_batch=8)
+            assert mv.state == "ready"
+            srv = pkg.ModelServer(reg)
+            out[side] = (reg, srv, f"http://127.0.0.1:{srv.start()}")
+        x = _x(3, seed=9)
+        docs = {}
+        for side, (_, _, base) in out.items():
+            status, _, body = _post(base + "/v1/models/cg/predict",
+                                    {"inputs": x.tolist()})
+            assert status == 200, side
+            docs[side] = json.loads(body)
+        t = np.asarray(docs["torch"]["outputs"], np.float32)
+        assert t.shape == (1, 3, N_OUT)
+        _close(t, np.asarray(docs["jax"]["outputs"], np.float32))
+        _close(t[0], graphs[1].output(x)[0].numpy())
+        for side, (_, _, base) in out.items():
+            status, _, body = _post(base + "/v1/models/cg/predict",
+                                    {"inputs": [[1.0] * (N_IN - 1)] * 2})
+            assert status == 422, side
+            assert json.loads(body)["quarantined"] is True
+    finally:
+        for reg, srv, _ in out.values():
+            srv.stop()
+            reg.drain_all(timeout_s=10, save_manifests=False)

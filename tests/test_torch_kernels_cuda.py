@@ -340,6 +340,52 @@ def test_inference_engine_serves_a_twin_on_the_card(cuda):
     eng.close()
 
 
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 0.0, 1e-4), (torch.bfloat16, 1e-2, 1e-2)],
+    ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [1, 8, 16, 128])
+def test_dequant_matmul_resnet50_head(cuda, M, dtype, rtol, atol):
+    """ResNet-50's 2048->1000 head (N % 16 != 0: the unaligned loads and
+    a ragged last column tile) at rungs of the predict ladder; the twin
+    runs it f32, the bf16 route is held too; two calls give identical
+    bits."""
+    g = torch.Generator(device=cuda).manual_seed(M + 1000)
+    qt = quantize_tensor(0.02 * torch.randn((2048, 1000), generator=g,
+                                            device=cuda))
+    x = torch.randn((M, 2048), generator=g, device=cuda).to(dtype)
+    scale = qt.scale.reshape(-1)
+    before = _fused_dequant_matmul.launches
+    got = _fused_dequant_matmul(x, qt.q, scale)
+    again = _fused_dequant_matmul(x, qt.q, scale)
+    ref = dequant_matmul_plain(x, qt.q, scale)
+    torch.cuda.synchronize()
+    assert _fused_dequant_matmul.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, 1000)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_resnet50_twin_output_matches_the_cpu(cuda):
+    """The full-width ResNet-50's int8 twin on the card (f32 activations:
+    cuDNN convolutions over the dequantized 4-D weights, the head through
+    the kernel's f32 route, one launch an output()) against the same twin
+    on the CPU (the plain version) at B=4: 1e-4 on softmax outputs."""
+    from deeplearning4j_tpu_torch.quant import QuantSpec, quantize_model
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    net = ResNet50().init_model(device="cpu")
+    spec = QuantSpec(act_dtype="float32")
+    on_cpu = quantize_model(net, spec, device="cpu")
+    on_card = quantize_model(net, spec, device=cuda)
+    x = np.random.RandomState(0).randn(4, 3, 224, 224).astype(np.float32)
+    before = _fused_dequant_matmul.launches
+    got = on_card.output(x)
+    assert _fused_dequant_matmul.launches == before + 1
+    assert len(got) == 1 and got[0].shape == (4, 1000)
+    np.testing.assert_allclose(got[0].numpy(), on_cpu.output(x)[0].numpy(),
+                               atol=1e-4, rtol=0)
+
+
 def test_dequant_matmul_refuses_what_it_cannot_run(cuda):
     qt = quantize_tensor(torch.randn((64, 32), device=cuda))
     with pytest.raises(TypeError):

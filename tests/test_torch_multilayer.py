@@ -202,8 +202,13 @@ class TestConfig:
         b = TNNC.builder().list().layer(TL.LSTM(n_in=4, n_out=4))
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             b.layer(TL.RnnOutputLayer(n_in=4, n_out=2)).build()
+        # the graph builder is ported; a graph naming an unported layer
+        # fails at build() the same way
+        g = (TNNC.builder().graph_builder().add_inputs("in")
+             .add_layer("lstm", TL.LSTM(n_in=4, n_out=4), "in")
+             .set_outputs("lstm"))
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            TNNC.builder().graph_builder()
+            g.build()
 
     def test_network_needs_a_device_it_can_use(self):
         """No ``device=`` means the card; without one it raises rather

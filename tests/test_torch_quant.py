@@ -564,3 +564,106 @@ class TestQuantizedMLN:
             np.testing.assert_allclose(got.act_ranges[k], v, rtol=1e-4)
         assert got.to_json() == tquant.QuantSpec.from_json(
             got.to_json()).to_json()
+
+
+def _graph_pair(seed=0):
+    """A small residual CNN as a ComputationGraph (a 3x3 convolution of
+    288 weights and a 32->10 head, both past ``min_size``, so the twin
+    dequantizes a 4-D weight at use and sends its head through
+    ``dequant_matmul``), built by the JAX package and bridged into the
+    port on the CPU."""
+    from deeplearning4j_tpu.nn import NeuralNetConfiguration as JNNC
+    from deeplearning4j_tpu.nn.conf import layers as JL
+    from deeplearning4j_tpu.nn.conf.config import InputType as JInputType
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+    from deeplearning4j_tpu.nn.graph import ElementWiseVertex as JAdd
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as TGraph
+    from deeplearning4j_tpu_torch.nn.graph import \
+        ComputationGraphConfiguration as TGraphConf
+    conf = (JNNC.builder().seed(seed).graph_builder()
+            .add_inputs("img")
+            .set_input_types(JInputType.convolutional(6, 6, 4))
+            .add_layer("c", JL.ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                                padding=(1, 1),
+                                                has_bias=False), "img")
+            .add_layer("bn", JL.BatchNormalization(), "c")
+            .add_layer("act", JL.ActivationLayer(activation="relu"), "bn")
+            .add_layer("sc", JL.ConvolutionLayer(n_out=8, kernel_size=(1, 1)),
+                       "img")
+            .add_vertex("add", JAdd(op="add"), "act", "sc")
+            .add_layer("pool", JL.GlobalPoolingLayer(pooling_type="avg"),
+                       "add")
+            .add_layer("d", JL.DenseLayer(n_out=32, activation="gelu"),
+                       "pool")
+            .add_layer("output", JL.OutputLayer(n_out=10), "d")
+            .set_outputs("output")
+            .build())
+    jg = JGraph(conf).init()
+    tg = TGraph(TGraphConf.from_json(conf.to_json()), device="cpu")
+    bridge.load_graph(tg, _np_tree(jg._params))
+    return jg, tg
+
+
+def _graph_x(n=8, seed=0):
+    return np.random.RandomState(seed).randn(n, 4, 6, 6).astype(np.float32)
+
+
+class TestQuantizedGraph:
+    """The int8 twin of a ComputationGraph against the JAX package's twin
+    (plain kernel version on the CPU; atol 1e-5 on softmax outputs: the
+    same f32 products of the same int8 weights, summed in another
+    order), its divergence report, and ``calibrate`` on a graph."""
+
+    def test_twin_matches_jax_twin(self):
+        jg, tg = _graph_pair()
+        x = _graph_x(6)
+        jq = jt.quantize_model(jg)
+        tq = tt.quantize_model(tg, device="cpu")
+        got = tq.output(x)
+        assert isinstance(got, list) and len(got) == 1
+        np.testing.assert_allclose(got[0].numpy(),
+                                   np.asarray(jq.output(x)[0].jax()),
+                                   atol=1e-5, rtol=0)
+        assert np.abs(got[0].numpy() - tg.output(x)[0].numpy()).max() < 0.05
+        assert type(tq) is type(tg) and tq.conf is not tg.conf
+        assert tq.conf.dtype == "float32" and tq._updater_state is None
+        for vertex in ("c", "d", "output"):
+            assert isinstance(tq._params[vertex]["W"], tt.QuantizedTensor)
+            assert tq._params[vertex]["W"].q.dtype == torch.int8
+        assert not isinstance(tq._params["sc"]["W"], tt.QuantizedTensor)
+        assert tt.precision_of_model(tq) == "int8"
+        assert tt.param_bytes_of(tq) == jt.param_bytes_of(jq)
+        assert tt.precision_of_model(tg) == "float32"
+
+    def test_divergence_report_matches_jax(self):
+        jg, tg = _graph_pair()
+        x = _graph_x(16, seed=1)
+        rep = tquant.divergence_report(tg, tt.quantize_model(tg,
+                                                             device="cpu"), x)
+        ref = jquant.divergence_report(jg, jt.quantize_model(jg), x)
+        assert rep["generative"] is ref["generative"] is False
+        for k in ("max_abs_err", "mean_abs_err", "top1_agreement"):
+            np.testing.assert_allclose(rep[k], ref[k], atol=1e-4, rtol=0)
+
+    @pytest.mark.parametrize("method", ["absmax", "percentile"])
+    def test_calibrate_records_each_vertex(self, method):
+        """One range per activation of ``feed_forward``, keyed by vertex
+        name, equal to the JAX package's ``_range_of`` over the JAX
+        graph's own activations; the JAX ``calibrate`` enumerates that
+        dict as a list and fails (the reference fault in ``ROADMAP.md``
+        queue 3)."""
+        import importlib
+        jcal = importlib.import_module("deeplearning4j_tpu.quant.calibrate")
+        jg, tg = _graph_pair()
+        x = _graph_x(8, seed=2)
+        spec = tquant.calibrate(tg, x, method=method)
+        jacts = jg.feed_forward(x)
+        assert list(spec.act_ranges) == list(jacts) == [
+            "img", "c", "sc", "bn", "act", "add", "pool", "d", "output"]
+        for k, a in jacts.items():
+            np.testing.assert_allclose(
+                spec.act_ranges[k],
+                jcal._range_of(np.asarray(a.jax()), method, 99.9), rtol=1e-4)
+        assert spec.batch_fingerprint == "float32[8, 4, 6, 6]"
+        with pytest.raises(ValueError, match="could not convert"):
+            jquant.calibrate(jg, x, method=method)

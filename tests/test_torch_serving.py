@@ -374,16 +374,18 @@ class TestPortOnlyDeploys:
         return tserving.ModelRegistry(manifest_dir=None)
 
     def test_non_generative_model_refused_naming_its_item(self):
-        """A layer-API network deploys (``tests/test_torch_inference.py``);
-        a ComputationGraph-shaped model waits for its item, and anything
-        else is no model the registry can serve."""
-        class Graphish:
-            class conf:
-                outputs = ["out"]
-            _order = []
+        """A layer-API network, sequential or graph, deploys
+        (``tests/test_torch_inference.py``); a SameDiff-shaped model waits
+        for its item, and anything else is no model the registry can
+        serve."""
+        class SameDiffish:
+            _vars = {}
+
+            def make_function(self):
+                pass
         reg = self._reg()
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            reg.deploy("cg", "v1", Graphish())
+            reg.deploy("sd", "v1", SameDiffish())
         with pytest.raises(TypeError, match="cannot serve"):
             reg.deploy("mlp", "v1", torch.nn.Linear(4, 2))
         assert reg.models() == {}
