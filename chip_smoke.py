@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
 (the CausalLM, BERT-base, the layer API's LeNet, quantized MLP and
-ResNet-50, directly, behind the predict route and behind the fleet front
-door).
+ResNet-50, and a SameDiff BERT-base QA graph, directly, behind the
+predict route and behind the fleet front door).
 
     python3 chip_smoke.py
 
@@ -167,6 +167,27 @@ exits non-zero without printing a result:
               after warmup (must be 0) and ``launches_resnet50_int8``:
               its own main path, the dequant count set to 0 just before
               the clients start (one launch a dispatch).
+   samediff_bert — a SameDiff BERT-base SQuAD fine-tune (BASELINE
+              config 3): ``samediff_qa_graph`` records the QA model at
+              ``BertConfig.base()`` width (108,893,186 parameters) into a
+              ``SameDiff`` on the card, f32, T=384, random weights from a
+              seed; ``fit`` over 8 device-staged ``MultiDataSet``s of
+              B=32 under ``Adam(5e-5)``, one warm epoch, 2 timed (host
+              clock: samples/s, ms a step), one under ``torch.profiler``
+              (device ms a step by kernel class, busy share), peak
+              memory; the first loss within 1.0 of ln 384 and the last
+              epoch's mean below the first's. Then ``output()`` at B=2
+              against a CPU copy of the trained weights
+              (``SD_F32_ATOL``), bucketed ``output()`` at 3 and 5 rows
+              against exact, ``save`` and ``SameDiff.load(device=
+              "cuda")`` with the same output bits, and the graph behind
+              the predict route as ``sdbert:v1`` (warmed over 1..8): 8
+              client processes send 16 placeholder-dict requests each of
+              1-4 sequences, every answer held against the graph's own
+              ``output()`` (``SD_PREDICT_ATOL``); prints samples/s, p50 /
+              p99 and the census after warmup (must be 0). The path runs
+              none of the five kernels (the JAX package's SameDiff
+              attention is plain XLA).
    host_profile — ``torch.profiler`` (CPU activities, every thread)
               and a 1 kHz sampling of every thread's innermost Python
               frame over a second run of serve_http's 16 requests and a
@@ -376,6 +397,146 @@ RESNET_PREDICT_ATOL = 1e-2
 # [M, 2048] (the output vertex's input stays f32), W int8 [2048, 1000]
 RESNET_HEAD = (2048, 1000)
 RESNET_ROW_MS = (1, 8, 16, 128)
+# SameDiff BERT-base SQuAD fine-tune (BASELINE config 3): BertConfig.base()
+# widths with the QA span head, recorded as a SameDiff graph; the shape of
+# Devlin et al. 2019 section 4.2 and run_squad.py (B=32, max_seq_length
+# 384, Adam at 5e-5), random weights from a seed; fit over SD_BATCHES
+# device-staged MultiDataSets, one warm epoch then SD_EPOCHS timed
+SD_B, SD_T, SD_BATCHES, SD_EPOCHS, SD_LR = 32, 384, 8, 2, 5e-5
+SD_PARAMS = 108_893_186
+# the first loss is about ln T (uniform start / end over 384 positions)
+SD_LOSS0_ATOL = 1.0
+# the graph's output() on the card against a CPU copy of the same weights,
+# f32 under full_f32(): 12 layers of products summed in another order
+# (f32 rounding, ~1e-6 relative on O(1) logits)
+SD_F32_ATOL = 1e-4
+# the predict route: a ModelRegistry with max_batch 8 (warmed over the
+# ladder 1..8), 8 client processes of 16 requests of 1-4 sequences from a
+# seeded pool of SD_POOL_ROWS
+SD_PREDICT_MAX_BATCH, SD_CLIENTS, SD_REQUESTS, SD_MAX_ROWS = 8, 8, 16, 4
+SD_POOL_ROWS = 64
+# an answer against the graph's own output() on the same rows: the engine
+# ran them padded into another bucket, so cuBLAS may pick other kernels
+# (f32 sums in another order)
+SD_PREDICT_ATOL = 1e-4
+
+
+def qa_dims(hidden=768, layers=12, heads=12, ffn=3072, vocab=30522,
+            positions=512, type_vocab=2, eps=1e-12):
+    """BERT's widths (BertConfig.base() by default)."""
+    return {"hidden": hidden, "layers": layers, "heads": heads, "ffn": ffn,
+            "vocab": vocab, "positions": positions,
+            "type_vocab": type_vocab, "eps": eps}
+
+
+def qa_weights(dims, seed=0):
+    """The QA model's weights as numpy f32, by variable name: normal(0,
+    0.02) matrices and embeddings, layer norms at 1 / 0, biases 0 (the
+    JAX package's init_params / init_qa_params layout, flattened)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    E, F = dims["hidden"], dims["ffn"]
+
+    def dense(*shape):
+        return (0.02 * rng.standard_normal(shape, dtype=np.float32))
+
+    def zeros(n):
+        return np.zeros(n, np.float32)
+
+    w = {"emb/word": dense(dims["vocab"], E),
+         "emb/pos": dense(dims["positions"], E),
+         "emb/type": dense(dims["type_vocab"], E),
+         "emb/ln_g": np.ones(E, np.float32), "emb/ln_b": zeros(E)}
+    for i in range(dims["layers"]):
+        p = f"l{i}/"
+        for n in ("q", "k", "v", "o"):
+            w[p + "w" + n] = dense(E, E)
+            w[p + "b" + n] = zeros(E)
+        w[p + "w1"], w[p + "b1"] = dense(E, F), zeros(F)
+        w[p + "w2"], w[p + "b2"] = dense(F, E), zeros(E)
+        for n in ("ln1", "ln2"):
+            w[p + n + "_g"], w[p + n + "_b"] = np.ones(E, np.float32), zeros(E)
+    w["qa/w"], w["qa/b"] = dense(E, 2), zeros(2)
+    return w
+
+
+def samediff_qa_graph(sd, weights, dims, T):
+    """Record BERT-for-QA into ``sd`` (either package's SameDiff): the
+    encoder of models/bert.py (embeddings, then per layer Q/K/V products,
+    masked dot-product attention, the output product, residual + layer
+    norm, the tanh-GELU FFN, residual + layer norm), the span head
+    (start / end logits), and its loss, the mean of the start and end
+    cross entropies over the positions the mask keeps (qa_loss). The ops
+    are those a TF import of BERT gives: MatMul, BiasAdd, Reshape,
+    Transpose, BatchMatMul, Softmax, LayerNorm, Gelu, the sparse softmax
+    cross entropy. Placeholders: input_ids, token_type_ids,
+    attention_mask ([B, T]; int32, int32, float32), start_positions and
+    end_positions ([B] int32). Returns the names of start_logits,
+    end_logits and loss."""
+    import numpy as np
+    E, H = dims["hidden"], dims["heads"]
+    Dh, eps = E // H, dims["eps"]
+    ids = sd.placeholder("input_ids", (None, T), "int32")
+    types = sd.placeholder("token_type_ids", (None, T), "int32")
+    mask = sd.placeholder("attention_mask", (None, T), "float32")
+    starts = sd.placeholder("start_positions", (None,), "int32")
+    ends = sd.placeholder("end_positions", (None,), "int32")
+    v = {n: sd.var(n, a) for n, a in weights.items()}
+    h = v["emb/word"][ids] + v["emb/pos"][0:T] + v["emb/type"][types]
+    h = sd.nn.layer_norm(h, v["emb/ln_g"], v["emb/ln_b"], eps=eps)
+    mask4 = mask.reshape(-1, 1, 1, T)
+
+    def heads(x):
+        return x.reshape(-1, T, H, Dh).transpose(0, 2, 1, 3)
+
+    for i in range(dims["layers"]):
+        p = f"l{i}/"
+        q, k, val = (heads(h.mmul(v[p + "w" + n]) + v[p + "b" + n])
+                     for n in ("q", "k", "v"))
+        ctx = sd.nn.dot_product_attention(q, k, val, mask4)
+        ctx = ctx.transpose(0, 2, 1, 3).reshape(-1, T, E)
+        attn = ctx.mmul(v[p + "wo"]) + v[p + "bo"]
+        h = sd.nn.layer_norm(h + attn, v[p + "ln1_g"], v[p + "ln1_b"],
+                             eps=eps)
+        inter = sd.nn.gelu(h.mmul(v[p + "w1"]) + v[p + "b1"])
+        h = sd.nn.layer_norm(h + inter.mmul(v[p + "w2"]) + v[p + "b2"],
+                             v[p + "ln2_g"], v[p + "ln2_b"], eps=eps)
+    logits = h.mmul(v["qa/w"]) + v["qa/b"]
+    start = logits[:, :, 0].rename("start_logits")
+    end = logits[:, :, 1].rename("end_logits")
+    big_neg = sd.constant(np.asarray(np.finfo(np.float32).min, np.float32),
+                          "big_neg")
+    ce = [sd.loss.sparse_softmax_cross_entropy(
+        pos, sd.math.select(mask, lg, big_neg)).mean()
+        for pos, lg in ((starts, start), (ends, end))]
+    loss = ((ce[0] + ce[1]) * 0.5).rename("loss")
+    sd.set_loss_variables("loss")
+    return start.name, end.name, loss.name
+
+
+def qa_param_count(sd):
+    """Elements of a SameDiff graph's trainable variables."""
+    return sum(int(sd.get_arr_for_var(v.name).length())
+               for v in sd.trainable_variables())
+
+
+def qa_batch(dims, B, T, seed=0):
+    """A QA batch as numpy: token ids, segment ids (question, then
+    context), a mask whose rows keep between 3/4 of T and T tokens, and
+    start <= end positions inside the kept tokens."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, dims["vocab"], (B, T)).astype(np.int32)
+    keep = rs.randint(3 * T // 4, T + 1, B)
+    mask = (np.arange(T)[None, :] < keep[:, None]).astype(np.float32)
+    types = (np.arange(T)[None, :] >= T // 4).astype(np.int32) \
+        * mask.astype(np.int32)
+    start = np.asarray([rs.randint(0, k) for k in keep], np.int32)
+    end = np.asarray([rs.randint(s, k) for s, k in zip(start, keep)],
+                     np.int32)
+    return {"input_ids": ids, "token_type_ids": types,
+            "attention_mask": mask, "start_positions": start,
+            "end_positions": end}
 
 
 def emit(obj):
@@ -1021,16 +1182,23 @@ def predict_client(job):
     """One predict client: its requests in turn, from ``start_at`` (a
     wall-clock instant shared by every client process). A request is
     ``{"model", "lo", "rows", "cut"}``: rows ``lo:lo+rows`` of the
-    model's pool, the first ``cut`` features of each."""
+    model's pool, the first ``cut`` features of each. A pool saved as
+    ``.npz`` is a placeholder dict: the request sends those rows of each
+    of its arrays."""
     import numpy as np
-    pools = {m: np.load(p) for m, p in job["pools"].items()}
+    pools = {m: (dict(np.load(p)) if p.endswith(".npz") else np.load(p))
+             for m, p in job["pools"].items()}
     time.sleep(max(0.0, job["start_at"] - time.time()))
     out = []
     for r in job["requests"]:
-        x = pools[r["model"]][r["lo"]:r["lo"] + r["rows"]]
-        if r.get("cut"):
-            x = x[..., :r["cut"]]
-        out.append(http_predict(job["base"], r["model"], x.tolist()))
+        pool = pools[r["model"]]
+        rows = slice(r["lo"], r["lo"] + r["rows"])
+        if isinstance(pool, dict):   # a SameDiff graph's placeholder dict
+            body = {k: v[rows].tolist() for k, v in pool.items()}
+        else:
+            x = pool[rows]
+            body = (x[..., :r["cut"]] if r.get("cut") else x).tolist()
+        out.append(http_predict(job["base"], r["model"], body))
     return out
 
 
@@ -2684,9 +2852,20 @@ KERNEL_GROUPS = (
     ("elementwise", ("elementwise",)))
 
 
-def kernel_group(name):
+# the SameDiff BERT step's kernel classes (no convolutions; cuBLAS's f32
+# GEMMs carry sm90 / xmma / cutlass names)
+SD_KERNEL_GROUPS = (
+    ("gemm", ("gemm", "cublas", "cutlass", "xmma", "sm90")),
+    ("softmax", ("softmax",)),
+    ("reduction", ("reduce",)),
+    ("index", ("index", "gather", "scatter", "embedding")),
+    ("copy_cast", ("copy",)),
+    ("elementwise", ("elementwise",)))
+
+
+def kernel_group(name, groups=KERNEL_GROUPS):
     low = name.lower()
-    for group, keys in KERNEL_GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -3050,6 +3229,231 @@ def resnet_head_rows(twin, launches, errs):
     return rows
 
 
+SD_FEATURES = ("input_ids", "token_type_ids", "attention_mask")
+SD_LABELS = ("start_positions", "end_positions")
+
+
+def phase_samediff_bert():
+    """A SameDiff BERT-base SQuAD fine-tune (BASELINE config 3) on the
+    card: the QA graph at ``BertConfig.base()`` width, T=384, f32, random
+    weights from a seed (``samediff_qa_graph``); ``fit`` over SD_BATCHES
+    device-staged MultiDataSets of B=32 under ``Adam(5e-5)``, one warm
+    epoch, SD_EPOCHS timed (host clock), one under the profiler (device
+    ms a step by kernel class, busy share); ``output()`` at B=2 against a
+    CPU copy of the trained weights; bucketed ``output()`` at 3 and 5
+    rows against exact; ``save`` and ``SameDiff.load(device="cuda")``
+    with the same output bits; then the graph deployed as ``sdbert:v1``
+    behind a ``ModelServer`` (warmed over 1..8) answering SD_CLIENTS
+    client processes of SD_REQUESTS placeholder-dict requests, each held
+    against the graph's own ``output()``."""
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    dims = qa_dims()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = SameDiff.create()
+    names = samediff_qa_graph(sd, qa_weights(dims, seed=0), dims, SD_T)
+    outs = list(names[:2])
+    rec = {"phase": "samediff_bert", "B": SD_B, "T": SD_T,
+           "batches": SD_BATCHES, "dtype": "float32",
+           "updater": f"Adam({SD_LR})", "ops": len(sd._ops),
+           "variables": len(sd.trainable_variables()),
+           "params": qa_param_count(sd),
+           "build_s": time.perf_counter() - t0}
+    if rec["params"] != SD_PARAMS:
+        raise RuntimeError(f"the QA graph has {rec['params']} parameters, "
+                           f"want {SD_PARAMS}")
+    batches, host = [], []
+    for i in range(SD_BATCHES):
+        b = qa_batch(dims, SD_B, SD_T, seed=100 + i)
+        host.append(b)
+        batches.append(MultiDataSet(
+            [torch.from_numpy(b[k]).cuda() for k in SD_FEATURES],
+            [torch.from_numpy(b[k]).cuda() for k in SD_LABELS]))
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(learning_rate=SD_LR),
+        data_set_feature_mapping=list(SD_FEATURES),
+        data_set_label_mapping=list(SD_LABELS)))
+    t0 = time.perf_counter()
+    warm = sd.fit(batches, num_epochs=1)
+    torch.cuda.synchronize()
+    rec["warm_epoch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = sd.fit(batches, num_epochs=SD_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = SD_EPOCHS * SD_BATCHES
+    step_ms = wall * 1e3 / steps
+    curves = [warm.loss_curves[0]] + list(timed.loss_curves)
+    profiled = {}
+
+    def profiled_epoch():
+        profiled["h"] = sd.fit(batches, num_epochs=1)
+    by_name = {k: v / SD_BATCHES
+               for k, v in device_ms_by_kernel(profiled_epoch, 1).items()}
+    curves.append(profiled["h"].loss_curves[0])
+    device_ms = sum(by_name.values())
+    groups = {}
+    for k, v in by_name.items():
+        g = kernel_group(k, SD_KERNEL_GROUPS)
+        groups[g] = groups.get(g, 0.0) + v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    first_loss = curves[0].losses[0]
+    epoch_means = [c.mean_loss() for c in curves]
+    rec.update({
+        "losses_first_epoch": curves[0].losses,
+        "epoch_mean_losses": epoch_means, "first_loss": first_loss,
+        "ln_T": float(np.log(SD_T)), "wall_s_timed_epochs": wall,
+        "step_ms": step_ms, "samples_per_s": steps * SD_B / wall,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / step_ms,
+        "ms_per_step_by_class": groups, "kernels_seen": len(by_name),
+        "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    # the trained weights: output() on the card against a CPU copy
+    x2 = {k: host[0][k][:2] for k in SD_FEATURES}
+    cpu = SameDiff.create(device="cpu")
+    cpu_w = {v.name: sd._arrays[v.name].cpu().numpy()
+             for v in sd.trainable_variables()}
+    samediff_qa_graph(cpu, cpu_w, dims, SD_T)
+    ref = cpu.output(x2, outs)
+    got = sd.output(x2, outs)
+    rec["f32_output_vs_cpu_max_abs_err"] = max(
+        float(np.abs(got[o].numpy() - ref[o].numpy()).max()) for o in outs)
+    rec["f32_output_vs_cpu_tol"] = SD_F32_ATOL
+    del cpu, cpu_w, ref
+    # bucketed output() against exact
+    env = environment()
+    bucket_err = {}
+    for n in (3, 5):
+        xn = {k: host[1][k][:n] for k in SD_FEATURES}
+        fn = sd.make_function(outs, tuple(sorted(xn)))
+        _, pad = sd._bucketable_padding(
+            fn, {k: torch.from_numpy(v).cuda() for k, v in xn.items()}, outs)
+        b = sd.output(xn, outs)
+        env.set_inference_bucketing(False)
+        try:
+            e = sd.output(xn, outs)
+        finally:
+            env.set_inference_bucketing(True)
+        bucket_err[n] = {"bucket": pad[1] if pad else None, "max_abs_err": max(
+            float(np.abs(b[o].numpy() - e[o].numpy()).max()) for o in outs)}
+    rec["bucketed_vs_exact"] = bucket_err
+    # save, then load on the card: the same output bits
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = os.path.join(tmp.name, "sdbert.sdz")
+        t0 = time.perf_counter()
+        sd.save(path)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["saved_mib"] = os.path.getsize(path) / 2 ** 20
+        t0 = time.perf_counter()
+        loaded = SameDiff.load(path, device="cuda")
+        rec["load_s"] = time.perf_counter() - t0
+        a, b = sd.output(x2, outs), loaded.output(x2, outs)
+        rec["load_same_bits"] = all(torch.equal(a[o].torch(), b[o].torch())
+                                    for o in outs)
+        del loaded
+    finally:
+        tmp.cleanup()
+    # the predict route
+    pool = qa_batch(dims, SD_POOL_ROWS, SD_T, seed=7)
+    pool = {k: pool[k] for k in SD_FEATURES}
+    refs = sd.output(pool, outs)
+    refs = {o: refs[o].numpy() for o in outs}
+    reg = ModelRegistry(manifest_dir=None)
+    srv = ModelServer(reg, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{srv.start()}"
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        reg.deploy("sdbert", "v1", sd, outputs=outs,
+                   example={k: v[:1] for k, v in pool.items()},
+                   max_batch=SD_PREDICT_MAX_BATCH)
+        rec["deploy_s"] = time.perf_counter() - t0
+        engine = reg.get("sdbert").engine
+        rec["ladder"] = list(engine.ladder)
+        path = os.path.join(tmp.name, "sdbert.npz")
+        np.savez(path, **pool)
+        rng = np.random.RandomState(43)
+        jobs = []
+        for c in range(SD_CLIENTS):
+            reqs = []
+            for j in range(SD_REQUESTS):
+                rows = int(rng.randint(1, SD_MAX_ROWS + 1))
+                reqs.append({"model": "sdbert", "rows": rows, "lo": int(
+                    rng.randint(0, SD_POOL_ROWS - rows + 1))})
+            jobs.append({"kind": "predict", "base": base,
+                         "pools": {"sdbert": path}, "requests": reqs})
+        s0 = engine.stats()
+        c0 = env.compile_count()
+        start = time.time() + 4.0   # every client process is up by then
+        for job in jobs:
+            job["start_at"] = start
+        client_outs = run_client_processes(jobs)
+        census = env.compile_count() - c0
+        s1 = engine.stats()
+        results = [r for o in client_outs for r in o["results"]]
+        requests = [r for job in jobs for r in job["requests"]]
+        err = 0.0
+        for (status, doc, _, _), r in zip(results, requests):
+            if status != 200:
+                raise RuntimeError(f"a predict got {status}: {doc}")
+            for o in outs:
+                a = np.asarray(doc["outputs"][o], np.float32)
+                want = refs[o][r["lo"]:r["lo"] + r["rows"]]
+                if a.shape != want.shape or not np.isfinite(a).all():
+                    raise RuntimeError(f"a predict answered {o} of shape "
+                                       f"{a.shape}, want {want.shape}")
+                err = max(err, float(np.abs(a - want).max()))
+        wall = max(r[3] for r in results) - min(r[2] for r in results)
+        lat = [r[3] - r[2] for r in results]
+        rows = sum(r["rows"] for r in requests)
+        d = s1["dispatches"] - s0["dispatches"]
+        rec["predict"] = {
+            "clients": SD_CLIENTS, "requests": len(results), "rows": rows,
+            "wall_s": wall, "samples_per_s": rows / wall,
+            "client_latency_s_p50": percentile(lat, 0.5),
+            "client_latency_s_p99": percentile(lat, 0.99),
+            "dispatches": d,
+            "rows_per_dispatch": (s1["rows_real"] - s0["rows_real"])
+            / max(d, 1),
+            "census_events_after_warmup": census,
+            "max_abs_err_vs_output": err, "tol": SD_PREDICT_ATOL}
+        reg.drain_all(save_manifests=False)
+    finally:
+        srv.stop()
+        reg.drain_all(timeout_s=60, save_manifests=False)
+        tmp.cleanup()
+    emit(rec)
+    if not (np.isfinite(first_loss)
+            and abs(first_loss - np.log(SD_T)) <= SD_LOSS0_ATOL):
+        raise RuntimeError(f"the first loss {first_loss} is not within "
+                           f"{SD_LOSS0_ATOL} of ln {SD_T}")
+    if not (all(np.isfinite(m) for m in epoch_means)
+            and epoch_means[-1] < epoch_means[0]):
+        raise RuntimeError(f"the mean loss did not fall: {epoch_means}")
+    if rec["f32_output_vs_cpu_max_abs_err"] > SD_F32_ATOL:
+        raise RuntimeError(f"output() on the card differs from the CPU's "
+                           f"by {rec['f32_output_vs_cpu_max_abs_err']}")
+    for n, v in bucket_err.items():
+        if v["bucket"] is None or v["max_abs_err"] > SD_PREDICT_ATOL:
+            raise RuntimeError(f"bucketed output() at {n} rows: {v}")
+    if not rec["load_same_bits"]:
+        raise RuntimeError("the loaded graph's output differs in bits")
+    if census != 0 or err > SD_PREDICT_ATOL:
+        raise RuntimeError(f"the predict route: {rec['predict']}")
+    del sd, batches
+    torch.cuda.empty_cache()
+
+
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
@@ -3105,6 +3509,8 @@ def main():
         raise RuntimeError("kernel dequant_matmul was never launched on "
                            "resnet50_int8's main path")
     del resnet, images
+    torch.cuda.empty_cache()
+    phase_samediff_bert()
     emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:

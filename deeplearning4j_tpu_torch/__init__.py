@@ -78,6 +78,20 @@ Ported so far:
     probs = net.output(x)[0]                    # one entry per output vertex
     registry.deploy("resnet", "v1", quantize_model(net), example=x[:1])
 
+- SameDiff (``autodiff``: the define-then-run graph, its namespaces,
+  control flow, training, listeners and the zip format), over the op
+  registry (``ops``: every op of the JAX package under its name, the
+  families not ported yet listed as pending), served behind the same
+  predict route with a placeholder dict a request::
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    sd = SameDiff.create()                      # on the card
+    x = sd.placeholder("x", (None, 4))
+    y = sd.nn.softmax(x.mmul(sd.var("w", w)))
+    probs = sd.output({"x": xs}, [y])[y.name]
+    registry.deploy("sd", "v1", sd, outputs=[y.name], example={"x": xs})
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 """

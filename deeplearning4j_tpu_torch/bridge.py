@@ -89,3 +89,21 @@ def load_graph(net, params, updater_state=None, iteration: int = 0):
     weights HWIO as on both sides); ``updater_state`` and ``iteration``
     as for :func:`load_multilayer`."""
     return load_multilayer(net, params, updater_state, iteration)
+
+
+def load_samediff(sd, arrays, updater_state=None, iteration: int = 0):
+    """Carry a JAX ``SameDiff`` graph's state into ``sd``, a port graph
+    recorded the same way, and return ``sd``.
+
+    ``arrays`` is the JAX graph's ``_arrays`` as numpy (variable name ->
+    array; bf16 bit-exact through its 16-bit view); ``updater_state`` its
+    ``_updater_state`` likewise (the updater's layout, ``{"u": {name:
+    array}, "m": ...}`` for Adam); ``iteration`` is kept on the graph as
+    ``_iteration`` (each ``fit`` call counts its own steps from 0 on both
+    sides)."""
+    for name, a in arrays.items():
+        sd._arrays[name] = tensor_from_numpy(a, sd.device)
+    if updater_state is not None:
+        sd._updater_state = params_from_numpy(updater_state, sd.device)
+    sd._iteration = int(iteration)
+    return sd

@@ -4,9 +4,10 @@ Counterpart of the part of ``deeplearning4j_tpu/ops/conv_ops.py`` the
 ported layers call: ``conv2d`` and the 2-D max / average / p-norm pools.
 The JAX package lowers them to ``lax.conv_general_dilated`` and
 ``lax.reduce_window`` (XLA, no Pallas kernel); here they are
-``torch.nn.functional`` calls (cuDNN on the card). The rest of the file
-(1-D/3-D, transposed, depthwise, separable, dilation-2D, upsampling) is
-``ROADMAP.md`` queue 1 item 9.
+``torch.nn.functional`` calls (cuDNN on the card), registered under the
+JAX package's names. The rest of the file (1-D/3-D, transposed,
+depthwise, separable, dilation-2D, upsampling) is listed as pending
+(``ops/pending.py``) and waits for ``ROADMAP.md`` queue 1 item 9.
 
 Conventions kept from the reference: ``data_format`` "NCHW" (default) or
 "NHWC"; weights HWIO ``[kH, kW, inC, outC]``, permuted to torch's OIHW at
@@ -22,6 +23,8 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from .registry import op
 
 IntOrPair = Union[int, Sequence[int]]
 
@@ -75,6 +78,7 @@ def _from_nchw(x, data_format):
     return x if data_format == "NCHW" else x.permute(0, 2, 3, 1)
 
 
+@op("conv2d", "conv")
 def conv2d(x, weights, bias=None, strides=(1, 1), padding="SAME",
            dilation=(1, 1), data_format="NCHW", groups=1):
     """2-D convolution; ``weights`` HWIO ``[kh, kw, inC/groups, outC]``."""
@@ -101,6 +105,7 @@ def _pool_input(x, kernel, strides, padding, data_format, value):
     return xn, k, s
 
 
+@op("maxpool2d", "pooling")
 def maxpool2d(x, kernel=(2, 2), strides=None, padding="VALID",
               data_format="NCHW"):
     strides = strides if strides is not None else kernel
@@ -113,6 +118,7 @@ def _window_sum(xn, k, s):
     return F.avg_pool2d(xn, k, s) * (k[0] * k[1])
 
 
+@op("avgpool2d", "pooling")
 def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID",
               data_format="NCHW", include_pad=True):
     """Average pool; with ``include_pad`` False the divisor counts only
@@ -128,6 +134,7 @@ def avgpool2d(x, kernel=(2, 2), strides=None, padding="VALID",
     return _from_nchw(out, data_format)
 
 
+@op("pnormpool2d", "pooling")
 def pnormpool2d(x, kernel=(2, 2), strides=None, padding="VALID", p=2,
                 data_format="NCHW"):
     """``(sum |x|^p) ** (1/p)`` over each window."""

@@ -1,0 +1,82 @@
+"""The op families not ported yet, by the JAX package's module.
+
+The port's own copy of those op names (aliases included), so that the
+registry can tell an op still to come from a name nobody registers. Each
+family waits for ``ROADMAP.md`` queue 1 item 9, except ``list_ops``,
+which only the TF importer (item 11) uses. The ``_bp`` ops derived from a
+pending forward are pending with it (``autobp.py``).
+"""
+from __future__ import annotations
+
+PENDING = {
+    "bitwise_ops": (
+        "bits_hamming_distance", "bitwise_and", "bitwise_or", "bitwise_xor",
+        "cyclic_rshift_bits", "cyclic_shift_bits", "rshift_bits",
+        "shift_bits", "toggle_bits"),
+    "compression": (
+        "decode_bitmap", "decode_threshold", "encode_bitmap",
+        "encode_threshold"),
+    "conv_ops": (
+        "avgpool3d", "avgpool3dnew", "col2im", "conv1d", "conv3d",
+        "conv3dnew", "deconv2d", "deconv3d", "depthwise_conv2d",
+        "dilation2d", "extract_image_patches", "im2col",
+        "max_pool_with_argmax", "maxpool3d", "maxpool3dnew",
+        "pointwise_conv2d", "sconv2d", "separable_conv2d", "upsampling2d",
+        "upsampling3d"),
+    "image_ops": (
+        "adjust_contrast", "adjust_contrast_v2", "adjust_hue",
+        "adjust_saturation", "crop_and_resize", "draw_bounding_boxes",
+        "hsv_to_rgb", "image_resize", "non_max_suppression",
+        "non_max_suppression_overlaps", "non_max_suppression_v3",
+        "resize_area", "resize_bicubic", "resize_bilinear", "resize_images",
+        "resize_nearest_neighbor", "rgb_to_grs", "rgb_to_hsv", "rgb_to_yiq",
+        "rgb_to_yuv", "yiq_to_rgb", "yuv_to_rgb"),
+    # the decompositions; the "blas" half (matmul, batched_gemm,
+    # tensormmul, einsum) is ported in linalg_ops.py
+    "linalg_ops": (
+        "cholesky", "cross_batched", "eig", "knn_mindistance",
+        "log_matrix_determinant", "logdet", "lstsq", "lu",
+        "matrix_determinant", "matrix_inverse", "qr", "self_adjoint_eig",
+        "solve", "solve_ls", "sqrtm", "svd", "triangular_solve"),
+    "list_ops": (
+        "clone_list", "create_list", "delete_list", "gather_list",
+        "pick_list", "read_list", "scatter_list", "size_list", "split_list",
+        "stack_list", "unstack_list", "write_list"),
+    "nlp_ops": ("cbow", "skipgram"),
+    "parity_extra": (
+        "Assert", "barnes_edge_forces", "barnes_gains", "barnes_symmetrized",
+        "broadcastgradientargs", "cell_contains", "compare_and_bitpack",
+        "confusion_matrix", "conv2d_input_bp", "create_view", "ctc_beam",
+        "deconv2d_tf", "fake_quant_with_min_max_vars",
+        "fake_quant_with_min_max_vars_per_channel", "min_max_datatype",
+        "norm", "print_variable"),
+    "recurrent": (
+        "dynamic_bidirectional_rnn", "dynamic_rnn", "gru", "gruCell",
+        "gru_block_cell", "gru_onnx", "lstm", "lstmBlock", "lstmBlockCell",
+        "lstmCell", "lstmLayer", "lstmLayerCell", "lstmLayer_bidirectional",
+        "sru", "sruCell", "sru_bi", "static_bidirectional_rnn",
+        "static_rnn"),
+    "segment_ops": (
+        "segment_max", "segment_mean", "segment_min", "segment_prod",
+        "segment_sum", "unsorted_segment_max", "unsorted_segment_mean",
+        "unsorted_segment_min", "unsorted_segment_prod",
+        "unsorted_segment_sqrt_n", "unsorted_segment_sum"),
+    "string_ops": (
+        "compat_sparse_to_dense", "compat_string_split", "hashcode",
+        "split_string"),
+    # descriptors.py registers no op of its own (op-descriptor metadata)
+    "descriptors": (),
+}
+
+#: the ROADMAP.md queue 1 item each family waits for (9 unless listed)
+_ITEMS = {"list_ops": 11}
+
+
+def pending_item(family: str) -> int:
+    return _ITEMS.get(family, 9)
+
+
+def register_pending(registry):
+    for family, names in PENDING.items():
+        for name in names:
+            registry.add_pending(name, family)

@@ -11,11 +11,21 @@ from __future__ import annotations
 
 import torch
 
+from .registry import op
 
+
+@op("sgd_updater", "updater", aliases=("apply_sgd",))
 def sgd_updater(grad, lr=0.1):
     return grad * lr
 
 
+@op("momentum_updater", "updater")
+def momentum_updater(grad, v, lr=0.1, momentum=0.9):
+    v = momentum * v + grad
+    return lr * v, v
+
+
+@op("nesterovs_updater", "updater")
 def nesterovs_updater(grad, v, lr=0.1, momentum=0.9):
     """Nesterov momentum, reference NesterovsUpdater semantics:
     v' = mu*v - lr*g; param step = -mu*v + (1+mu)*v'. With p_new = p -
@@ -26,6 +36,7 @@ def nesterovs_updater(grad, v, lr=0.1, momentum=0.9):
     return update, v_new
 
 
+@op("adam_updater", "updater")
 def adam_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9, beta2=0.999,
                  eps=1e-8, iteration=0):
     """state_u = 2nd moment (v), state_m = 1st moment (m) — the
@@ -38,6 +49,7 @@ def adam_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9, beta2=0.999,
     return update, u, m
 
 
+@op("ada_max_updater", "updater")
 def ada_max_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9, beta2=0.999,
                     eps=1e-8, iteration=0):
     t = iteration + 1
@@ -47,6 +59,7 @@ def ada_max_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9, beta2=0.999,
     return update, u, m
 
 
+@op("adabelief_updater", "updater")
 def adabelief_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9,
                       beta2=0.999, eps=1e-14, iteration=0):
     t = iteration + 1
@@ -57,6 +70,7 @@ def adabelief_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9,
     return update, u, m
 
 
+@op("nadam_updater", "updater")
 def nadam_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9, beta2=0.999,
                   eps=1e-8, iteration=0):
     t = iteration + 1
@@ -69,6 +83,7 @@ def nadam_updater(grad, state_u, state_m, lr=1e-3, beta1=0.9, beta2=0.999,
     return update, u, m
 
 
+@op("ams_grad_updater", "updater")
 def ams_grad_updater(grad, state_v, state_m, state_h, lr=1e-3, beta1=0.9,
                      beta2=0.999, eps=1e-8, iteration=0):
     t = iteration + 1
@@ -80,12 +95,14 @@ def ams_grad_updater(grad, state_v, state_m, state_h, lr=1e-3, beta1=0.9,
     return update, v, m, h
 
 
+@op("ada_grad_updater", "updater")
 def ada_grad_updater(grad, state_h, lr=1e-1, eps=1e-6):
     h = state_h + torch.square(grad)
     update = lr * grad / (torch.sqrt(h) + eps)
     return update, h
 
 
+@op("ada_delta_updater", "updater")
 def ada_delta_updater(grad, state_msg, state_msdx, rho=0.95, eps=1e-6):
     msg = rho * state_msg + (1 - rho) * torch.square(grad)
     update = grad * torch.sqrt(state_msdx + eps) / torch.sqrt(msg + eps)
@@ -93,6 +110,7 @@ def ada_delta_updater(grad, state_msg, state_msdx, rho=0.95, eps=1e-6):
     return update, msg, msdx
 
 
+@op("rms_prop_updater", "updater")
 def rms_prop_updater(grad, state_g, lr=1e-1, decay=0.95, eps=1e-8):
     g = decay * state_g + (1 - decay) * torch.square(grad)
     update = lr * grad / (torch.sqrt(g) + eps)

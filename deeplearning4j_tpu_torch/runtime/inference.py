@@ -26,9 +26,9 @@ environment's census, the shapes CUDA-graph capture will replay
 ``MultiLayerNetwork.output()`` and ``ComputationGraph.output()`` paths
 through ``maybe_pad_tree``.
 
-A ``MultiLayerNetwork`` or a ``ComputationGraph`` is served; a
-``SameDiff`` model raises ``NotImplementedError`` naming queue 1 item 9,
-and ``mesh=``/``param_spec=`` raise naming item 10, before anything is
+A ``MultiLayerNetwork``, a ``ComputationGraph`` or a ``SameDiff`` graph
+(with ``outputs=[...]``, a placeholder dict a request) is served;
+``mesh=``/``param_spec=`` raise naming item 10, before anything is
 allocated.
 """
 from __future__ import annotations
@@ -291,12 +291,54 @@ class _GraphAdapter:
         return [NDArray(o) for o in outputs]
 
 
+class _SameDiffAdapter:
+    """SameDiff: a placeholder dict -> {name: NDArray} for ``outputs``.
+    The graph's own callable (``make_function``) moves the placeholders
+    to its device and runs under ``no_grad`` / ``full_f32()``."""
+
+    def __init__(self, model, outputs: Sequence[Any]):
+        if not outputs:
+            raise ValueError("wrapping a SameDiff requires outputs=[...] "
+                             "(the variable names to serve)")
+        self.model = model
+        self.out_names = [o.name if hasattr(o, "name") else o
+                          for o in outputs]
+        self.ph_names: Optional[List[str]] = None
+
+    def inputs_of(self, request) -> List[torch.Tensor]:
+        if not isinstance(request, dict):
+            raise TypeError("SameDiff requests must be placeholder dicts")
+        if self.ph_names is None:
+            self.ph_names = sorted(request)
+        if sorted(request) != self.ph_names:
+            raise ValueError(f"placeholder keys {sorted(request)} != "
+                             f"{self.ph_names} of the first request")
+        return [_unwrap(request[n]) for n in self.ph_names]
+
+    def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        sd = self.model
+        ph = {n: x for n, x in zip(self.ph_names, inputs)}
+        if any(node.needs_key for node in sd._ops.values()):
+            fn = sd.make_function(self.out_names, tuple(self.ph_names),
+                                  with_rng=True)
+            return list(fn(sd._arrays, ph, sd._rng_call_key()))
+        fn = sd.make_function(self.out_names, tuple(self.ph_names))
+        return list(fn(sd._arrays, ph))
+
+    def package(self, outputs: List[torch.Tensor]):
+        from ..ndarray.ndarray import NDArray
+        return {n: NDArray(o) for n, o in zip(self.out_names, outputs)}
+
+    def shard(self, mesh, spec):
+        raise NotImplementedError(
+            "sharded SameDiff serving is not ported yet; it waits for "
+            "ROADMAP.md queue 1 item 10")
+
+
 def _make_adapter(model, outputs):
     # duck-typed, as the JAX package's, so runtime never imports nn/
     if hasattr(model, "make_function") and hasattr(model, "_vars"):
-        raise NotImplementedError(
-            "serving a SameDiff graph is not ported yet; it waits for "
-            "ROADMAP.md queue 1 item 9")
+        return _SameDiffAdapter(model, outputs or [])
     if hasattr(model, "conf") and hasattr(getattr(model.conf, "outputs", None),
                                           "__iter__") and hasattr(
                                               model, "_order"):
@@ -376,7 +418,7 @@ class _Request:
 
 
 class InferenceEngine:
-    """Serving front-end over a layer-API network.
+    """Serving front-end over a layer-API network or a SameDiff graph.
 
     - ``infer(request)``: synchronous bucketed inference (pads to the
       bucket, slices padded rows off; batches above ``max_batch`` are

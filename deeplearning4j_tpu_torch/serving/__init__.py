@@ -29,7 +29,10 @@ SLOs gating ``/readyz`` (``slo``), the stdlib HTTP server
     registry.deploy("resnet", "v1", graph, example=x)  # a ComputationGraph
     # answers {"outputs": [[...]]}, one list per output vertex
 
-A ``SameDiff`` model waits for ``ROADMAP.md`` queue 1 item 9.
+    registry.deploy("qa", "v1", sd, outputs=["start_logits"],
+                    example={"input_ids": ids[:1], ...})   # a SameDiff
+    # POST /v1/models/qa/predict {"inputs": {"input_ids": [[...]], ...}}
+    # answers {"outputs": {"start_logits": [[...]]}}
 
 Env knobs (the JAX package's names): ``DL4J_TPU_SERVING_{MAX_CONCURRENT,
 QUEUE_DEPTH,HIGH_WATER,TIMEOUT_S,DRAIN_TIMEOUT_S,RETAIN,MANIFEST_DIR}``,

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``serving/registry.py``: each deployed
 version runs behind the port's ``InferenceEngine`` (a layer-API network:
-a ``MultiLayerNetwork`` or a ``ComputationGraph``) or ``DecodeEngine`` (a
-generative model).
+a ``MultiLayerNetwork`` or a ``ComputationGraph``; or a ``SameDiff``
+graph deployed with ``outputs=[...]``) or ``DecodeEngine`` (a generative
+model).
 
 1. ``deploy(name, version, model)`` builds the version's engine and warms
    it BEFORE any traffic sees it: an ``InferenceEngine`` runs its bucket
@@ -30,9 +31,8 @@ Each dispatch is accounted against the version's circuit breaker
 auto-rollback.
 
 What waits for other slices, and is refused before anything is allocated
-or registered: a ``SameDiff`` model (its adapter waits for ``ROADMAP.md``
-queue 1 item 9) and ``mesh=`` / ``param_spec=`` (sharded deploys are item
-10).
+or registered: ``mesh=`` / ``param_spec=`` (sharded deploys are
+``ROADMAP.md`` queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -241,9 +241,10 @@ class ModelRegistry:
         live. ``quant_max_divergence``/``quant_min_top1`` override the env
         budgets for this deploy only.
 
-        A ``SameDiff`` model is refused naming ``ROADMAP.md`` queue 1
-        item 9, ``mesh``/``param_spec`` naming
-        item 10."""
+        A ``SameDiff`` graph deploys behind an ``InferenceEngine`` with
+        ``outputs=`` (the variable names to serve); its requests are
+        placeholder dicts. ``mesh``/``param_spec`` are refused naming
+        ``ROADMAP.md`` queue 1 item 10."""
         name, version = str(name), str(version)
         with self._lock:
             if self._draining:

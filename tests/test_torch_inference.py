@@ -456,7 +456,9 @@ def test_stats_keys_match_jax(nets):
 
 def test_unservable_models_refused(graphs):
     """A ComputationGraph is served (the graph cases below); a SameDiff
-    model waits for its item, and anything else is no model."""
+    graph is served with ``outputs=`` (``tests/test_torch_samediff_bert.py``)
+    and refused without, as the JAX engine refuses it; anything else is
+    no model."""
     class SameDiffish:
         _vars = {}
 
@@ -464,7 +466,9 @@ def test_unservable_models_refused(graphs):
             pass
     assert isinstance(tinf._make_adapter(graphs[1], None),
                       tinf._GraphAdapter)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    assert isinstance(tinf._make_adapter(SameDiffish(), ["y"]),
+                      tinf._SameDiffAdapter)
+    with pytest.raises(ValueError, match="outputs"):
         tinf.InferenceEngine(SameDiffish())
     with pytest.raises(TypeError, match="cannot serve"):
         tinf.InferenceEngine(torch.nn.Linear(4, 2))

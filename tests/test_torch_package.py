@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import bridge
+from deeplearning4j_tpu_torch.autodiff import SameDiff
+from deeplearning4j_tpu_torch.autodiff.validation import TestCase
 from deeplearning4j_tpu_torch.common.metrics import registry
 from deeplearning4j_tpu_torch.kernels import (attention_dispatch,
                                               dispatch_snapshot,
@@ -66,6 +68,10 @@ ENTRY_POINTS = [
     MultiLayerNetwork.__init__,
     ZooModel.init_model,
     AsyncDataSetIterator.__init__,
+    SameDiff.__init__,
+    SameDiff.create,
+    SameDiff.load,
+    TestCase.__init__,
 ]
 
 

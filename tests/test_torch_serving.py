@@ -375,16 +375,18 @@ class TestPortOnlyDeploys:
 
     def test_non_generative_model_refused_naming_its_item(self):
         """A layer-API network, sequential or graph, deploys
-        (``tests/test_torch_inference.py``); a SameDiff-shaped model waits
-        for its item, and anything else is no model the registry can
-        serve."""
+        (``tests/test_torch_inference.py``), and so does a SameDiff graph
+        with ``outputs=`` (``tests/test_torch_samediff_bert.py``); one
+        without ``outputs=`` is refused before anything is registered, as
+        the JAX registry refuses it, and anything else is no model the
+        registry can serve."""
         class SameDiffish:
             _vars = {}
 
             def make_function(self):
                 pass
         reg = self._reg()
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        with pytest.raises(ValueError, match="outputs"):
             reg.deploy("sd", "v1", SameDiffish())
         with pytest.raises(TypeError, match="cannot serve"):
             reg.deploy("mlp", "v1", torch.nn.Linear(4, 2))
