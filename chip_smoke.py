@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
 (the CausalLM, BERT-base, the layer API's LeNet, quantized MLP and
-ResNet-50, and a SameDiff BERT-base QA graph, directly, behind the
-predict route and behind the fleet front door).
+ResNet-50, a SameDiff BERT-base QA graph, the Seq2Seq LSTM,
+TextGenerationLSTM and Word2Vec, directly, behind the predict route and
+behind the fleet front door).
 
     python3 chip_smoke.py
 
@@ -188,6 +189,41 @@ exits non-zero without printing a result:
               p99 and the census after warmup (must be 0). The path runs
               none of the five kernels (the JAX package's SameDiff
               attention is plain XLA).
+   seq2seq  — BASELINE config 4's Seq2Seq LSTM at bench.py's widths
+              (``models.seq2seq``: vocab 8000, embed 256, hidden 512,
+              f32 without TF32, B=128, S=32, ids from ``RandomState(0)``,
+              Adam 1e-3): one warm step, 30 timed (host clock:
+              samples/s, ms a step), 3 under ``torch.profiler`` (device
+              ms a step by kernel class, launches a step, busy share),
+              the phase's own peak memory; the first loss (about ln
+              8000) against a CPU copy of the same weights
+              (``S2S_LOSS_ATOL``), the 30th below it, the census after
+              warmup (must be 0), and
+              ``greedy_decode(max_len=32)`` on 8 rows token-identical to
+              ``greedy_decode_recompute`` on the card.
+   text_lstm — ``zoo.TextGenerationLSTM`` (2 x LSTM-256 over 77
+              characters x 40 steps) through ``MultiLayerNetwork.fit`` on
+              16 device-staged batches of 32 random one-hot sequences, 2
+              epochs timed, 4 steps profiled; bucketed ``output()`` at 3
+              rows against exact, and a ``MaskLayer``-fronted twin over the
+              same weights with half of 8 sequences right-padded: its
+              ``output()`` and masked ``score()`` against a CPU copy
+              (``TEXT_ATOL``), each padded row held at its last valid
+              step.
+   word2vec — (a) bench.py's ``skipgram`` op (vocab 30000, dim 128,
+              B=1024, K=5): one round against the op on a CPU copy
+              (``W2V_ROUND_ATOL``, the inputs left unchanged), 200
+              chained rounds (pairs/s, host and device us a round,
+              launches) beside the round's byte bound; (b)
+              ``Word2Vec.fit`` for one epoch of a seeded Zipf stream of
+              500k tokens over 30000 words (layer 128, window 5, K=5,
+              batch 2048): tokens/s, the wall split into set-up, the
+              host's pair and negative generation and the device steps,
+              device ms a batch; then the JAX package's planted
+              two-topic corpus, skip-gram and CBOW, must cluster. The
+              recurrent and NLP phases run none of the five kernels (no
+              recurrent, NLP or seq2seq module of the JAX package
+              reaches a ``pallas_call``).
    host_profile — ``torch.profiler`` (CPU activities, every thread)
               and a 1 kHz sampling of every thread's innermost Python
               frame over a second run of serve_http's 16 requests and a
@@ -419,6 +455,34 @@ SD_POOL_ROWS = 64
 # ran them padded into another bucket, so cuBLAS may pick other kernels
 # (f32 sums in another order)
 SD_PREDICT_ATOL = 1e-4
+# BASELINE config 4 (deeplearning4j-nlp Seq2Seq LSTM / Word2Vec) at
+# bench.py's widths: bench_seq2seq (vocab 8000, embed 256, hidden 512, f32,
+# B=128, S=32, Adam 1e-3) and bench_word2vec (the skipgram op at vocab
+# 30000, dim 128, B=1024, K=5, 200 chained rounds)
+S2S_VOCAB, S2S_EMBED, S2S_HIDDEN, S2S_B, S2S_S, S2S_LR = (8000, 256, 512,
+                                                          128, 32, 1e-3)
+S2S_STEPS, S2S_PROFILED, S2S_DECODE_ROWS, S2S_DECODE_LEN = 30, 3, 8, 32
+# the first loss on the card against a CPU copy of the same weights: a
+# mean of 4096 f32 cross entropies (products summed in another order)
+S2S_LOSS_ATOL = 1e-4
+# TextGenerationLSTM (2 x LSTM-256 over 77 characters x 40 steps): 16
+# device-staged batches of 32 random one-hot sequences, 2 epochs timed
+TEXT_B, TEXT_BATCHES, TEXT_EPOCHS = 32, 16, 2
+# steps under the profiler (~4,100 launches each)
+TEXT_PROFILED = 4
+# output() probabilities (~1/77 each): bucketed against exact, and the
+# MaskLayer twin on the card against its CPU copy, f32 without TF32 over
+# 40 recurrent steps
+TEXT_ATOL = 1e-5
+W2V_VOCAB, W2V_DIM, W2V_B, W2V_K, W2V_ROUNDS = 30000, 128, 1024, 5, 200
+# one skipgram round on the card against the op on a CPU copy: tables of
+# ~0.1 moved by lr x sums of up to 6 products
+W2V_ROUND_ATOL = 1e-5
+# Word2Vec.fit: one epoch of a seeded Zipf (s = 1) stream of 500k tokens
+# over 30000 words, in sentences of 1000
+W2V_TOKENS, W2V_SENTENCE, W2V_LAYER, W2V_WINDOW, W2V_BATCH = (500_000,
+                                                              1000, 128,
+                                                              5, 2048)
 
 
 def qa_dims(hidden=768, layers=12, heads=12, ffn=3072, vocab=30522,
@@ -555,13 +619,14 @@ PROFILE_TRIES = 5
 PROFILE_MARGIN_S = 0.002
 
 
-def device_ms_by_kernel(fn, iters, flush=None, need=True):
+def device_ms_by_kernel(fn, iters, flush=None, need=True, counts=None):
     """{kernel name: ms per ``fn()`` call} of the card's own work
     (kernels, copies, fills) that ``torch.profiler`` records over
     ``iters`` calls, each after ``flush()`` where one is given. A window
     that records no device work is recorded in ``PROFILER_EMPTY`` and
     taken again, up to ``PROFILE_TRIES`` windows in all; then it raises,
-    or returns None where ``need`` is false."""
+    or returns None where ``need`` is false. ``counts``, a dict, gets the
+    window's device records and kernel launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(PROFILE_TRIES):
@@ -585,6 +650,9 @@ def device_ms_by_kernel(fn, iters, flush=None, need=True):
             elif "LaunchKernel" in e.name:
                 n_launch += 1
         if sum(by_name.values()) > 0:
+            if counts is not None:
+                counts.update(device_records=n_dev / iters,
+                              launches=n_launch / iters)
             return by_name
         PROFILER_EMPTY.append({
             "fn": fn.__qualname__, "attempt": attempt,
@@ -3454,6 +3522,404 @@ def phase_samediff_bert():
     torch.cuda.empty_cache()
 
 
+# the recurrent phases' kernel classes: cuBLAS / CUTLASS GEMMs (the f32
+# kernels carry sm80 / sm90 / xmma / cutlass names), PyTorch's elementwise
+# kernels, and everything else (reductions, gathers, scatters, copies)
+RNN_KERNEL_GROUPS = (
+    ("gemm", ("gemm", "cublas", "cutlass", "xmma", "sm80", "sm90")),
+    ("elementwise", ("elementwise",)))
+
+
+def rnn_profile(fn, per_call):
+    """Device ms of one unit of ``fn()``'s work (``fn`` runs ``per_call``
+    units: steps, batches) by kernel class, the top kernels and the
+    launches a unit, from one profiler window."""
+    counts = {}
+    by_name = {k: v / per_call
+               for k, v in device_ms_by_kernel(fn, 1, counts=counts).items()}
+    groups = {}
+    for k, v in by_name.items():
+        g = kernel_group(k, RNN_KERNEL_GROUPS)
+        groups[g] = groups.get(g, 0.0) + v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": sum(by_name.values()), "ms_by_class": groups,
+            "top_kernels_ms": [[k[:80], v] for k, v in top],
+            "launches": counts["launches"] / per_call,
+            "device_records": counts["device_records"] / per_call}
+
+
+def phase_seq2seq():
+    """BASELINE config 4's Seq2Seq LSTM at bench.py's widths (vocab 8000,
+    embed 256, hidden 512, f32 without TF32, B=128, S=32, ids from
+    ``RandomState(0)``, Adam 1e-3): one warm step, S2S_STEPS timed (host
+    clock), S2S_PROFILED under the profiler (device ms a step by kernel
+    class, launches, busy share), the phase's own peak memory. The
+    first loss against a CPU copy of the same weights (near ln 8000),
+    the last timed loss below it, the census after warmup 0, and
+    ``greedy_decode`` on S2S_DECODE_ROWS rows token-identical to
+    ``greedy_decode_recompute`` on the card."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.learning import tree_map
+    from deeplearning4j_tpu_torch.models import seq2seq
+    from deeplearning4j_tpu_torch.nn.fit_fastpath import full_f32
+    t_phase = time.perf_counter()
+    c = seq2seq.Seq2SeqConfig(vocab_size=S2S_VOCAB, embed_dim=S2S_EMBED,
+                              hidden=S2S_HIDDEN)
+    B, S = S2S_B, S2S_S
+    rng = np.random.RandomState(0)
+    src = rng.randint(2, c.vocab_size, (B, S)).astype(np.int32)
+    tgt = rng.randint(2, c.vocab_size, (B, S)).astype(np.int32)
+    host = {"src": src, "tgt_out": tgt, "tgt_in": np.concatenate(
+        [np.full((B, 1), c.bos_token, np.int32), tgt[:, :-1]], axis=1)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated, taken off the peak
+    base = torch.cuda.memory_allocated()
+    params = seq2seq.init_params(c, seed=0, device="cuda")
+    # a copy (the train step updates params in place)
+    cpu_params = tree_map(lambda t: t.to("cpu", copy=True), params)
+    opt = seq2seq.init_opt_state(params)
+    step = seq2seq.make_train_step(c, learning_rate=S2S_LR)
+    env = environment()
+    H, E, V = c.hidden, c.embed_dim, c.vocab_size
+    flops = 3 * (2 * 2 * S * B * (E + H) * 4 * H + 2 * B * S * H * V)
+    with full_f32():
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, 0)
+        first = float(loss)
+        warm_s = time.perf_counter() - t0
+        c0 = env.compile_count()
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(1, S2S_STEPS + 1):
+            params, opt, loss = step(params, opt, batch, i)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        census = env.compile_count() - c0
+        losses = [float(v) for v in torch.stack(losses).cpu()]
+        it = [S2S_STEPS]
+
+        def steps():
+            for _ in range(S2S_PROFILED):
+                it[0] += 1
+                step(params, opt, batch, it[0])
+        prof = rnn_profile(steps, S2S_PROFILED)
+        rows = batch["src"][:S2S_DECODE_ROWS]
+        t0 = time.perf_counter()
+        cached = seq2seq.greedy_decode(params, rows, S2S_DECODE_LEN, c)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        naive = seq2seq.greedy_decode_recompute(params, rows,
+                                                S2S_DECODE_LEN, c)
+        recompute_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ref = float(seq2seq.loss_fn(
+            cpu_params, {k: torch.from_numpy(v) for k, v in host.items()},
+            c))
+    step_ms = wall * 1e3 / S2S_STEPS
+    same = torch.equal(cached.cpu(), naive.cpu())
+    rec = {"phase": "seq2seq", "vocab": V, "embed": E, "hidden": H, "B": B,
+           "S": S, "dtype": "float32", "lr": S2S_LR,
+           "params": sum(int(p.numel()) for p in
+                         seq2seq._optim.tree_leaves(params)),
+           "flops_per_step": flops, "bound_ms_f32": flops / F32_FLOPS_PER_S
+           * 1e3, "warm_step_s": warm_s, "steps_timed": S2S_STEPS,
+           "wall_s": wall, "step_ms": step_ms,
+           "samples_per_s": S2S_STEPS * B / wall,
+           "device_ms_per_step": prof["device_ms"],
+           "device_busy_share": prof["device_ms"] / step_ms,
+           "ms_per_step_by_class": prof["ms_by_class"],
+           "launches_per_step": prof["launches"],
+           "device_records_per_step": prof["device_records"],
+           "top_kernels_ms_per_step": prof["top_kernels_ms"],
+           "max_memory_gib": (torch.cuda.max_memory_allocated() - base)
+           / 2 ** 30,
+           "first_loss": first, "ln_vocab": float(np.log(V)),
+           "first_loss_cpu": ref, "first_loss_abs_err": abs(first - ref),
+           "first_loss_tol": S2S_LOSS_ATOL, "loss_last": losses[-1],
+           "losses": losses, "census_after_warmup": census,
+           "decode_rows": S2S_DECODE_ROWS, "decode_len": S2S_DECODE_LEN,
+           "decode_token_identical": same, "decode_s": decode_s,
+           "decode_recompute_s": recompute_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not (np.isfinite(first) and abs(first - ref) <= S2S_LOSS_ATOL):
+        raise RuntimeError(f"the first loss {first} differs from the CPU "
+                           f"copy's {ref} by more than {S2S_LOSS_ATOL}")
+    if not (np.isfinite(losses[-1]) and losses[-1] < first):
+        raise RuntimeError(f"the loss did not fall: {first} -> {losses}")
+    if census != 0:
+        raise RuntimeError(f"{census} census events after warmup")
+    if not same or tuple(cached.shape) != (S2S_DECODE_ROWS, S2S_DECODE_LEN):
+        raise RuntimeError("the cached greedy decode is not token-identical"
+                           " to the recompute loop")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def phase_text_lstm():
+    """``zoo.TextGenerationLSTM`` through ``MultiLayerNetwork.fit`` on
+    TEXT_BATCHES device-staged batches of TEXT_B random one-hot [77, 40]
+    sequences: a warm step, TEXT_EPOCHS epochs timed (host clock),
+    TEXT_PROFILED steps under the profiler (device ms a step by class,
+    launches, busy share).
+    Bucketed ``output()`` at 3 rows against exact (TEXT_ATOL); then a
+    twin with a ``MaskLayer`` in front over the same weights, half of 8
+    sequences right-padded: its ``output()`` and masked ``score()`` on the
+    card against a CPU copy (TEXT_ATOL), and each padded row's output
+    held at its last valid step."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning import tree_map
+    from deeplearning4j_tpu_torch.nn.conf.layers import MaskLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    t_phase = time.perf_counter()
+    zoo = TextGenerationLSTM()
+    feat, T = zoo.input_shape
+    rng = np.random.RandomState(0)
+
+    def onehot(n):
+        a = np.zeros((n, feat, T), np.float32)
+        a[np.arange(n)[:, None], rng.randint(0, feat, (n, T)),
+          np.arange(T)[None, :]] = 1.0
+        return a
+    batches = [DataSet(torch.from_numpy(onehot(TEXT_B)).cuda(),
+                       torch.from_numpy(onehot(TEXT_B)).cuda())
+               for _ in range(TEXT_BATCHES)]
+    net = zoo.init_model(device="cuda")
+    t0 = time.perf_counter()
+    net.fit(batches[:1], num_epochs=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    first = net.score_value
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=TEXT_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = TEXT_EPOCHS * TEXT_BATCHES
+    step_ms = wall * 1e3 / steps
+    prof = rnn_profile(lambda: net.fit(batches[:TEXT_PROFILED],
+                                       num_epochs=1), TEXT_PROFILED)
+    last = net.score_value
+    # bucketed output() against exact
+    env = environment()
+    x3 = batches[0].features.torch()[:3]
+    bucketed = net.output(x3).numpy()
+    env.set_inference_bucketing(False)
+    try:
+        exact = net.output(x3).numpy()
+    finally:
+        env.set_inference_bucketing(True)
+    bucket_err = float(np.abs(bucketed - exact).max())
+    # the MaskLayer twin over the same weights, on the card and the CPU
+    conf = zoo.build_conf()
+    if conf.preprocessors:
+        raise RuntimeError("TextGenerationLSTM grew preprocessors: the twin"
+                           " shifts layer indices")
+    conf.layers = [MaskLayer()] + conf.layers
+    params = [{}] + net._params
+    twin = MultiLayerNetwork(conf, device="cuda").init(
+        params=tree_map(torch.clone, params))
+    cpu = MultiLayerNetwork(conf, device="cpu").init(
+        params=tree_map(lambda t: t.cpu(), params))
+    x = batches[1].features.torch()[:8].clone()
+    y = batches[1].labels.torch()[:8]
+    lengths = [T, 10, T, 20, T, 30, T, 35]
+    for i, n in enumerate(lengths):
+        x[i, :, n:] = 0.0
+    got, ref = twin.output(x).numpy(), cpu.output(x.cpu()).numpy()
+    twin_err = float(np.abs(got - ref).max())
+    score_card = twin.score(DataSet(x, y))
+    score_cpu = cpu.score(DataSet(x.cpu(), y.cpu()))
+    held = all(np.array_equal(got[i, :, n:],
+                              np.repeat(got[i, :, n - 1:n], T - n, axis=1))
+               for i, n in enumerate(lengths) if n < T)
+    rec = {"phase": "text_lstm", "B": TEXT_B, "features": feat, "T": T,
+           "batches": TEXT_BATCHES, "epochs_timed": TEXT_EPOCHS,
+           "dtype": "float32", "params": net.num_params(),
+           "warm_step_s": warm_s, "wall_s": wall, "step_ms": step_ms,
+           "samples_per_s": steps * TEXT_B / wall,
+           "device_ms_per_step": prof["device_ms"],
+           "device_busy_share": prof["device_ms"] / step_ms,
+           "ms_per_step_by_class": prof["ms_by_class"],
+           "launches_per_step": prof["launches"],
+           "top_kernels_ms_per_step": prof["top_kernels_ms"],
+           "loss_after_warm_step": first, "loss_last": last,
+           "bucketed_3_vs_exact_max_abs_err": bucket_err,
+           "mask_twin_lengths": lengths,
+           "mask_twin_vs_cpu_max_abs_err": twin_err,
+           "mask_twin_score_card": score_card,
+           "mask_twin_score_cpu": score_cpu,
+           "mask_twin_padded_steps_hold_last_valid": held,
+           "tol": TEXT_ATOL, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not (np.isfinite(first) and np.isfinite(last)):
+        raise RuntimeError(f"TextGenerationLSTM losses {first}, {last}")
+    if bucket_err > TEXT_ATOL:
+        raise RuntimeError(f"bucketed output() differs from exact by "
+                           f"{bucket_err}")
+    if twin_err > TEXT_ATOL or abs(score_card - score_cpu) > TEXT_ATOL \
+            or not held:
+        raise RuntimeError(f"the MaskLayer twin on the card: err "
+                           f"{twin_err}, scores {score_card} / {score_cpu}, "
+                           f"held {held}")
+    del net, twin, batches
+    torch.cuda.empty_cache()
+
+
+def zipf_sentences(rng):
+    """W2V_TOKENS tokens drawn with p ~ 1 / rank over W2V_VOCAB words, in
+    sentences of W2V_SENTENCE."""
+    import numpy as np
+    p = 1.0 / np.arange(1, W2V_VOCAB + 1)
+    toks = rng.choice(W2V_VOCAB, size=W2V_TOKENS, p=p / p.sum())
+    words = np.asarray([f"w{i}" for i in range(W2V_VOCAB)])
+    return [" ".join(words[toks[i:i + W2V_SENTENCE]])
+            for i in range(0, W2V_TOKENS, W2V_SENTENCE)]
+
+
+def topic_corpus(n, seed=0):
+    """The JAX package's planted corpus (tests/test_nlp.py): two topics
+    whose words co-occur within a topic and never across."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    animals = ["cat", "dog", "pet", "fur", "paw"]
+    cars = ["car", "road", "drive", "wheel", "fuel"]
+    return [" ".join(rng.choice(animals if rng.rand() < 0.5 else cars,
+                                size=8)) for _ in range(n)]
+
+
+def phase_word2vec():
+    """BASELINE config 4's Word2Vec. (a) bench.py's skipgram op (vocab
+    30000, dim 128, B=1024, K=5): one round on the card against the op on
+    a CPU copy (W2V_ROUND_ATOL), then W2V_ROUNDS chained rounds (host
+    clock: pairs/s; the profiler: device us a round, launches) beside the
+    round's byte bound. (b) ``Word2Vec.fit`` of one epoch over a seeded
+    Zipf stream (``zipf_sentences``): tokens/s end to end, and the wall
+    split into set-up (tokenize, vocab, ids), the host's pair and
+    negative generation (the same stream run alone), and the device
+    steps (dispatch included); device ms a batch from the profiler.
+    Then the planted two-topic corpus, skip-gram and CBOW (the JAX
+    package's test settings): in-topic words nearer than cross-topic."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.ops import nlp_ops
+    t_phase = time.perf_counter()
+    V, D, B, K = W2V_VOCAB, W2V_DIM, W2V_B, W2V_K
+    rng = np.random.RandomState(0)
+    host = [(rng.randn(V, D) * 0.1).astype(np.float32),
+            (rng.randn(V, D) * 0.1).astype(np.float32),
+            rng.randint(0, V, B).astype(np.int32),
+            rng.randint(0, V, B).astype(np.int32),
+            rng.randint(0, V, (B, K)).astype(np.int32)]
+    dev = [torch.from_numpy(a).cuda() for a in host]
+    got = nlp_ops.skipgram(*dev)
+    ref = nlp_ops.skipgram(*[torch.from_numpy(a) for a in host])
+    round_err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+    inputs_same = all(torch.equal(d.cpu(), torch.from_numpy(h))
+                      for d, h in zip(dev, host))
+
+    def chain():
+        s0, s1 = dev[0], dev[1]
+        for _ in range(W2V_ROUNDS):
+            s0, s1, loss = nlp_ops.skipgram(s0, s1, *dev[2:])
+        return loss
+    chain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(chain())
+    chain_s = time.perf_counter() - t0
+    prof = rnn_profile(lambda: nlp_ops.skipgram(*dev), 1)
+    table = V * D * 4
+    round_bytes = 4 * table + B * (2 + K) * 4
+    op = {"vocab": V, "dim": D, "B": B, "K": K, "rounds": W2V_ROUNDS,
+          "round_vs_cpu_max_abs_err": round_err, "tol": W2V_ROUND_ATOL,
+          "inputs_unchanged": inputs_same, "last_loss": loss,
+          "wall_s": chain_s, "pairs_per_s": W2V_ROUNDS * B / chain_s,
+          "host_us_per_round": chain_s * 1e6 / W2V_ROUNDS,
+          "device_us_per_round": prof["device_ms"] * 1e3,
+          "us_by_class": {k: v * 1e3 for k, v in
+                          prof["ms_by_class"].items()},
+          "launches_per_round": prof["launches"],
+          "bytes_per_round": round_bytes,
+          "bound_us": round_bytes / HBM_BYTES_PER_S * 1e6}
+    del dev, got
+    # (b) Word2Vec.fit on the Zipf stream
+    sentences = zipf_sentences(np.random.RandomState(1))
+    m = (nlp.Word2Vec.builder().min_word_frequency(1).layer_size(W2V_LAYER)
+         .window_size(W2V_WINDOW).negative_sample(K).batch_size(W2V_BATCH)
+         .epochs(1).seed(1).iterate(sentences).build())
+    t0 = time.perf_counter()
+    fit_loss = m.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    sv = m._sv
+    t0 = time.perf_counter()
+    streams = m._token_streams()
+    vocab = nlp.build_vocab(streams, 1)
+    idx = [np.array([vocab.index_of(t) for t in s], np.int64)
+           for s in streams]
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_batches = list(sv._sg_batches(idx, np.random.RandomState(1)))
+    pairs_s = time.perf_counter() - t0
+    c, x, negs = host_batches[0]
+    batch_prof = rnn_profile(lambda: sv._sg_step(c, x, negs, 0.0), 1)
+    n_batches = len(host_batches)
+    fit = {"tokens": W2V_TOKENS, "vocab": len(m.vocab),
+           "layer_size": W2V_LAYER, "window": W2V_WINDOW, "negative": K,
+           "batch_size": W2V_BATCH, "batches": n_batches,
+           "pairs": n_batches * W2V_BATCH, "mean_loss": fit_loss,
+           "wall_s": fit_s, "tokens_per_s": W2V_TOKENS / fit_s,
+           "setup_s": setup_s, "pair_generation_s": pairs_s,
+           "device_steps_s": fit_s - setup_s - pairs_s,
+           "host_share_setup": setup_s / fit_s,
+           "host_share_pair_generation": pairs_s / fit_s,
+           "device_ms_per_batch": batch_prof["device_ms"],
+           "device_busy_share": batch_prof["device_ms"] * n_batches
+           / (fit_s * 1e3),
+           "ms_per_batch_by_class": batch_prof["ms_by_class"],
+           "launches_per_batch": batch_prof["launches"]}
+    del m, sv, host_batches
+    # the planted two-topic corpus
+    sg = (nlp.Word2Vec.builder().min_word_frequency(1).layer_size(32)
+          .window_size(3).negative_sample(5).epochs(3).batch_size(512)
+          .seed(42).iterate(topic_corpus(300)).build())
+    sg.fit()
+    cb = (nlp.Word2Vec.builder().min_word_frequency(1).layer_size(16)
+          .window_size(3).use_cbow(True).epochs(2).batch_size(256).seed(1)
+          .iterate(topic_corpus(150)).build())
+    cb.fit()
+    planted = {"skipgram_cat_dog": sg.similarity("cat", "dog"),
+               "skipgram_cat_road": sg.similarity("cat", "road"),
+               "skipgram_nearest_car": sg.words_nearest("car", 3),
+               "cbow_cat_pet": cb.similarity("cat", "pet"),
+               "cbow_cat_fuel": cb.similarity("cat", "fuel")}
+    emit({"phase": "word2vec", "skipgram_op": op, "fit": fit,
+          "planted": planted, "seconds": time.perf_counter() - t_phase})
+    if not (round_err <= W2V_ROUND_ATOL and inputs_same
+            and np.isfinite(loss)):
+        raise RuntimeError(f"the skipgram op on the card: {op}")
+    if not (np.isfinite(fit_loss) and fit["vocab"] > 0
+            and fit["batches"] > 0):
+        raise RuntimeError(f"Word2Vec.fit: {fit}")
+    if not (planted["skipgram_cat_dog"] > planted["skipgram_cat_road"]
+            and set(planted["skipgram_nearest_car"])
+            <= {"road", "drive", "wheel", "fuel"}
+            and planted["cbow_cat_pet"] > planted["cbow_cat_fuel"]):
+        raise RuntimeError(f"the planted topics did not cluster: {planted}")
+    torch.cuda.empty_cache()
+
+
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
@@ -3511,6 +3977,9 @@ def main():
     del resnet, images
     torch.cuda.empty_cache()
     phase_samediff_bert()
+    phase_seq2seq()
+    phase_text_lstm()
+    phase_word2vec()
     emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:

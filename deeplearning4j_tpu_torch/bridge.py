@@ -11,7 +11,10 @@ the port's params on ``device``, in the same layout.
   per-output-channel fp8 ``q`` laid out as ``QuantizedTensor`` lays it);
 - other leaves (Python scalars, strings) pass through.
 
-Nothing here imports JAX: array-likes are read with ``np.asarray``.
+Beside the trees, the loaders put a JAX network's, SameDiff graph's,
+Seq2Seq model's or word-vector trainer's state into its port
+counterpart. Nothing here imports JAX: array-likes are read with
+``np.asarray``.
 """
 from __future__ import annotations
 
@@ -107,3 +110,38 @@ def load_samediff(sd, arrays, updater_state=None, iteration: int = 0):
         sd._updater_state = params_from_numpy(updater_state, sd.device)
     sd._iteration = int(iteration)
     return sd
+
+
+_SEQ2SEQ_KEYS = {"embed", "enc", "dec", "out"}
+
+
+def seq2seq_params_from_numpy(tree, device="cuda"):
+    """A JAX Seq2Seq params tree (``{"embed", "enc", "dec", "out"}``, the
+    LSTM blocks ``Wx`` / ``Wh`` / ``b``) or its Adam state (``(u_list,
+    m_list)``, each in the params' sorted-leaf order, which both packages
+    walk alike) as numpy -> the port's on ``device``. Any other tree
+    raises ``ValueError``."""
+    is_params = isinstance(tree, dict) and set(tree) == _SEQ2SEQ_KEYS
+    is_state = (isinstance(tree, (tuple, list)) and len(tree) == 2
+                and all(isinstance(t, (tuple, list)) for t in tree)
+                and len(tree[0]) == len(tree[1]))
+    if not (is_params or is_state):
+        raise ValueError("not a Seq2Seq params tree or its (u, m) Adam "
+                         "state")
+    out = params_from_numpy(tree, device)
+    return out if is_params else (list(out[0]), list(out[1]))
+
+
+def load_sequence_vectors(sv, w_in, w_out):
+    """Carry a JAX ``SequenceVectors``' tables (its ``_w_in`` / ``_w_out``
+    as numpy, or a ``Word2Vec``'s ``_sv``'s) into ``sv``, a port
+    ``SequenceVectors`` or ``Word2Vec`` over the same vocabulary, on its
+    device; returns ``sv``."""
+    target = getattr(sv, "_sv", None) or sv
+    shape = tuple(target._w_in.shape)
+    if np.shape(w_in) != shape or np.shape(w_out) != shape:
+        raise ValueError(f"tables of shape {np.shape(w_in)} / "
+                         f"{np.shape(w_out)} for a model of {shape}")
+    target._w_in = tensor_from_numpy(w_in, target.device)
+    target._w_out = tensor_from_numpy(w_out, target.device)
+    return sv

@@ -37,6 +37,20 @@ def tree_unflatten(tree, leaves):
     return build(tree)
 
 
+def value_and_grad(loss_fn, params, *args):
+    """``(loss, grads)`` of ``loss_fn(params, *args)`` with respect to
+    every tensor leaf of ``params``; grads come back as a tree like
+    ``params``, each in its parameter's dtype (zeros for a leaf the loss
+    does not reach, as ``jax.grad`` gives)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
 @torch.no_grad()
 def adam_apply(params, grads, opt_state, learning_rate, iteration,
                cast_f32: bool = True):

@@ -250,21 +250,6 @@ def mlm_loss(params, batch, config: BertConfig, mesh=None,
 
 # -- training step ------------------------------------------------------
 
-def _value_and_grad(loss_fn, params, *args):
-    """``(loss, grads)`` of ``loss_fn(params, *args)`` with respect to
-    every tensor leaf of ``params``; grads come back as a tree like
-    ``params``, each in its parameter's dtype (zeros for a leaf the loss
-    does not reach, as ``jax.grad`` gives)."""
-    leaves = [p.detach().requires_grad_(True)
-              for p in _optim.tree_leaves(params)]
-    with torch.enable_grad():
-        loss = loss_fn(_optim.tree_unflatten(params, leaves), *args)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    return loss.detach(), _optim.tree_unflatten(params, grads)
-
-
 def _make_loss_fn(config, mesh, seq_parallel, remat, use_flash):
     _no_mesh(mesh, seq_parallel)
 
@@ -289,7 +274,7 @@ def make_train_step(config: BertConfig, mesh=None,
     loss_fn = _make_loss_fn(config, mesh, seq_parallel, remat, use_flash)
 
     def step(params, opt_state, batch, iteration):
-        loss, grads = _value_and_grad(loss_fn, params, batch)
+        loss, grads = _optim.value_and_grad(loss_fn, params, batch)
         _optim.adam_apply(params, grads, opt_state, learning_rate,
                           iteration)
         return params, opt_state, loss
@@ -370,7 +355,7 @@ def make_qa_train_step(config: BertConfig, mesh=None,
         return qa_loss(all_params["bert"], all_params["qa"], batch, config)
 
     def step(all_params, opt_state, batch, iteration):
-        loss, grads = _value_and_grad(loss_fn, all_params, batch)
+        loss, grads = _optim.value_and_grad(loss_fn, all_params, batch)
         _optim.adam_apply(all_params, grads, opt_state, learning_rate,
                           iteration)
         return all_params, opt_state, loss

@@ -26,7 +26,7 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from ...common import rng
-from ...ops import conv_ops, nn_ops
+from ...ops import conv_ops, nn_ops, recurrent
 from ...quant.transforms import QuantizedTensor, dequant_matmul, dequantize
 from ..activations import get_activation
 from ..losses import get_loss
@@ -337,6 +337,157 @@ class EmbeddingLayer(Layer):
 
 
 @dataclasses.dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """A sequence of indices -> RNN-format [B, n_out, T] (reference
+    EmbeddingSequenceLayer)."""
+
+    def forward(self, params, x, training=False, key=None):
+        emb = dequantize(params["W"])[x.long()]  # [B, T, E]
+        return emb.transpose(1, 2)               # [B, E, T]
+
+    def output_type(self, input_type):
+        t = input_type[-1] if len(input_type) > 1 else input_type[0]
+        return (self.n_out, t)
+
+
+@dataclasses.dataclass
+class LSTM(Layer):
+    """LSTM over RNN-format input [B, features, T] (reference
+    conf/layers/LSTM.java), through ``ops.recurrent.lstm_layer``: gates
+    [i, f, g, o], the forget block of ``b`` initialized to
+    ``forget_gate_bias_init``. Mask-aware (``accepts_mask``)."""
+    n_in: int = 0
+    n_out: int = 0
+    activation: str = "tanh"
+    weight_init: str = "xavier"
+    forget_gate_bias_init: float = 1.0
+    return_sequence: bool = True
+
+    accepts_mask = True
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        H = self.n_out
+        b = _zeros(generator, 4 * H)
+        b[H:2 * H] = self.forget_gate_bias_init
+        return {"Wx": init_weights(generator, (n_in, 4 * H),
+                                   self.weight_init),
+                "Wh": init_weights(generator, (H, 4 * H), self.weight_init),
+                "b": b}
+
+    def forward(self, params, x, training=False, key=None, mask=None):
+        h_seq, h_last, _ = recurrent.lstm_layer(
+            x.transpose(1, 2), params["Wx"], params["Wh"], params["b"],
+            mask=mask)
+        if self.return_sequence:
+            return h_seq.transpose(1, 2)  # [B, n_out, T]
+        return h_last
+
+    def output_type(self, input_type):
+        if self.return_sequence and len(input_type) == 2:
+            return (self.n_out, input_type[1])
+        return (self.n_out,)
+
+
+# GravesLSTM: the reference's deprecated name for the same layer
+GravesLSTM = LSTM
+
+
+@dataclasses.dataclass
+class Bidirectional(Layer):
+    """Bidirectional wrapper (reference conf/layers/recurrent/
+    Bidirectional.java): the wrapped layer over the sequence and, with
+    its own params, over the time-reversed sequence (and mask), merged by
+    ``mode``: concat | add | mul | ave."""
+    fwd: Layer = None
+    mode: str = "concat"
+
+    def init_params(self, generator, input_type):
+        return {"fwd": self.fwd.init_params(generator, input_type),
+                "bwd": self.fwd.init_params(generator, input_type)}
+
+    @property
+    def accepts_mask(self):
+        return getattr(self.fwd, "accepts_mask", False)
+
+    @property
+    def return_sequence(self):
+        # a last-step inner layer consumes the time axis (and any mask)
+        return getattr(self.fwd, "return_sequence", True)
+
+    def forward(self, params, x, training=False, key=None, mask=None):
+        mk = {"mask": mask} if mask is not None else {}
+        out_f = self.fwd.forward(params["fwd"], x, training, key, **mk)
+        mk_b = ({"mask": torch.flip(mask, dims=(-1,))} if mask is not None
+                else {})
+        out_b = self.fwd.forward(params["bwd"], torch.flip(x, dims=(-1,)),
+                                 training, key, **mk_b)
+        # a 2-D [B, H] inner output has no time axis to un-flip: the
+        # backward half's final state is the sequence start's (Keras'
+        # backward_layer output)
+        if out_b.dim() == 3:
+            out_b = torch.flip(out_b, dims=(-1,))
+        if mask is not None and out_f.dim() == 3:
+            # Keras zero_output_for_mask: masked positions are zeroed in
+            # both halves, so the two sequences stay aligned
+            keep = mask[:, None, :].to(out_f.dtype)
+            out_f = out_f * keep
+            out_b = out_b * keep
+        if self.mode == "concat":
+            return torch.cat([out_f, out_b], dim=1)
+        if self.mode == "add":
+            return out_f + out_b
+        if self.mode == "mul":
+            return out_f * out_b
+        return (out_f + out_b) / 2
+
+    def output_type(self, input_type):
+        inner = self.fwd.output_type(input_type)
+        if self.mode == "concat":
+            return (inner[0] * 2,) + tuple(inner[1:])
+        return inner
+
+
+@dataclasses.dataclass
+class RnnOutputLayer(Layer):
+    """Per-timestep output head on [B, F, T] (reference RnnOutputLayer);
+    its loss takes time into the batch, masked by a [B, T] mask."""
+    n_in: int = 0
+    n_out: int = 0
+    activation: str = "softmax"
+    loss: Union[str, Callable] = "mcxent"
+    weight_init: str = "xavier"
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        return {"W": init_weights(generator, (n_in, self.n_out),
+                                  self.weight_init),
+                "b": _zeros(generator, self.n_out)}
+
+    def forward(self, params, x, training=False, key=None):
+        out = torch.matmul(x.transpose(1, 2), params["W"]) + params["b"]
+        out = get_activation(self.activation)(out)
+        return out.transpose(1, 2)  # [B, n_out, T]
+
+    def compute_loss(self, labels, output, mask=None):
+        return _temporal_loss(self.loss, labels, output, mask)
+
+    def output_type(self, input_type):
+        return ((self.n_out, input_type[1]) if len(input_type) == 2
+                else (self.n_out,))
+
+
+def _temporal_loss(loss, labels, output, mask):
+    """A per-timestep loss on [B, C, T]: time moved into the batch, the
+    [B, T] mask flattened beside it."""
+    c = output.shape[1]
+    lab = labels.transpose(1, 2).reshape(-1, labels.shape[1])
+    out = output.transpose(1, 2).reshape(-1, c)
+    m = mask.reshape(-1) if mask is not None else None
+    return get_loss(loss)(lab, out, m)
+
+
+@dataclasses.dataclass
 class DropoutLayer(Layer):
     rate: float = 0.5
 
@@ -411,15 +562,8 @@ def _unported(name, needs):
                                          "__module__": __name__})
 
 
-_RECURRENT = "needs ops/recurrent.py"
-LSTM = _unported("LSTM", _RECURRENT)
-GravesLSTM = LSTM
-Bidirectional = _unported("Bidirectional", _RECURRENT)
-RnnOutputLayer = _unported("RnnOutputLayer", _RECURRENT)
 Convolution1DLayer = _unported("Convolution1DLayer", "1-D convolution")
 SelfAttentionLayer = _unported("SelfAttentionLayer", "attention ops")
-EmbeddingSequenceLayer = _unported("EmbeddingSequenceLayer",
-                                   "sequence layers")
 Upsampling2D = _unported("Upsampling2D", "upsampling op")
 ZeroPaddingLayer = _unported("ZeroPaddingLayer", "padding layers")
 DeconvolutionLayer = _unported("DeconvolutionLayer",
@@ -429,28 +573,17 @@ SeparableConvolution2D = _unported("SeparableConvolution2D",
 DepthwiseConvolution2D = _unported("DepthwiseConvolution2D",
                                    "depthwise convolution")
 
-# the JAX package's layers_extra.py, none ported yet
-_EXTRA = "layers_extra.py"
-(AlphaDropout, CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer,
- Cnn3DLossLayer, CnnLossLayer, Convolution3D, Cropping1D, Cropping2D,
- Cropping3D, DepthToSpaceLayer, ElementWiseMultiplicationLayer,
- FrozenLayer, GRU, GaussianDropout, GaussianNoise, LastTimeStep,
- LearnedSelfAttentionLayer, LocallyConnected1D, LocallyConnected2D,
- MaskLayer, MaskZeroLayer, PReLULayer, PrimaryCapsules,
- RecurrentAttentionLayer, RepeatVector, RnnLossLayer, SimpleRnn,
- SpaceToDepthLayer, Subsampling1DLayer, Subsampling3DLayer,
- TimeDistributed, Upsampling1D, Upsampling3D, VariationalAutoencoder,
- Yolo2OutputLayer, ZeroPadding1DLayer, ZeroPadding3DLayer) = (
-    _unported(n, _EXTRA) for n in (
-        "AlphaDropout", "CapsuleLayer", "CapsuleStrengthLayer",
-        "CenterLossOutputLayer", "Cnn3DLossLayer", "CnnLossLayer",
-        "Convolution3D", "Cropping1D", "Cropping2D", "Cropping3D",
-        "DepthToSpaceLayer", "ElementWiseMultiplicationLayer",
-        "FrozenLayer", "GRU", "GaussianDropout", "GaussianNoise",
-        "LastTimeStep", "LearnedSelfAttentionLayer", "LocallyConnected1D",
-        "LocallyConnected2D", "MaskLayer", "MaskZeroLayer", "PReLULayer",
-        "PrimaryCapsules", "RecurrentAttentionLayer", "RepeatVector",
-        "RnnLossLayer", "SimpleRnn", "SpaceToDepthLayer",
-        "Subsampling1DLayer", "Subsampling3DLayer", "TimeDistributed",
-        "Upsampling1D", "Upsampling3D", "VariationalAutoencoder",
-        "Yolo2OutputLayer", "ZeroPadding1DLayer", "ZeroPadding3DLayer"))
+# the extended layer set lives in layers_extra.py; re-exported here as the
+# JAX package does, so the catalog (and the JSON's getattr on this
+# module) has one namespace
+from .layers_extra import (  # noqa: E402,F401
+    AlphaDropout, CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer,
+    Cnn3DLossLayer, CnnLossLayer, Convolution3D, Cropping1D, Cropping2D,
+    Cropping3D, DepthToSpaceLayer, ElementWiseMultiplicationLayer,
+    FrozenLayer, GRU, GaussianDropout, GaussianNoise, LastTimeStep,
+    LearnedSelfAttentionLayer, LocallyConnected1D, LocallyConnected2D,
+    MaskLayer, MaskZeroLayer, PReLULayer, PrimaryCapsules,
+    RecurrentAttentionLayer, RepeatVector, RnnLossLayer, SimpleRnn,
+    SpaceToDepthLayer, Subsampling1DLayer, Subsampling3DLayer,
+    TimeDistributed, Upsampling1D, Upsampling3D, VariationalAutoencoder,
+    Yolo2OutputLayer, ZeroPadding1DLayer, ZeroPadding3DLayer)

@@ -128,16 +128,6 @@ def _micro_batches(tree, k):
                      tree) for i in range(k)]
 
 
-def _per_layer(fn, *trees):
-    """``fn`` over each per-layer param dict of a network's params: a
-    list (``MultiLayerNetwork``) or a vertex-name -> dict
-    (``ComputationGraph``), with the matching dicts of ``trees[1:]``."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {n: fn(*(t[n] for t in trees)) for n in first}
-    return [fn(*ps) for ps in zip(*trees)]
-
-
 class FitFastPathMixin:
     # -- memory levers ---------------------------------------------------
     def _remat_mode(self) -> str:
@@ -232,9 +222,8 @@ class FitFastPathMixin:
         update, updater_state = self.conf.updater.apply(grads, updater_state,
                                                         iteration)
         wd = self.conf.weight_decay
-        new = _per_layer(
-            lambda p, u: {k: p[k] - u[k].to(p[k].dtype) - wd * p[k]
-                          for k in p}, trainable, update)
+        new = tree_map(lambda p, u: p - u.to(p.dtype) - wd * p, trainable,
+                       update)
         return apply_constraints(getattr(self.conf, "constraints", None),
                                  new), updater_state
 

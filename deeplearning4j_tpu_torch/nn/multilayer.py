@@ -25,10 +25,11 @@ import torch
 
 from ..common import rng
 from ..datasets.dataset import DataSet
+from ..learning import tree_map
 from ..ndarray.ndarray import NDArray
 from .conf.config import MultiLayerConfiguration, check_ported
-from .conf.layers import LossLayer, OutputLayer
-from .fit_fastpath import FitFastPathMixin, full_f32
+from .conf.layers import LossLayer, OutputLayer, RnnOutputLayer
+from .fit_fastpath import FitFastPathMixin, _leaves, full_f32
 
 
 def resolve_device(device) -> torch.device:
@@ -138,14 +139,22 @@ class MultiLayerNetwork(FitFastPathMixin):
     def _forward_core(self, params, x, training: bool, key=None,
                       collect_bn: bool = False):
         """THE per-layer forward loop (inference, train step and score
-        all route here). With ``collect_bn``, each stateful layer's input
-        is kept so the train step refreshes running stats without a
-        second pass. Returns (activations, bn_inputs)."""
+        all route here).
+
+        Threads the timestep keep-mask: a layer with ``emits_mask``
+        (``MaskLayer``) computes it from its input, the layers with
+        ``accepts_mask`` (the RNNs and their wrappers) consume it, and it
+        is dropped where a layer consumes the time axis
+        (``return_sequence`` false). With ``collect_bn``, each stateful
+        layer's input is kept so the train step refreshes running stats
+        without a second pass. Returns (activations, mask or None,
+        bn_inputs)."""
         cd = self._compute_dtype()
         last = len(self.layers) - 1
         h = self._cast_act(x, cd) if cd is not None else x
         host = torch.Generator().manual_seed(int(key)) \
             if key is not None and training else None
+        mask = None
         bn_inputs = {}
         remat = (self._remat_wrap if training and self._remat_mode() != "none"
                  else None)
@@ -164,11 +173,20 @@ class MultiLayerNetwork(FitFastPathMixin):
             p = self._weight_noised(layer, p, host)
             layer_key = rng.split(host) \
                 if host is not None and layer.needs_key() else None
-
-            def fwd(p_, h_, k_, _l=layer):
-                return _l.forward(p_, h_, training=training, key=k_)
-            h = (remat(fwd) if remat else fwd)(p, h, layer_key)
-        return h, bn_inputs
+            if getattr(layer, "emits_mask", False):
+                mask = layer.compute_mask(h)
+            if mask is not None and getattr(layer, "accepts_mask", False):
+                def fwd(p_, h_, k_, m_, _l=layer):
+                    return _l.forward(p_, h_, training=training, key=k_,
+                                      mask=m_)
+                h = (remat(fwd) if remat else fwd)(p, h, layer_key, mask)
+                if not getattr(layer, "return_sequence", True):
+                    mask = None  # the time axis is consumed
+            else:
+                def fwd(p_, h_, k_, _l=layer):
+                    return _l.forward(p_, h_, training=training, key=k_)
+                h = (remat(fwd) if remat else fwd)(p, h, layer_key)
+        return h, mask, bn_inputs
 
     def _forward(self, params, x, training: bool, key=None):
         return self._forward_core(params, x, training, key)[0]
@@ -222,12 +240,22 @@ class MultiLayerNetwork(FitFastPathMixin):
         self._check_init()
         h = self._stage(x)
         acts = [NDArray(h)]
+        mask = None
         with torch.no_grad(), full_f32():
             for i, layer in enumerate(self.layers):
                 pre = self.conf.preprocessors.get(i)
                 if pre is not None:
                     h = pre(h)
-                h = layer.forward(self._params[i], h, training=training)
+                if getattr(layer, "emits_mask", False):
+                    mask = layer.compute_mask(h)
+                if mask is not None and getattr(layer, "accepts_mask",
+                                                False):
+                    h = layer.forward(self._params[i], h, training=training,
+                                      mask=mask)
+                    if not getattr(layer, "return_sequence", True):
+                        mask = None
+                else:
+                    h = layer.forward(self._params[i], h, training=training)
                 acts.append(NDArray(h))
         return acts
 
@@ -237,16 +265,19 @@ class MultiLayerNetwork(FitFastPathMixin):
     # -- loss ------------------------------------------------------------
     def _loss_layer(self):
         last = self.layers[-1]
-        if not isinstance(last, (OutputLayer, LossLayer)):
+        if not isinstance(last, (OutputLayer, LossLayer, RnnOutputLayer)):
             raise ValueError("last layer must be an output/loss layer for fit()")
         return last
 
     def _loss_with_bn(self, trainable, states, x, y, key):
         """Loss + collected stateful-layer inputs (the train-step loss)."""
         params = self._merge_states(trainable, states)
-        out, bn_inputs = self._forward_core(params, x, training=True,
-                                            key=key, collect_bn=True)
-        loss = self._loss_layer().compute_loss(y, out)
+        out, kmask, bn_inputs = self._forward_core(params, x, training=True,
+                                                   key=key, collect_bn=True)
+        ll = self._loss_layer()
+        # a live MaskLayer mask masks a temporal loss head too
+        mask = kmask if isinstance(ll, RnnOutputLayer) else None
+        loss = ll.compute_loss(y, out, mask)
         return self._regularized(loss, trainable), bn_inputs
 
     def score(self, dataset: DataSet = None) -> float:
@@ -280,18 +311,18 @@ class MultiLayerNetwork(FitFastPathMixin):
     def _micro_grads(self, trainable, states, x, y, key):
         """Loss + refreshed states + gradients of ONE micro-batch (no
         updater)."""
-        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for p in trainable]
-        flat = [v for p in leaves for v in p.values()]
+        # a wrapper layer's params nest (Bidirectional's fwd / bwd)
+        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
+                          trainable)
+        flat = _leaves(leaves)
         with torch.enable_grad(), full_f32():
             loss, bn_inputs = self._loss_with_bn(leaves, states, x, y, key)
             gflat = torch.autograd.grad(loss, flat, allow_unused=True) \
                 if flat else ()
         # a leaf the loss does not reach (allow_unused) gets a zero grad
-        gflat = [torch.zeros_like(v) if g is None else g
-                 for g, v in zip(gflat, flat)]
-        it = iter(gflat)
-        grads = [{k: next(it) for k in p} for p in leaves]
+        it = iter([torch.zeros_like(v) if g is None else g
+                   for g, v in zip(gflat, flat)])
+        grads = tree_map(lambda v: next(it), leaves)
         return (loss.detach(), self._refresh_states(states, bn_inputs, y),
                 grads)
 
@@ -392,10 +423,8 @@ class MultiLayerNetwork(FitFastPathMixin):
     def clone(self) -> "MultiLayerNetwork":
         net = MultiLayerNetwork(self.conf, device=self.device)
         if self._initialized:
-            net.init(params=[{k: v.clone() for k, v in p.items()}
-                             for p in self._params])
+            net.init(params=tree_map(torch.clone, self._params))
             if self._updater_state is not None:
-                from ..learning import tree_map
                 net._updater_state = tree_map(torch.clone,
                                               self._updater_state)
             net._iteration = self._iteration

@@ -13,9 +13,11 @@ from . import (  # noqa: F401  (import for registration side effects)
     conv_ops,
     linalg_ops,
     loss_ops,
+    nlp_ops,
     nn_ops,
     pairwise,
     random_ops,
+    recurrent,
     reduce,
     shape_ops,
     transforms,

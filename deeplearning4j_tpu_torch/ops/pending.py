@@ -42,7 +42,6 @@ PENDING = {
         "clone_list", "create_list", "delete_list", "gather_list",
         "pick_list", "read_list", "scatter_list", "size_list", "split_list",
         "stack_list", "unstack_list", "write_list"),
-    "nlp_ops": ("cbow", "skipgram"),
     "parity_extra": (
         "Assert", "barnes_edge_forces", "barnes_gains", "barnes_symmetrized",
         "broadcastgradientargs", "cell_contains", "compare_and_bitpack",
@@ -50,12 +49,6 @@ PENDING = {
         "deconv2d_tf", "fake_quant_with_min_max_vars",
         "fake_quant_with_min_max_vars_per_channel", "min_max_datatype",
         "norm", "print_variable"),
-    "recurrent": (
-        "dynamic_bidirectional_rnn", "dynamic_rnn", "gru", "gruCell",
-        "gru_block_cell", "gru_onnx", "lstm", "lstmBlock", "lstmBlockCell",
-        "lstmCell", "lstmLayer", "lstmLayerCell", "lstmLayer_bidirectional",
-        "sru", "sruCell", "sru_bi", "static_bidirectional_rnn",
-        "static_rnn"),
     "segment_ops": (
         "segment_max", "segment_mean", "segment_min", "segment_prod",
         "segment_sum", "unsorted_segment_max", "unsorted_segment_mean",

@@ -2,8 +2,8 @@
 
 Counterpart of the sequential models of ``deeplearning4j_tpu/zoo/
 models.py`` (the reference's ``zoo/model/``) whose layers the port runs:
-LeNet, SimpleCNN, AlexNet, VGG16, VGG19 and Darknet19. TinyYOLO (a YOLO2
-output layer) and TextGenerationLSTM (LSTMs) wait for their layers
+LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19 and
+TextGenerationLSTM. TinyYOLO (a YOLO2 output layer) waits for its layer
 (``ROADMAP.md`` queue 1 item 9).
 """
 from __future__ import annotations
@@ -16,7 +16,8 @@ from ..nn.conf.config import InputType, NeuralNetConfiguration
 from ..nn.conf.layers import (ActivationLayer, BatchNormalization,
                               ConvolutionLayer, DenseLayer, DropoutLayer,
                               GlobalPoolingLayer, LocalResponseNormalization,
-                              LossLayer, OutputLayer, SubsamplingLayer)
+                              LossLayer, LSTM, OutputLayer, RnnOutputLayer,
+                              SubsamplingLayer)
 from .base import ZooModel
 
 
@@ -182,3 +183,26 @@ class Darknet19(ZooModel):
         for layer in layers:
             b = b.layer(layer)
         return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+@dataclasses.dataclass
+class TextGenerationLSTM(ZooModel):
+    """Reference zoo/model/TextGenerationLSTM.java (char-level
+    2 x LSTM-256)."""
+    num_classes: int = 77          # totalUniqueCharacters
+    max_length: int = 40
+    input_shape: Tuple[int, int] = (77, 40)  # (features, timesteps)
+
+    def conf(self):
+        feat, t = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed).updater(Adam(1e-3))
+                .gradient_normalization("clip_value", 10.0)
+                .list()
+                .layer(LSTM(n_in=feat, n_out=256, activation="tanh"))
+                .layer(LSTM(n_in=256, n_out=256, activation="tanh"))
+                .layer(DropoutLayer(rate=0.5))
+                .layer(RnnOutputLayer(n_in=256, n_out=self.num_classes,
+                                      loss="mcxent", activation="softmax"))
+                .set_input_type(InputType.recurrent(feat, t))
+                .build())

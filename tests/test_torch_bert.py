@@ -193,7 +193,7 @@ def test_mlm_loss_and_gradients(f32, use_flash):
         lambda p, b: jb.mlm_loss(p, b, jc, use_flash=use_flash)))(
         jp, to_jax(batch))
     tp = fresh_port_params(tree)
-    loss, grads = tb._value_and_grad(
+    loss, grads = t_optim.value_and_grad(
         lambda p, b: tb.mlm_loss(p, b, tc, use_flash=use_flash), tp,
         to_torch(batch))
     np.testing.assert_allclose(float(loss), float(loss_j), atol=F32_ATOL)

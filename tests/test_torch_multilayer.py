@@ -192,21 +192,22 @@ class TestConfig:
         assert again.preprocessors.keys() == tconf.preprocessors.keys()
 
     @pytest.mark.parametrize("model", ["LeNet", "SimpleCNN", "AlexNet",
-                                       "VGG16", "VGG19", "Darknet19"])
+                                       "VGG16", "VGG19", "Darknet19",
+                                       "TextGenerationLSTM"])
     def test_zoo_confs_match_jax(self, model):
         t = getattr(tzoo, model)(dtype="bfloat16").build_conf()
         j = getattr(jzoo, model)(dtype="bfloat16").build_conf()
         assert t.to_json() == j.to_json()
 
     def test_unported_layer_fails_at_build(self):
-        b = TNNC.builder().list().layer(TL.LSTM(n_in=4, n_out=4))
+        b = TNNC.builder().list().layer(TL.Convolution1DLayer(n_out=4))
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             b.layer(TL.RnnOutputLayer(n_in=4, n_out=2)).build()
         # the graph builder is ported; a graph naming an unported layer
         # fails at build() the same way
         g = (TNNC.builder().graph_builder().add_inputs("in")
-             .add_layer("lstm", TL.LSTM(n_in=4, n_out=4), "in")
-             .set_outputs("lstm"))
+             .add_layer("up", TL.Upsampling2D(size=2), "in")
+             .set_outputs("up"))
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             g.build()
 

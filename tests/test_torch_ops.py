@@ -5,8 +5,8 @@ Registry accounting: every name the JAX ``OpRegistry`` registers is
 registered in the port with the same category, ``differentiable`` flag
 and aliases, or is listed as pending (``ops/pending.py``) and raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item. Of the reference
-inventory's 517 names (``all_reference_ops()``), the port registers 355
-and lists 155 as pending (the JAX package registers 510); the other 7
+inventory's 517 names (``all_reference_ops()``), the port registers 378
+and lists 132 as pending (the JAX package registers 510); the other 7
 are names neither package registers.
 
 Each ported op that is not random runs through ``exec_op`` on both
@@ -89,7 +89,7 @@ def test_reference_coverage_as_stated():
     pending = [n for n in names if TREG.is_pending(n)]
     jax_has = [n for n in names if JReg.get().has(n)]
     assert (len(names), len(registered), len(pending), len(jax_has)) == \
-        (517, 355, 155, 510)
+        (517, 378, 132, 510)
 
 
 @pytest.mark.parametrize("name", sorted(TREG.pending()))
@@ -576,6 +576,57 @@ case("switch", [F(3, 4), K(True)])
 case("Switch", [F(3, 4), K(False)], cid="Switch(alias)")
 case("merge", [F(3, 4), F(3, 4)])
 
+# -- recurrent (B=2, T=3, In=4, H=3) and nlp rounds ---------------------------
+# masked and activation-named forms of every op: tests/test_torch_recurrent.py
+_X, _H = F(2, 3, 4), F(2, 3)
+_LSTM_W = [F(4, 12), F(3, 12), F(12)]
+_GRU_W = [F(7, 6), F(7, 3), F(6), F(3)]
+_MASK = lambda r: r.rand(2, 3) > 0.3  # noqa: E731
+case("lstmLayerCell", [F(2, 4), _H, _H] + _LSTM_W, **SUM)
+case("lstmCell", [F(2, 4), _H, _H] + _LSTM_W, {"forget_bias": 1.0},
+     cid="lstmCell(alias)-forget-bias", **SUM)
+case("lstmLayer", [_X] + _LSTM_W + [_H, _H], **SUM)
+case("lstmLayer", [_X] + _LSTM_W + [K(None), K(None), K(0.0), K(False),
+                                    K(True), _MASK],
+     cid="lstmLayer-masked", **SUM)
+case("lstm", [F(3, 2, 4)] + _LSTM_W,
+     {"time_major": True, "return_sequence": False}, cid="lstm(alias)-tm",
+     **SUM)
+case("lstmLayer_bidirectional", [_X] + _LSTM_W + _LSTM_W, **SUM)
+case("lstmLayer_bidirectional", [_X] + _LSTM_W + _LSTM_W, {"mode": "ave"},
+     cid="lstmLayer_bidirectional-ave", **SUM)
+case("gruCell", [F(2, 4), _H] + _GRU_W, **SUM)
+case("gru_block_cell", [F(2, 4), _H] + _GRU_W, **SUM)
+case("gru", [_X, _H] + _GRU_W, **SUM)
+case("gru", [_X, _H] + _GRU_W + [K(False), _MASK], cid="gru-masked", **SUM)
+case("gru_onnx", [F(3, 2, 4), F(9, 4), F(9, 3), F(18)], **SUM)
+case("gru_onnx", [F(3, 2, 4), F(9, 4), F(9, 3), F(18), _H, K(1)],
+     cid="gru_onnx-linear-before-reset", **SUM)
+case("gru_onnx", [_X, F(9, 4), F(9, 3), F(18), _H, K(0), K(False), _MASK],
+     cid="gru_onnx-batch-major-masked", **SUM)
+case("sruCell", [F(2, 4), _H, F(4, 9), F(6)], **SUM)
+case("sru", [_X, _H, F(4, 9), F(6)], **SUM)
+case("sru_bi", [_X, F(4, 9), F(6), F(4, 9), F(6)], **SUM)
+case("static_rnn", [_X, F(4, 3), F(3, 3), F(3), _H], **SUM)
+case("dynamic_rnn", [F(3, 2, 4), F(4, 3), F(3, 3), F(3)],
+     {"time_major": True}, cid="dynamic_rnn(alias)-tm", **SUM)
+case("lstmBlockCell", [F(2, 4), _H, _H, F(7, 12), F(12)], **SUM)
+case("lstmBlockCell", [F(2, 4), _H, _H, F(7, 12), F(12), F(3), F(3), F(3),
+                       K(0.5), K(0.4)], cid="lstmBlockCell-peephole-clip",
+     **SUM)
+case("lstmBlock", [F(3, 2, 4), _H, _H, F(7, 12), F(12)], **SUM)
+case("static_bidirectional_rnn",
+     [_X, F(4, 3), F(3, 3), F(3), F(4, 3), F(3, 3), F(3)], **SUM)
+case("dynamic_bidirectional_rnn",
+     [_X, F(4, 3), F(3, 3), F(3), F(4, 3), F(3, 3), F(3), _H, _H],
+     cid="dynamic_bidirectional_rnn(alias)-h0", **SUM)
+# 6 pairs over 10 rows: repeated ids, whose updates sum
+case("skipgram", [F(10, 4), F(10, 4), I(6, hi=10), I(6, hi=10),
+                  I(6, 3, hi=10)], {"lr": 0.1}, **SUM)
+case("cbow", [F(10, 4), F(10, 4), I(6, 4, hi=10),
+              lambda r: (r.rand(6, 4) > 0.3).astype(np.float32),
+              I(6, hi=10), I(6, 3, hi=10)], **SUM)
+
 
 # -- the comparison harness ---------------------------------------------------
 
@@ -681,13 +732,16 @@ def _bp_cases():
             by_op[base] = (inputs, kwargs, opts)
     out = []
     for name in TREG.by_category("autodiff_bp"):
-        base = name[:-3] if name.endswith("_bp") else name[:-5]
+        base = _BP_IRREGULAR.get(name) or (
+            name[:-3] if name.endswith("_bp") else name[:-5])
         if base in _BP_ELSEWHERE or base not in by_op:
             continue
         out.append(pytest.param(name, base, *by_op[base], id=name))
     return out
 
 
+#: bp names that are not <base>_bp / <base>_grad
+_BP_IRREGULAR = {"lstmLayerCellBp": "lstmLayerCell"}
 #: bp ops held by their own tests below: ctc_loss (the JAX forward needs
 #: optax) and dynamic_partition (a list of outputs)
 _BP_ELSEWHERE = ("ctc_loss", "dynamic_partition")
@@ -706,9 +760,11 @@ def test_bp_op_matches_jax(name, base, inputs, kwargs, opts):
     jargs = [_jx(a) for a in arrays]
     targs = [_tx(a) for a in arrays]
     jout = jexec(base, *jargs, **kwargs)
-    assert not isinstance(jout, (tuple, list))
-    g = np.asarray(np.random.RandomState(3).randn(*np.shape(jout)),
-                   np.asarray(jout).dtype)
+    # one upstream gradient, broadcast to every output: an output's shape,
+    # or a scalar where the forward returns several (recurrent ops)
+    shape = () if isinstance(jout, (tuple, list)) else np.shape(jout)
+    dtype = np.asarray(_first_float(jout)).dtype
+    g = np.asarray(np.random.RandomState(3).randn(*shape), dtype)
     jbp = jexec(name, *jargs, jnp.asarray(g), **kwargs)
     tbp = texec(name, *targs, torch.from_numpy(g), **kwargs)
     _compare(jbp, tbp, SUM if opts.get("atol", 0) < 1e-4 else opts)

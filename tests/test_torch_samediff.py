@@ -293,7 +293,7 @@ def test_op_validation_testcase():
     assert "forward mismatch" in OpValidation.validate(bad)
     assert "tanh" in OpValidation.validated_ops()
     rep = OpValidation.coverage_report()
-    assert rep["total"] == 414 and rep["validated"] >= 1
+    assert rep["total"] == 436 and rep["validated"] >= 1
 
 
 # -- eager mode -------------------------------------------------------------------
@@ -389,6 +389,48 @@ def test_fit_linear_regression_matches_jax():
                                [c.mean_loss() for c in jh.loss_curves],
                                atol=1e-5, rtol=1e-4)
     assert th.epochs == 30 and th.iterations == 120
+
+
+def _lstm_classifier(mk, updater):
+    """``sd.rnn.lstm_layer`` over [B, T=5, 3] into a 2-way softmax on its
+    last state."""
+    r = np.random.RandomState(4)
+    sd = mk()
+    x = sd.placeholder("x", (None, 5, 3))
+    y = sd.placeholder("y", (None, 2))
+    wx = sd.var("wx", 0.5 * r.randn(3, 16).astype(np.float32))
+    wh = sd.var("wh", 0.5 * r.randn(4, 16).astype(np.float32))
+    b = sd.var("b", np.zeros(16, np.float32))
+    wo = sd.var("wo", 0.5 * r.randn(4, 2).astype(np.float32))
+    _, h_last, _ = sd.rnn.lstm_layer(x, wx, wh, b, n_outputs=3)
+    loss = sd.loss.softmax_cross_entropy(h_last.mmul(wo), None, y)
+    sd.set_loss_variables(loss)
+    sd.set_training_config((JTC if mk is jsd else TTC)(
+        updater=updater, data_set_feature_mapping=["x"],
+        data_set_label_mapping=["y"]))
+    return sd
+
+
+def test_lstm_layer_trains_in_a_graph_as_jax():
+    """A recurrent op recorded through ``sd.rnn`` trains: the loss falls
+    and the weights after 3 epochs of Adam equal the JAX graph's."""
+    r = np.random.RandomState(5)
+    X = r.randn(32, 5, 3).astype(np.float32)
+    Y = np.eye(2, dtype=np.float32)[(X[:, :, 0].sum(1) > 0).astype(int)]
+    runs = []
+    for mk, upd in ((jsd, JAdam(learning_rate=0.05)),
+                    (tsd, TAdam(learning_rate=0.05))):
+        sd = _lstm_classifier(mk, upd)
+        h = sd.fit(_it(mk, X, Y, 8), num_epochs=3)
+        runs.append((h, {n: _np(sd.get_arr_for_var(n))
+                         for n in ("wx", "wh", "b", "wo")}))
+    (jh, jw), (th, tw) = runs
+    curve = [c.mean_loss() for c in th.loss_curves]
+    assert curve[-1] < curve[0]
+    np.testing.assert_allclose(curve, [c.mean_loss() for c in jh.loss_curves],
+                               **TRAIN)
+    for n in tw:
+        np.testing.assert_allclose(tw[n], jw[n], err_msg=n, **TRAIN)
 
 
 def test_grad_accum_matches_full_batch_and_jax():
