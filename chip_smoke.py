@@ -168,6 +168,26 @@ exits non-zero without printing a result:
               after warmup (must be 0) and ``launches_resnet50_int8``:
               its own main path, the dequant count set to 0 just before
               the clients start (one launch a dispatch).
+   transfer — the trained ResNet-50 saved with its updater state
+              (``net.save``) and restored on the card
+              (``ComputationGraph.load``, ``restore_model``,
+              ``ResNet50.init_pretrained(path=)``): output, params,
+              updater leaves, iteration and epoch bit-identical; its
+              batch-norm running statistics refreshed by 20 ``NoOp``
+              steps, then ``TransferLearning.GraphBuilder`` (Adam 1e-3,
+              body frozen up to ``avgpool``, a 10-way head) fit by
+              ``EarlyStoppingTrainer`` over a ``BenchmarkDataSetIterator``
+              through a ``NormalizerStandardize`` (at most 3 epochs,
+              stopping after one without improvement, a
+              ``DataSetLossCalculator``, a ``LocalFileModelSaver`` and a
+              ``CheckpointListener`` keeping 2): the frozen params and
+              running statistics bit-identical, the head changed, the
+              best model from disk equal to the copy saved, 2 zips left;
+              a ``ShardedCheckpointer`` keeping 2 of 3 steps restores
+              bit-identically; a fine-tune step's host and device ms by
+              kernel class beside the full step's; the phase's spans
+              exported (``tracing.export``) and aggregated
+              (``profile_analyzer``).
    samediff_bert — a SameDiff BERT-base SQuAD fine-tune (BASELINE
               config 3): ``samediff_qa_graph`` records the QA model at
               ``BertConfig.base()`` width (108,893,186 parameters) into a
@@ -189,6 +209,12 @@ exits non-zero without printing a result:
               p99 and the census after warmup (must be 0). The path runs
               none of the five kernels (the JAX package's SameDiff
               attention is plain XLA).
+   precision — the same QA graph and batches, 4 ``fit`` steps from the
+              same weights at ``matmul_precision`` "highest" and at
+              "high": samples/s, device and GEMM ms a step and the GEMM
+              kernels' names; TF32 GEMMs under "high" only, finite losses
+              whose first values agree within 1e-2, the property and the
+              TF32 flags restored.
    seq2seq  — BASELINE config 4's Seq2Seq LSTM at bench.py's widths
               (``models.seq2seq``: vocab 8000, embed 256, hidden 512,
               f32 without TF32, B=128, S=32, ids from ``RandomState(0)``,
@@ -2947,8 +2973,8 @@ def phase_resnet50():
     step by kernel, busy share); then an f32 copy of the trained weights:
     its ``output()`` and pooled features on the card against the CPU's
     with TF32 switched on in the process (``RESNET_F32_ATOL``,
-    ``RESNET_F32_FEATURE_RTOL``). Returns the trained network and the
-    first batch's images."""
+    ``RESNET_F32_FEATURE_RTOL``). Returns the trained network, the first
+    batch's images and the phase's record."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch.learning import tree_map
@@ -3047,7 +3073,315 @@ def phase_resnet50():
                            f" pooled features by {feat_err} of their "
                            f"largest (tol {RESNET_F32_FEATURE_RTOL})")
     del f32, cpu, params
-    return net, batches[0].features.torch()
+    return net, batches[0].features.torch(), rec
+
+
+# the transfer phase: BASELINE config 2's network fine-tuned as DL4J users
+# run it after training: saved, restored, its body frozen up to the pooled
+# features, its 1000-way head replaced by a 10-way one, then fit with early
+# stopping and checkpoints. TRANSFER_BATCHES training and TRANSFER_SCORE
+# scoring batches of RESNET_B synthetic images (BenchmarkDataSetIterator,
+# seeds 42 and 43) through a NormalizerStandardize fitted on the training
+# set; Adam(TRANSFER_LR) on the head; at most TRANSFER_EPOCHS epochs,
+# stopping after one without improvement; CheckpointListener keeping
+# TRANSFER_KEEP zips
+TRANSFER_CLASSES, TRANSFER_BATCHES, TRANSFER_SCORE = 10, 4, 2
+TRANSFER_LR, TRANSFER_EPOCHS, TRANSFER_KEEP = 1e-3, 3, 2
+# the trained network's batch-norm running statistics lag its weights
+# (resnet50's pooled features reach ~6e7 at inference), so a body frozen
+# as it is gives one-hot softmax rows and a head gradient of exactly 0:
+# NoOp-updater steps over the training batches first refresh the running
+# statistics (decay 0.9: within 0.9**20 = 12 % of the batch's) and leave
+# every weight as it was
+TRANSFER_RECALIBRATE = 20
+# the spans the phase prints from its exported chrome trace
+TRANSFER_TOP_SPANS = 10
+
+
+def normalized(iterator, normalizer):
+    """``iterator``'s DataSets through ``normalizer.transform``."""
+    from deeplearning4j_tpu_torch.datasets import DataSetIterator
+
+    class Normalized(DataSetIterator):
+        def has_next(self):
+            return iterator.has_next()
+
+        def next(self):
+            return normalizer.transform(iterator.next())
+
+        def reset(self):
+            iterator.reset()
+
+        def batch(self):
+            return iterator.batch()
+    return Normalized()
+
+
+def phase_transfer(net, images, full):
+    """The slice's main path on ``phase_resnet50``'s trained network
+    (BASELINE config 2's width, bf16 body, B=128):
+
+    1. ``net.save(zip, save_updater=True)`` and ``ComputationGraph.load(zip,
+       load_updater=True)`` on the card: the restored ``output()`` on the
+       first batch, its params, updater leaves, iteration and epoch must
+       equal the network's bit for bit, and ``restore_model(zip)`` and
+       ``ResNet50(...).init_pretrained(path=zip)`` must give the same
+       output; the file's MB and the save and load seconds are printed;
+    2. the restored network's running statistics refreshed
+       (TRANSFER_RECALIBRATE steps under ``NoOp``), then
+       ``TransferLearning.GraphBuilder`` with Adam(TRANSFER_LR),
+       ``set_feature_extractor("avgpool")``, ``n_out_replace("output",
+       10)``;
+    3. ``EarlyStoppingTrainer.fit`` (the data, termination, scoring and
+       savers above): every frozen parameter and batch-norm running
+       statistic must be bit-identical after it, the head's params must
+       have changed, the losses be finite, the best model read back from
+       disk must give the output of the in-memory copy taken when it was
+       saved, and exactly TRANSFER_KEEP checkpoint zips must remain;
+    4. a ``ShardedCheckpointer`` (keep 2) over 3 saves: the retained
+       steps, and the restored graph's ``output()`` equal to the
+       fine-tuned graph's;
+    5. a fine-tune step's host and device ms by kernel class, busy share
+       and peak memory beside ``full``'s (the whole network's step);
+    6. the phase's spans exported with ``tracing.export`` into the build
+       directory and read back with ``profile_analyzer.aggregate``."""
+    import copy
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common import profile_analyzer, tracing
+    from deeplearning4j_tpu_torch.datasets import (BenchmarkDataSetIterator,
+                                                   DataSet,
+                                                   NormalizerStandardize)
+    from deeplearning4j_tpu_torch.kernels._build import BUILD_DIR
+    from deeplearning4j_tpu_torch.learning import Adam, NoOp
+    from deeplearning4j_tpu_torch.nn.checkpoint import ShardedCheckpointer
+    from deeplearning4j_tpu_torch.nn.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.listeners import (CheckpointListener,
+                                                       CollectScoresListener)
+    from deeplearning4j_tpu_torch.nn.serde import _leaves, restore_model
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    t_phase = time.perf_counter()
+    tracing.tracer().clear()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="transfer-")
+    rec = {"phase": "transfer", "B": RESNET_B, "classes": TRANSFER_CLASSES}
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    try:
+        # 1. the serde round trip on the card
+        zpath = os.path.join(tmp, "resnet50.zip")
+        with tracing.span("transfer/save"):
+            t0 = time.perf_counter()
+            net.save(zpath, save_updater=True)
+            rec["save_s"] = time.perf_counter() - t0
+        rec["zip_mb"] = os.path.getsize(zpath) / 1e6
+        with tracing.span("transfer/load"):
+            t0 = time.perf_counter()
+            restored = ComputationGraph.load(zpath, load_updater=True)
+            torch.cuda.synchronize()
+            rec["load_s"] = time.perf_counter() - t0
+        want = net.output(images)[0].torch()
+        got = restored.output(images)[0].torch()
+        by_model = restore_model(zpath).output(images)[0].torch()
+        by_zoo = ResNet50(num_classes=RESNET_CLASSES,
+                          input_shape=RESNET_SHAPE,
+                          dtype="bfloat16").init_pretrained(
+            path=zpath).output(images)[0].torch()
+        rec["restore"] = {
+            "output_same_bits": torch.equal(want, got),
+            "updater_same_bits": same(_leaves(net._updater_state),
+                                      _leaves(restored._updater_state)),
+            "params_same_bits": same(_leaves(net._params),
+                                     _leaves(restored._params)),
+            "iteration_epoch": [restored._iteration, restored._epoch],
+            "want_iteration_epoch": [net._iteration, net._epoch],
+            "restore_model_same_bits": torch.equal(want, by_model),
+            "init_pretrained_same_bits": torch.equal(want, by_zoo)}
+        del by_model, by_zoo
+        # 2. refresh the running statistics, freeze the body, replace the
+        # head
+        train = BenchmarkDataSetIterator(
+            (RESNET_B,) + RESNET_SHAPE, TRANSFER_CLASSES, TRANSFER_BATCHES,
+            seed=42)
+        scoring = BenchmarkDataSetIterator(
+            (RESNET_B,) + RESNET_SHAPE, TRANSFER_CLASSES, TRANSFER_SCORE,
+            seed=43)
+        t0 = time.perf_counter()
+        norm = NormalizerStandardize().fit(train)
+        rec["normalizer_fit_s"] = time.perf_counter() - t0
+        staged = [norm.transform(train.next())
+                  for _ in range(TRANSFER_BATCHES)]
+        train.reset()
+        conf = copy.deepcopy(restored.conf)
+        conf.updater = NoOp()
+        body = ComputationGraph(conf).init(params=restored._params)
+        t0 = time.perf_counter()
+        x0 = staged[0].features
+        body.fit(DataSet(x0, x0.torch().new_zeros(
+            (RESNET_B, RESNET_CLASSES))), num_epochs=TRANSFER_RECALIBRATE)
+        torch.cuda.synchronize()
+        rec["recalibrate_s"] = time.perf_counter() - t0
+        rec["recalibrated_weights_same_bits"] = all(
+            torch.equal(v, restored._params[n][k])
+            for n, p in body._params.items() for k, v in p.items()
+            if not k.startswith("state_"))
+        rec["pooled_features_max_abs"] = {
+            "trained": float(restored.feed_forward(
+                staged[0].features)["avgpool"].torch().abs().max()),
+            "recalibrated": float(body.feed_forward(
+                staged[0].features)["avgpool"].torch().abs().max())}
+        tl = TransferLearning.GraphBuilder(body) \
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater=Adam(TRANSFER_LR))) \
+            .set_feature_extractor("avgpool") \
+            .n_out_replace("output", TRANSFER_CLASSES).build()
+        frozen = {n: {k: v.clone() for k, v in p.items()}
+                  for n, p in tl._params.items()
+                  if any(k.startswith("state_frozen__") for k in p)}
+        head0 = {k: v.clone() for k, v in tl._params["output"].items()}
+        rec["frozen_vertices"] = len(frozen)
+        rec["trainable_params"] = tl.num_params()
+        # 3. early stopping with checkpoints
+        kept = {}
+
+        class Saver(LocalFileModelSaver):
+            """The file saver, also keeping the in-memory copy it wrote,
+            to hold the copy read back from disk against."""
+
+            def save_best_model(self, model, score):
+                super().save_best_model(model, score)
+                kept["best"] = model.clone()
+        ckdir = os.path.join(tmp, "checkpoints")
+        scores = CollectScoresListener()
+        tl.set_listeners(scores, CheckpointListener(
+            ckdir, save_every_n_epochs=1, keep_last=TRANSFER_KEEP))
+        cfg = EarlyStoppingConfiguration.builder() \
+            .score_calculator(DataSetLossCalculator(
+                normalized(scoring, norm))) \
+            .epoch_termination_conditions(
+                MaxEpochsTerminationCondition(TRANSFER_EPOCHS),
+                ScoreImprovementEpochTerminationCondition(1)) \
+            .model_saver(Saver(os.path.join(tmp, "earlystopping"))).build()
+        with tracing.span("transfer/early_stopping"):
+            t0 = time.perf_counter()
+            result = EarlyStoppingTrainer(cfg, tl).fit(
+                normalized(train, norm))
+            torch.cuda.synchronize()
+            rec["early_stopping_s"] = time.perf_counter() - t0
+        tl.set_listeners()
+        x = norm.transform_array(images)
+        best = result.get_best_model()
+        frozen_same = all(torch.equal(v, tl._params[n][k])
+                          for n, p in frozen.items() for k, v in p.items())
+        stats_same = all(torch.equal(v, tl._params[n][k])
+                         for n, p in frozen.items() for k, v in p.items()
+                         if k.startswith("state_frozen__state_"))
+        left = sorted(os.listdir(ckdir))
+        losses = [float(v) for v in scores.scores]
+        rec["early_stopping"] = {
+            "termination_reason": result.termination_reason,
+            "termination_details": result.termination_details,
+            "best_model_epoch": result.best_model_epoch,
+            "best_model_score": result.best_model_score,
+            "total_epochs": result.total_epochs, "losses": losses,
+            "frozen_params_same_bits": frozen_same,
+            "frozen_bn_stats_same_bits": stats_same,
+            "frozen_bn_stats": sum(
+                1 for p in frozen.values() for k in p
+                if k.startswith("state_frozen__state_")),
+            "head_changed": any(not torch.equal(v, tl._params["output"][k])
+                                for k, v in head0.items()),
+            "best_from_disk_same_output_bits": torch.equal(
+                best.output(x)[0].torch(),
+                kept["best"].output(x)[0].torch()),
+            "checkpoints_left": left}
+        del best, kept["best"]
+        # 4. the step checkpointer: 3 saves, 2 kept, a bit-exact restore
+        ck = ShardedCheckpointer(os.path.join(tmp, "sharded"), keep_last=2)
+        with tracing.span("transfer/sharded_checkpoint"):
+            t0 = time.perf_counter()
+            for step in (1, 2, 3):
+                ck.save(step, tl)
+            rec["sharded_save_s"] = (time.perf_counter() - t0) / 3
+        fresh = TransferLearning.GraphBuilder(body) \
+            .set_feature_extractor("avgpool") \
+            .n_out_replace("output", TRANSFER_CLASSES).build()
+        ck.restore(fresh)
+        ck.close()
+        rec["sharded"] = {
+            "steps": ck.all_steps(),
+            "output_same_bits": torch.equal(fresh.output(x)[0].torch(),
+                                            tl.output(x)[0].torch()),
+            "iteration_epoch": [fresh._iteration, fresh._epoch],
+            "want_iteration_epoch": [tl._iteration, tl._epoch]}
+        del fresh
+        # 5. a fine-tune step on the staged path, beside the full step
+        tl.fit(staged, num_epochs=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tl.fit(staged, num_epochs=1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TRANSFER_BATCHES
+        by_name = {k: v / TRANSFER_BATCHES for k, v in device_ms_by_kernel(
+            lambda: tl.fit(staged, num_epochs=1), 1).items()}
+        device_ms = sum(by_name.values())
+        groups = {}
+        for k, v in by_name.items():
+            g = kernel_group(k)
+            groups[g] = groups.get(g, 0.0) + v
+        rec["step"] = {
+            "host_ms": step_ms, "samples_per_s": RESNET_B * 1e3 / step_ms,
+            "device_ms": device_ms, "busy_share": device_ms / step_ms,
+            "ms_by_group": groups,
+            "full_step_host_ms": full["step_ms"],
+            "full_step_device_ms": full["device_ms_per_step"],
+            "full_ms_by_group": full["ms_per_step_by_group"],
+            "device_vs_full": device_ms / full["device_ms_per_step"]}
+        rec["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        # 6. the phase's spans, exported and read back
+        trace = str(BUILD_DIR / "transfer_spans.json")
+        rec["spans_exported"] = tracing.export(trace)
+        agg = profile_analyzer.aggregate(profile_analyzer.load_trace(trace))
+        rec["top_spans_ms"] = [
+            [name, t["count"], t["total_us"] / 1e3] for name, t in sorted(
+                agg.items(), key=lambda kv: -kv[1]["total_us"])
+        ][:TRANSFER_TOP_SPANS]
+        rec["seconds"] = time.perf_counter() - t_phase
+        emit(rec)
+        r, es, sh = rec["restore"], rec["early_stopping"], rec["sharded"]
+        if not (r["output_same_bits"] and r["updater_same_bits"]
+                and r["params_same_bits"]
+                and rec["recalibrated_weights_same_bits"]
+                and r["iteration_epoch"] == r["want_iteration_epoch"]
+                and r["restore_model_same_bits"]
+                and r["init_pretrained_same_bits"]):
+            raise RuntimeError(f"the restored network differs: {r}")
+        if not (es["frozen_params_same_bits"] and es["frozen_bn_stats"] > 0
+                and es["frozen_bn_stats_same_bits"] and es["head_changed"]
+                and losses and np.isfinite(losses).all()
+                and np.isfinite(es["best_model_score"])
+                and es["best_from_disk_same_output_bits"]
+                and len(left) == TRANSFER_KEEP):
+            raise RuntimeError(f"the fine-tune failed its checks: {es}")
+        if not (sh["steps"] == [2, 3] and sh["output_same_bits"]
+                and sh["iteration_epoch"] == sh["want_iteration_epoch"]):
+            raise RuntimeError(f"the step checkpointer: {sh}")
+        if not (np.isfinite(device_ms) and device_ms > 0):
+            raise RuntimeError(f"the fine-tune step: {rec['step']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def resnet_check(results, requests, pool_refs, atol):
@@ -3313,7 +3647,8 @@ def phase_samediff_bert():
     with the same output bits; then the graph deployed as ``sdbert:v1``
     behind a ``ModelServer`` (warmed over 1..8) answering SD_CLIENTS
     client processes of SD_REQUESTS placeholder-dict requests, each held
-    against the graph's own ``output()``."""
+    against the graph's own ``output()``. Returns the trained graph and
+    its batches."""
     import tempfile
     import numpy as np
     import torch
@@ -3518,8 +3853,105 @@ def phase_samediff_bert():
         raise RuntimeError("the loaded graph's output differs in bits")
     if census != 0 or err > SD_PREDICT_ATOL:
         raise RuntimeError(f"the predict route: {rec['predict']}")
-    del sd, batches
-    torch.cuda.empty_cache()
+    return sd, batches
+
+
+# the precision phase: the samediff_bert phase's trained QA graph and
+# batches, PRECISION_STEPS fit steps from the same weights at each
+# matmul_precision level after one warm step at it; the first losses of
+# the two levels within PRECISION_LOSS_RTOL of each other (relative): the
+# same forward, f32 against TF32 products (10-bit mantissa, ~1e-3 relative
+# on each product, averaged through 12 layers and a mean over 32 x 2
+# cross entropies of about ln 384)
+PRECISION_LEVELS = ("highest", "high")
+PRECISION_STEPS, PRECISION_PROFILED = 4, 2
+PRECISION_LOSS_RTOL = 1e-2
+
+
+def phase_precision(sd, batches):
+    """``set_property("matmul_precision", ...)`` on the SameDiff QA step
+    (BASELINE config 3's shape, B=32, T=384, f32): for each level of
+    PRECISION_LEVELS, from the same weights and updater state,
+    PRECISION_STEPS ``fit`` steps timed (host clock) and
+    PRECISION_PROFILED under ``torch.profiler`` (device ms a step, GEMM ms
+    and the GEMM kernels' names). TF32 tensor-core GEMMs (``tf32`` in the
+    name) must appear under "high" and none under "highest"; both loss
+    trajectories must be finite and their first losses agree within
+    PRECISION_LOSS_RTOL. The property is restored before the phase ends."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.learning import tree_map
+    env = environment()
+    prev = env.property_override("matmul_precision")
+    flags = [torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32]
+    arrays0 = {k: v.clone() for k, v in sd._arrays.items()}
+    updater0 = tree_map(torch.clone, sd._updater_state)
+    steps = batches[:PRECISION_STEPS]
+    prof = batches[PRECISION_STEPS:PRECISION_STEPS + PRECISION_PROFILED]
+
+    def reset():
+        sd._arrays.update({k: v.clone() for k, v in arrays0.items()})
+        sd._updater_state = tree_map(torch.clone, updater0)
+    rec = {"phase": "precision", "B": SD_B, "T": SD_T,
+           "steps": PRECISION_STEPS, "levels": {}}
+    try:
+        for level in PRECISION_LEVELS:
+            env.set_property("matmul_precision", level)
+            reset()
+            sd.fit(batches[:1], num_epochs=1)   # the level's first GEMMs
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = sd.fit(steps, num_epochs=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_name = {k: v / len(prof) for k, v in device_ms_by_kernel(
+                lambda: sd.fit(prof, num_epochs=1), 1).items()}
+            gemms = {k: v for k, v in by_name.items()
+                     if kernel_group(k, SD_KERNEL_GROUPS) == "gemm"}
+            device_ms = sum(by_name.values())
+            rec["levels"][level] = {
+                "tf32_flag": torch.backends.cuda.matmul.allow_tf32,
+                "losses": hist.loss_curves[0].losses,
+                "samples_per_s": len(steps) * SD_B / wall,
+                "host_ms_per_step": wall * 1e3 / len(steps),
+                "device_ms_per_step": device_ms,
+                "busy_share": device_ms / (wall * 1e3 / len(steps)),
+                "gemm_ms_per_step": sum(gemms.values()),
+                "gemm_kernels": sorted(
+                    [[k[:120], v] for k, v in gemms.items()],
+                    key=lambda kv: -kv[1])[:8],
+                "tf32_gemm_kernels": sum(1 for k in gemms
+                                         if "tf32" in k.lower())}
+    finally:
+        env.set_property("matmul_precision", "default")
+        if prev is None:
+            env.clear_property("matmul_precision")
+        else:
+            env.set_property("matmul_precision", prev)
+        reset()
+        del arrays0, updater0
+    hi, lo = (rec["levels"][lv] for lv in PRECISION_LEVELS)
+    a, b = np.asarray(hi["losses"]), np.asarray(lo["losses"])
+    rec["loss_max_rel_diff"] = float(np.max(np.abs(a - b) / np.abs(a)))
+    rec["first_loss_rel_diff"] = float(abs(a[0] - b[0]) / abs(a[0]))
+    rec["speedup_samples_per_s"] = lo["samples_per_s"] / hi["samples_per_s"]
+    rec["gemm_ms_ratio"] = hi["gemm_ms_per_step"] / lo["gemm_ms_per_step"]
+    rec["flags_after"] = [torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32]
+    emit(rec)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()
+            and rec["first_loss_rel_diff"] <= PRECISION_LOSS_RTOL):
+        raise RuntimeError(f"the two levels' losses: {a} / {b}")
+    if hi["tf32_gemm_kernels"] or not lo["tf32_gemm_kernels"]:
+        raise RuntimeError(
+            f"TF32 GEMMs under 'highest': {hi['tf32_gemm_kernels']}, under "
+            f"'high': {lo['tf32_gemm_kernels']}")
+    if rec["flags_after"] != flags:
+        raise RuntimeError(f"the TF32 flags {rec['flags_after']} were not "
+                           f"restored to {flags}")
 
 
 # the recurrent phases' kernel classes: cuBLAS / CUTLASS GEMMs (the f32
@@ -3969,14 +4401,18 @@ def main():
     phase_fleet(mlp_f32, mlp_pool)
     del mlp_f32, mlp_pool
     torch.cuda.empty_cache()
-    resnet, images = phase_resnet50()
+    resnet, images, resnet_rec = phase_resnet50()
+    phase_transfer(resnet, images, resnet_rec)
     resnet_launches, resnet_twin = phase_resnet50_int8(resnet, images)
     if resnet_launches < 1:
         raise RuntimeError("kernel dequant_matmul was never launched on "
                            "resnet50_int8's main path")
     del resnet, images
     torch.cuda.empty_cache()
-    phase_samediff_bert()
+    qa_graph, qa_batches = phase_samediff_bert()
+    phase_precision(qa_graph, qa_batches)
+    del qa_graph, qa_batches
+    torch.cuda.empty_cache()
     phase_seq2seq()
     phase_text_lstm()
     phase_word2vec()

@@ -95,3 +95,5 @@ Ported so far:
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 """
+
+from .common.config import get_environment  # noqa: E402,F401

@@ -1,17 +1,24 @@
-"""Runtime configuration: the knobs the serving and decode paths read.
+"""Runtime configuration: the layered properties of the JAX package.
 
-The JAX package's ``common/environment.py`` resolves about a hundred
-properties; the port keeps those that its modules read, with the same
-defaults and the same ``DL4J_TPU_*`` variable names, so one deployment's
-environment configures either package. Resolution order is the
-reference's: a programmatic ``set_property`` override, else the
-environment variable, else the default.
+Counterpart of ``deeplearning4j_tpu/common/environment.py``: every name
+of its ``SystemProperties`` resolves here under the same ``DL4J_TPU_*``
+variable(s) and default, so one deployment's environment configures
+either package. Resolution order is the reference's: a programmatic
+``set_property`` override, else the first environment variable set, else
+the default.
 
-The JAX package's TPU gates (``DL4J_TPU_PAGED_KERNEL``,
-``DL4J_TPU_FUSED_DEQUANT``, ``DL4J_TPU_FLASH_MIN_SEQ``) have no
-counterpart: they encoded Mosaic tiling facts. In the port the tensor's
-device decides: a CUDA tensor goes to the hand-written kernel, a CPU
-tensor to its plain PyTorch version.
+``matmul_precision`` is applied where the JAX package applies it, in
+``set_property``: "high" / "tensorfloat32" lets the f32 products inside
+``nn.fit_fastpath.full_f32`` scopes (the layer API and SameDiff) run on
+TF32 tensor cores; "highest" / "float32" and the default keep them in
+full f32. As in the JAX package, the environment variable alone applies
+nothing.
+
+The JAX package's TPU switches (``flash_min_seq``, ``paged_kernel``,
+``fused_dequant``, ``xla_cache``, ``eager_jit``) are carried as readable
+properties that change nothing: in the port the tensor's device decides,
+a CUDA tensor always takes the hand-written kernel and a CPU tensor its
+plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -19,13 +26,37 @@ import os
 import threading
 from typing import Any, Callable, Dict, Optional
 
-#: property name -> (environment variable, default)
+#: property name -> (environment variable(s), default); a tuple of
+#: variables means "first one set wins" (legacy spellings trail), None no
+#: variable, and a None default resolves to the getter's own fallback
 _PROPS: Dict[str, tuple] = {
+    "dtype": (("DL4J_TPU_DEFAULT_DTYPE", "DL4J_TPU_DTYPE"), "float32"),
+    "debug": ("DL4J_TPU_DEBUG", "0"),
+    "verbose": ("DL4J_TPU_VERBOSE", "0"),
+    "max_threads": ("DL4J_TPU_MAX_THREADS", None),
+    "matmul_precision": ("DL4J_TPU_MATMUL_PRECISION", "default"),
+    "nan_panic": ("DL4J_TPU_NAN_PANIC", "0"),
+    "inf_panic": ("DL4J_TPU_INF_PANIC", "0"),
+    "profiling": ("DL4J_TPU_PROFILING", "0"),
+    "eager_jit": ("DL4J_TPU_EAGER_JIT", "1"),
+    "home": ("DL4J_TPU_HOME", "~/.deeplearning4j_tpu"),
+    "lock_check": ("DL4J_TPU_LOCK_CHECK", "0"),
+    "resources_dir": ("ND4J_RESOURCES_DIR", None),
+    "log_initialization": (None, "1"),
+    "cache_max_bytes": ("DL4J_TPU_CACHE_MAX_BYTES", str(2 << 30)),
+    "cache_tier": ("DL4J_TPU_CACHE_TIER", "auto"),
+    "xla_cache": ("DL4J_TPU_XLA_CACHE", "auto"),
+    "warmup_threads": ("DL4J_TPU_WARMUP_THREADS", "0"),
+    "flash_min_seq": ("DL4J_TPU_FLASH_MIN_SEQ", "1024"),
+    "paged_kernel": ("DL4J_TPU_PAGED_KERNEL", "auto"),
+    "fused_dequant": ("DL4J_TPU_FUSED_DEQUANT", "auto"),
+    "training_zero1": ("DL4J_TPU_ZERO1", "0"),
+    "faults": ("DL4J_TPU_FAULTS", ""),
     "decode_slots": ("DL4J_TPU_DECODE_SLOTS", "8"),
     "decode_max_ctx": ("DL4J_TPU_DECODE_MAX_CTX", "256"),
     "decode_max_tokens": ("DL4J_TPU_DECODE_MAX_TOKENS", "128"),
-    "kv_block_size": ("DL4J_TPU_KV_BLOCK_SIZE", "16"),
-    "spec_draft_k": ("DL4J_TPU_SPEC_DRAFT_K", "0"),
+    "kv_block_size": ("DL4J_TPU_KV_BLOCK_SIZE", None),
+    "spec_draft_k": ("DL4J_TPU_SPEC_DRAFT_K", None),
     "prefix_cache": ("DL4J_TPU_PREFIX_CACHE", "1"),
     "slo_latency_ms": ("DL4J_TPU_SLO_LATENCY_MS", "0"),
     "engine_max_restarts": ("DL4J_TPU_ENGINE_MAX_RESTARTS", "5"),
@@ -76,6 +107,22 @@ _PROPS: Dict[str, tuple] = {
 }
 
 
+class SystemProperties:
+    """Programmatic property keys (``ND4JSystemProperties`` analog): one
+    upper-case attribute per property name, as the JAX package's."""
+
+
+class EnvironmentVars:
+    """The environment variables the properties read
+    (``ND4JEnvironmentVars`` analog), each under its own name."""
+
+
+for _name, (_envs, _) in _PROPS.items():
+    setattr(SystemProperties, _name.upper(), _name)
+    for _env in (_envs,) if isinstance(_envs, str) else _envs or ():
+        setattr(EnvironmentVars, _env, _env)
+
+
 def _int(v, default: int, lo: int) -> int:
     try:
         return max(int(v), lo)
@@ -113,16 +160,24 @@ class Environment:
                     cls._instance = Environment()
         return cls._instance
 
-    def property(self, key: str) -> Optional[str]:
+    def property(self, key: str, default: Optional[str] = None
+                 ) -> Optional[str]:
         if key in self._overrides:
             return self._overrides[key]
-        env_name, default = _PROPS[key]
-        return os.environ.get(env_name, default)
+        env_names, fallback = _PROPS.get(key, (None, default))
+        if isinstance(env_names, str):
+            env_names = (env_names,)
+        for env_name in env_names or ():
+            if env_name in os.environ:
+                return os.environ[env_name]
+        return default if fallback is None else fallback
 
     def set_property(self, key: str, value: Any):
         if key not in _PROPS:
             raise KeyError(f"unknown property {key!r}")
         self._overrides[key] = str(value)
+        if key == "matmul_precision":
+            _apply_matmul_precision(str(value))
         return self
 
     def property_override(self, key: str) -> Optional[str]:
@@ -137,6 +192,145 @@ class Environment:
 
     def _flag(self, key: str) -> bool:
         return self.property(key) not in ("0", "false", None)
+
+    def _on(self, key: str) -> bool:
+        """The JAX package's ``_flag``: "" reads as off too."""
+        return self.property(key) not in ("0", "false", "", None)
+
+    # -- the reference Environment getters (common/config.py reads them) --
+    def is_debug(self) -> bool:
+        return self._flag("debug")
+
+    def is_verbose(self) -> bool:
+        return self._flag("verbose")
+
+    def set_debug(self, v: bool):
+        return self.set_property("debug", "1" if v else "0")
+
+    def set_verbose(self, v: bool):
+        return self.set_property("verbose", "1" if v else "0")
+
+    def max_threads(self) -> int:
+        """Host threads for the data pipeline (``DL4J_TPU_MAX_THREADS``;
+        unset: the CPU count)."""
+        v = self.property("max_threads")
+        return int(v) if v else os.cpu_count() or 1
+
+    def default_float_dtype(self) -> str:
+        """Default float dtype (``DL4J_TPU_DEFAULT_DTYPE``, the legacy
+        ``DL4J_TPU_DTYPE`` second in line)."""
+        return self.property("dtype")
+
+    def set_default_float_dtype(self, dtype: str):
+        return self.set_property("dtype", dtype)
+
+    def matmul_precision(self) -> str:
+        """The ``matmul_precision`` property as resolved; what the products
+        run in is the level last applied by ``set_property`` (see the
+        module docstring)."""
+        return self.property("matmul_precision")
+
+    def nan_panic(self) -> bool:
+        """Halt on NaN outputs (reference OpExecutioner.ProfilingMode); a
+        flag the port carries, as the JAX package does."""
+        return self._on("nan_panic")
+
+    def inf_panic(self) -> bool:
+        return self._on("inf_panic")
+
+    def profiling_enabled(self) -> bool:
+        """Op-level profiling collection (``DL4J_TPU_PROFILING``)."""
+        return self._on("profiling")
+
+    def eager_jit(self) -> bool:
+        """The JAX package's per-op jit cache toggle
+        (``DL4J_TPU_EAGER_JIT``). The port compiles nothing per op, so the
+        property changes nothing here."""
+        return self._on("eager_jit")
+
+    def home_dir(self) -> str:
+        """Root of user-local artifacts, the pretrained-model cache
+        (``DL4J_TPU_HOME``, default ``~/.deeplearning4j_tpu``)."""
+        return os.path.expanduser(self.property("home")
+                                  or "~/.deeplearning4j_tpu")
+
+    def resources_dir(self) -> Optional[str]:
+        """``ND4J_RESOURCES_DIR``, expanded; None when unset."""
+        d = self.property("resources_dir")
+        return os.path.expanduser(d) if d else None
+
+    def lock_check(self) -> bool:
+        """Whether the ``common.locks`` lock-order tracker is armed
+        (``DL4J_TPU_LOCK_CHECK``; the tracker reads it at import, flip it
+        at run time with ``locks.set_lock_check``)."""
+        return self._on("lock_check")
+
+    def log_initialization(self) -> bool:
+        """The reference's log-on-init switch (no variable, default on)."""
+        return self._on("log_initialization")
+
+    def faults_spec(self) -> str:
+        """The ``DL4J_TPU_FAULTS`` rule spec that ``faults.load_env``
+        arms ("" = no injection)."""
+        return self.property("faults") or ""
+
+    def warmup_threads(self) -> int:
+        """Thread-pool width for ``InferenceEngine.warmup``; 0 = auto
+        (``DL4J_TPU_WARMUP_THREADS``)."""
+        return _int(self.property("warmup_threads"), 0, 0)
+
+    # -- compile cache and parallelism (ROADMAP.md queue 1 items 10-11) ---
+    def cache_max_bytes(self) -> int:
+        """LRU size cap of the executable store
+        (``DL4J_TPU_CACHE_MAX_BYTES``); read by the compile cache, which
+        queue 1 item 11 ports."""
+        try:
+            return int(self.property("cache_max_bytes"))
+        except (TypeError, ValueError):
+            return 2 << 30
+
+    def cache_tier(self) -> str:
+        """Store-tier policy (``DL4J_TPU_CACHE_TIER``): "auto", "local",
+        "remote" or "tiered"; applied by the compile cache (item 11)."""
+        v = str(self.property("cache_tier") or "auto").lower()
+        return v if v in ("auto", "local", "remote", "tiered") else "auto"
+
+    def training_zero1(self) -> bool:
+        """ZeRO-1 optimizer-state sharding (``DL4J_TPU_ZERO1``); applied by
+        the parallel trainers, which queue 1 item 10 ports."""
+        return self.property("training_zero1") not in (
+            "0", "false", "off", None)
+
+    # -- TPU and XLA switches: read, applied to nothing ------------------
+    def xla_cache(self) -> str:
+        """The JAX package's ``jax_compilation_cache_dir`` policy
+        (``DL4J_TPU_XLA_CACHE``). The port has no XLA; the property
+        changes nothing."""
+        v = str(self.property("xla_cache") or "auto").lower()
+        return v if v in ("auto", "on", "off") else "auto"
+
+    def flash_min_seq(self) -> int:
+        """The JAX package's shortest sequence for its Pallas flash kernel
+        (``DL4J_TPU_FLASH_MIN_SEQ``). It changes nothing in the port: a
+        CUDA tensor always takes the flash kernels."""
+        try:
+            return int(self.property("flash_min_seq"))
+        except (TypeError, ValueError):
+            return 1024
+
+    def paged_kernel(self) -> str:
+        """The JAX package's Pallas paged-decode policy
+        (``DL4J_TPU_PAGED_KERNEL``). It changes nothing in the port: a
+        CUDA tensor always takes the paged-decode kernel."""
+        v = str(self.property("paged_kernel") or "auto").lower()
+        return v if v in ("auto", "on", "off") else "auto"
+
+    def fused_dequant(self) -> str:
+        """The JAX package's Pallas int8 dequant-matmul policy
+        (``DL4J_TPU_FUSED_DEQUANT``). It changes nothing in the port: a
+        CUDA tensor always takes the dequant-matmul kernel."""
+        v = str(self.property("fused_dequant") or "auto").lower()
+        return v if v in ("auto", "on", "off") else "auto"
 
     # -- generative decode knobs (runtime/generation.py) -------------------
     def decode_slots(self) -> int:
@@ -526,6 +720,48 @@ class Environment:
         """Dispatch-watchdog budget as a multiple of the default serving
         deadline (``DL4J_TPU_WATCHDOG_FACTOR``); <= 0 disables it."""
         return _float(self.property("watchdog_factor"), 3.0)
+
+#: the level ``set_property("matmul_precision", ...)`` last applied: True
+#: lets ``full_f32`` scopes run f32 products on TF32 tensor cores
+_TF32 = False
+#: the process's TF32 flags before the first explicit level, which the
+#: default level restores
+_FLAGS_BEFORE = None
+
+_TF32_LEVELS = ("high", "tensorfloat32")
+_F32_LEVELS = ("highest", "float32")
+_DEFAULT_LEVELS = ("default", "bfloat16", "fastest")
+
+
+def _apply_matmul_precision(precision: str):
+    """Map a JAX precision level onto the TF32 flags. "default" keeps the
+    port's behaviour (full f32 in ``full_f32`` scopes, the flags as they
+    were elsewhere): on a TPU it means bf16 passes, a fact of the MXU the
+    port does not carry over. An unknown level applies nothing, as in the
+    JAX package."""
+    global _TF32, _FLAGS_BEFORE
+    import torch
+    if precision not in _TF32_LEVELS + _F32_LEVELS + _DEFAULT_LEVELS:
+        return
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if precision in _DEFAULT_LEVELS:
+        _TF32 = False
+        if _FLAGS_BEFORE is not None:
+            flags, _FLAGS_BEFORE = _FLAGS_BEFORE, None
+    else:
+        if _FLAGS_BEFORE is None:
+            _FLAGS_BEFORE = flags
+        _TF32 = precision in _TF32_LEVELS
+        flags = (_TF32, _TF32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def tf32_applied() -> bool:
+    """Whether the applied ``matmul_precision`` level allows TF32."""
+    return _TF32
+
 
 def environment() -> Environment:
     return Environment.get()

@@ -1,23 +1,36 @@
-"""Deterministic fault injection + the retry/backoff policy of the decode
-loop's supervisor.
+"""Deterministic fault injection + the shared retry/backoff policy.
 
-A copy of what the decode engine uses from the JAX package's
-``common/faults.py`` (the port imports nothing from that package).
-Injection sites are string names on the hot paths (``decode.prefill``,
-``decode.step``, ``decode.loop``); every call site guards with
+Counterpart of the JAX package's ``common/faults.py`` (the port imports
+nothing from that package). Injection sites are string names on the hot
+paths (``decode.prefill``, ``decode.step``, ``decode.loop``,
+``http.handler``, ...); every call site guards with
 ``if faults.active():`` — one module-global bool read — so a process
-with no armed rule pays nothing. Rules are armed with :func:`inject` /
-:func:`injected`; a ``times`` budget and a ``predicate`` over the
-call-site context bound when one fires; :func:`stats` describes the armed
-rules. The HTTP handler's site is ``http.handler``.
+with no armed rule pays nothing.
+
+Rules are armed from ``DL4J_TPU_FAULTS="site:kind:rate:seed,..."`` at
+import (:func:`load_env`), from such a string (:func:`configure`), or
+programmatically (:func:`inject` / :func:`injected`, which add a bounded
+``times`` budget and a ``predicate`` over the call-site context). ``kind``
+is ``error`` (raise :class:`InjectedFault`) or ``delayNNN`` (sleep NNN
+ms); ``rate`` is drawn from a per-rule ``random.Random(seed)``, so one
+spec gives the same fault sequence on every run, in either package.
+:func:`stats` describes the armed rules.
+
+The module also owns the one exponential-backoff-with-jitter policy
+(:class:`ExponentialBackoff`, :class:`RetryPolicy`, :func:`retry_call`)
+the engine supervisors share.
 """
 from __future__ import annotations
 
+import logging
+import os
 import random
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 from .locks import ordered_lock
+
+log = logging.getLogger(__name__)
 
 
 class InjectedFault(RuntimeError):
@@ -25,8 +38,8 @@ class InjectedFault(RuntimeError):
     recovery paths treat it exactly like the real faults it stands in
     for."""
 
-    def __init__(self, site: str):
-        super().__init__(f"injected fault at site '{site}'")
+    def __init__(self, site: str, message: Optional[str] = None):
+        super().__init__(message or f"injected fault at site '{site}'")
         self.site = site
 
 
@@ -54,19 +67,23 @@ class _FaultRule:
         self.checked = 0
         self._lock = ordered_lock("faults.registry")
 
-    def fire(self, ctx: Dict[str, Any]) -> bool:
-        """Whether the rule fires for this call. The draw is taken under a
-        lock so the seeded stream stays one sequence."""
-        if self.predicate is not None and not self.predicate(ctx):
-            return False
+    def fire(self, ctx: Dict[str, Any]) -> Optional[str]:
+        """The kind to apply for this call, or None. The draw is taken
+        under a lock so the seeded stream stays one sequence."""
+        if self.predicate is not None:
+            try:
+                if not self.predicate(ctx):
+                    return None
+            except Exception:
+                return None  # a broken predicate must never inject
         with self._lock:
             self.checked += 1
             if self.times is not None and self.triggered >= self.times:
-                return False
+                return None
             if self.rate < 1.0 and self._rng.random() >= self.rate:
-                return False
+                return None
             self.triggered += 1
-        return True
+        return self.kind
 
     def describe(self) -> Dict[str, Any]:
         return {"site": self.site, "kind": self.kind, "rate": self.rate,
@@ -110,6 +127,61 @@ def remove(rule: _FaultRule):
         _active = bool(_RULES)
 
 
+def clear(site: Optional[str] = None):
+    """Disarm every rule (or just ``site``'s)."""
+    global _active
+    with _RULES_LOCK:
+        if site is None:
+            _RULES.clear()
+        else:
+            _RULES.pop(site, None)
+        _active = bool(_RULES)
+
+
+def configure(spec: Optional[str]) -> int:
+    """Replace the armed rules with a ``DL4J_TPU_FAULTS``-format string
+    (``site:kind:rate:seed,...``; rate and seed optional). A malformed
+    entry is skipped with a warning, so a typo'd spec degrades to "no
+    injection" and never stops a server starting. Returns the number of
+    rules armed."""
+    clear()
+    if not spec:
+        return 0
+    n = 0
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        fields = part.split(":")
+        try:
+            site = fields[0]
+            kind = fields[1] if len(fields) > 1 and fields[1] else "error"
+            rate = float(fields[2]) if len(fields) > 2 and fields[2] else 1.0
+            seed = int(fields[3]) if len(fields) > 3 and fields[3] else 0
+            delay_s = 0.05
+            if kind.startswith("delay"):
+                ms = kind[len("delay"):]
+                delay_s = (float(ms) / 1e3) if ms else 0.05
+                kind = "delay"
+            elif kind != "error":
+                raise ValueError(f"unknown fault kind '{kind}'")
+            if not site:
+                raise ValueError("empty site")
+            inject(site, kind=kind, rate=rate, seed=seed, delay_s=delay_s)
+            n += 1
+        except (ValueError, IndexError) as e:
+            log.warning("ignoring malformed DL4J_TPU_FAULTS entry %r (%s)",
+                        part, e)
+    return n
+
+
+def load_env() -> int:
+    """(Re)arm the rules from the ``faults`` property
+    (``DL4J_TPU_FAULTS``)."""
+    from .environment import environment
+    return configure(environment().faults_spec())
+
+
 class injected:
     """Scoped injection: ``with faults.injected("decode.step", times=1):``
     arms on entry, disarms on exit (exception-safe)."""
@@ -134,14 +206,15 @@ def check(site: str, **ctx):
     sleeps, for delay rules) when one fires. Call sites guard with
     :func:`active`."""
     for rule in list(_RULES.get(site, ())):
-        if not rule.fire(ctx):
+        kind = rule.fire(ctx)
+        if kind is None:
             continue
         from .metrics import registry
         registry().counter(
             "dl4j_faults_injected_total",
             "Faults fired by the injection registry, by site",
             labels=("site",)).labels(site=site).inc()
-        if rule.kind == "delay":
+        if kind == "delay":
             time.sleep(rule.delay_s)
         else:
             raise InjectedFault(site)
@@ -171,12 +244,26 @@ class ExponentialBackoff:
         self.attempt = 0
         self._rng = random.Random(seed)
 
+    def peek(self) -> float:
+        """The next delay before jitter, without advancing."""
+        return min(self.base_s * (self.factor ** self.attempt), self.max_s)
+
     def next_delay(self) -> float:
-        d = min(self.base_s * (self.factor ** self.attempt), self.max_s)
+        d = self.peek()
         self.attempt += 1
         if self.jitter > 0.0:
             d *= 1.0 - self.jitter * self._rng.random()
         return d
+
+    def reset(self):
+        """Re-arm after a healthy period."""
+        self.attempt = 0
+        return self
+
+
+class RetryBudgetExceeded(RuntimeError):
+    """A supervised retry loop exhausted its max-restart budget; carries
+    the last underlying failure as ``__cause__``."""
 
 
 class RetryPolicy:
@@ -188,14 +275,20 @@ class RetryPolicy:
     def __init__(self, max_restarts: int = 5, *, base_s: float = 0.05,
                  factor: float = 2.0, max_s: float = 5.0,
                  jitter: float = 0.5, seed: Optional[int] = 0,
-                 healthy_reset_s: float = 60.0, clock=time.monotonic):
+                 healthy_reset_s: float = 60.0, clock=time.monotonic,
+                 sleep=time.sleep):
         self.max_restarts = int(max_restarts)
         self.backoff = ExponentialBackoff(base_s, factor, max_s, jitter,
                                           seed)
         self.healthy_reset_s = float(healthy_reset_s)
         self._clock = clock
+        self._sleep = sleep
         self._restarts = 0
         self._last_failure: Optional[float] = None
+
+    @property
+    def restarts(self) -> int:
+        return self._restarts
 
     def note_failure(self) -> int:
         """Record one failure; returns the restart ordinal (1-based)."""
@@ -203,10 +296,47 @@ class RetryPolicy:
         if (self._last_failure is not None
                 and now - self._last_failure > self.healthy_reset_s):
             self._restarts = 0
-            self.backoff.attempt = 0
+            self.backoff.reset()
         self._last_failure = now
         self._restarts += 1
         return self._restarts
 
     def exhausted(self) -> bool:
         return self.max_restarts > 0 and self._restarts > self.max_restarts
+
+    def sleep(self):
+        """Sleep the next backoff delay."""
+        self._sleep(self.backoff.next_delay())
+
+    def reset(self):
+        self._restarts = 0
+        self._last_failure = None
+        self.backoff.reset()
+        return self
+
+
+def retry_call(fn: Callable, *, policy: Optional[RetryPolicy] = None,
+               retry_on=Exception,
+               on_retry: Optional[Callable[[BaseException, int], None]] = None):
+    """Call ``fn()`` under a :class:`RetryPolicy`: retried with backoff on
+    ``retry_on`` until the budget runs out, then
+    :class:`RetryBudgetExceeded` chained to the last failure."""
+    policy = policy if policy is not None else RetryPolicy()
+    while True:
+        try:
+            return fn()
+        except retry_on as e:
+            n = policy.note_failure()
+            if policy.exhausted():
+                raise RetryBudgetExceeded(
+                    f"retry budget ({policy.max_restarts}) exhausted"
+                ) from e
+            if on_retry is not None:
+                on_retry(e, n)
+            policy.sleep()
+
+
+# arm the rules DL4J_TPU_FAULTS names at import (off, and free, when it is
+# unset, the default)
+if os.environ.get("DL4J_TPU_FAULTS"):
+    load_env()

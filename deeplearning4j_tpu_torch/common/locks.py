@@ -38,7 +38,8 @@ log = logging.getLogger(__name__)
 
 __all__ = [
     "OrderedLock", "ordered_lock", "ordered_rlock", "ordered_condition",
-    "set_lock_check", "violations", "clear_violations",
+    "lock_check_enabled", "set_lock_check", "refresh_lock_check",
+    "violations", "clear_violations", "acquisition_edges",
 ]
 
 # meta-state. _META guards the edge/violation tables and is itself a raw
@@ -59,6 +60,10 @@ def _env_enabled() -> bool:
 _ENABLED = _env_enabled()
 
 
+def lock_check_enabled() -> bool:
+    return _ENABLED
+
+
 def set_lock_check(enabled: bool) -> bool:
     """Arm/disarm the tracker; returns the PREVIOUS state (so scopes can
     restore it)."""
@@ -68,6 +73,12 @@ def set_lock_check(enabled: bool) -> bool:
     return prev
 
 
+def refresh_lock_check() -> bool:
+    """Re-read ``DL4J_TPU_LOCK_CHECK`` (for tests that set it late)."""
+    set_lock_check(_env_enabled())
+    return _ENABLED
+
+
 def violations() -> List[dict]:
     """Recorded order inversions: ``{locks: (a, b), first: {thread,
     held, where}, second: {...}}`` — empty is the healthy state."""
@@ -75,13 +86,21 @@ def violations() -> List[dict]:
         return list(_VIOLATIONS)
 
 
-def clear_violations():
-    """Reset the violation list and the learned edge set (a test starts
-    from a clean graph)."""
+def clear_violations(edges: bool = True):
+    """Reset the violation list (and by default the learned edge set, so
+    a test starts from a clean graph)."""
     with _META:
         _VIOLATIONS.clear()
         _REPORTED.clear()
-        _EDGES.clear()
+        if edges:
+            _EDGES.clear()
+
+
+def acquisition_edges() -> Dict[Tuple[str, str], Tuple[str, ...]]:
+    """Snapshot of the observed order graph: ``{(held, acquired): held
+    stack at first observation}``."""
+    with _META:
+        return {k: v[1] for k, v in _EDGES.items()}
 
 
 def _where() -> str:

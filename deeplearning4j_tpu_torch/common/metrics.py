@@ -286,6 +286,10 @@ class MetricsRegistry:
         self._families: Dict[str, _Family] = {}
         self._lock = threading.Lock()
 
+    def set_enabled(self, v: bool):
+        self.enabled = bool(v)
+        return self
+
     def _get_or_create(self, name, help, kind, labels, buckets=None):
         fam = self._families.get(name)
         if fam is None:
@@ -316,6 +320,15 @@ class MetricsRegistry:
                   buckets: Optional[Sequence[float]] = None) -> _Family:
         b = tuple(sorted(float(x) for x in (buckets or DEFAULT_BUCKETS)))
         return self._get_or_create(name, help, "histogram", labels, b)
+
+    def get(self, name: str) -> Optional[_Family]:
+        return self._families.get(name)
+
+    def clear(self):
+        """Drop every registered family (test isolation)."""
+        with self._lock:
+            self._families.clear()
+        return self
 
     def snapshot(self) -> Dict[str, dict]:
         """JSON-able view: per family, the type/help and every labelled

@@ -26,6 +26,8 @@ context manager and ``record`` returns at once.
 from __future__ import annotations
 
 import contextvars
+import gzip
+import json
 import os
 import threading
 import time
@@ -244,6 +246,32 @@ class Tracer:
         return [e for e in self._events
                 if e.get("args", {}).get("trace_id") == trace_id]
 
+    def clear(self):
+        self._events.clear()
+        return self
+
+    def export(self, path: str) -> int:
+        """Write the buffer as a chrome trace JSON file (gzipped when the
+        path ends in .gz), which ``profile_analyzer.load_trace`` reads
+        back. Parent directories are created and the write is atomic (a
+        temporary file, then a rename). Returns the events written."""
+        events = self.events()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        opener = gzip.open if path.endswith(".gz") else open
+        tmp = f"{path}.tmp{os.getpid()}"
+        try:
+            with opener(tmp, "wt") as f:
+                json.dump({"traceEvents": events,
+                           "displayTimeUnit": "ms"}, f)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+        return len(events)
+
 
 
 def span_tree(events: List[dict]) -> List[dict]:
@@ -378,3 +406,9 @@ def span(name: str, **attrs):
     """``with span("serving/request", model=name): ...`` on the process
     tracer."""
     return tracer().span(name, **attrs)
+
+
+def export(path: str) -> int:
+    """The process tracer's buffer as a chrome trace file
+    (:meth:`Tracer.export`)."""
+    return tracer().export(path)

@@ -2,10 +2,12 @@
 
 Counterpart of ``deeplearning4j_tpu/datasets/iterators.py`` (the
 reference's DataSetIterator API): ``ListDataSetIterator``,
-``ArrayDataSetIterator`` and ``AsyncDataSetIterator``, whose worker
+``ArrayDataSetIterator``, ``AsyncDataSetIterator``, whose worker
 thread copies each batch to the device (``device=``, the card by
-default) while the consumer trains on the previous one. The benchmark
-and native-ring iterators wait (``ROADMAP.md`` queue 1 item 9).
+default) while the consumer trains on the previous one, and
+``BenchmarkDataSetIterator``, one fixed synthetic batch on the device.
+The native-ring iterator waits for ``native/`` (``ROADMAP.md`` queue 1
+item 11).
 """
 from __future__ import annotations
 
@@ -190,3 +192,51 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def batch(self):
         return self.underlying.batch()
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """One fixed synthetic batch, ``num_batches`` times, on ``device`` (the
+    card by default): isolates model throughput from the data pipeline
+    (reference ``BenchmarkDataSetIterator.java``).
+
+    Features are ``randn`` from the array factory's generator seeded with
+    ``seed`` (Philox, not the JAX package's values); the labels come from
+    ``np.random.RandomState(seed)``, so they equal the JAX package's."""
+
+    def __init__(self, feature_shape, num_classes: int, num_batches: int,
+                 dtype="float32", seed: int = 42, device="cuda"):
+        from ..ndarray import factory as nd
+        from ..nn.multilayer import resolve_device
+        dev = resolve_device(device)
+        nd.set_seed(seed)
+        self._features = NDArray(nd.randn(*feature_shape,
+                                          dtype=dtype).torch().to(dev))
+        labels_idx = np.random.RandomState(seed).randint(
+            0, num_classes, feature_shape[0])
+        self._labels = NDArray(nd.one_hot(labels_idx,
+                                          num_classes).torch().to(dev))
+        self.num_batches = num_batches
+        self._i = 0
+
+    def has_next(self):
+        return self._i < self.num_batches
+
+    def next(self):
+        self._i += 1
+        return DataSet(self._features, self._labels)
+
+    def reset(self):
+        self._i = 0
+
+    def batch(self):
+        return self._features.shape[0]
+
+
+class NativeBatchDataSetIterator(DataSetIterator):
+    """The C++ batch-assembler ring's iterator of the JAX package; it
+    waits for ``native/`` (``ROADMAP.md`` queue 1 item 11)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "NativeBatchDataSetIterator is not ported yet; it waits for "
+            "native/ (ROADMAP.md queue 1 item 11)")

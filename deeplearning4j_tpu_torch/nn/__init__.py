@@ -1,7 +1,9 @@
 """Layer-based NN API (the DL4J layer API): the configuration DSL,
 ``MultiLayerNetwork``, the ``ComputationGraph`` and its vertices,
-evaluation and listeners. SameDiff and the layers listed in
-``ROADMAP.md`` queue 1 item 9 wait for that item."""
+evaluation and listeners, and the training utilities (``serde``,
+``checkpoint``, ``earlystopping``, ``transferlearning``, ``solvers``).
+The layers listed in ``ROADMAP.md`` queue 1 item 9 wait for that
+item."""
 from .conf.config import (InputType, MultiLayerConfiguration,  # noqa: F401
                           NeuralNetConfiguration)
 from .conf import layers  # noqa: F401

@@ -3,10 +3,11 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers_extra.py``. Ported:
 the recurrent layers and their wrappers — ``SimpleRnn``, ``GRU``,
 ``GRUResetAfter``, ``LastTimeStep``, ``TimeDistributed``,
-``MaskZeroLayer``, ``MaskLayer`` and ``RnnLossLayer`` — as pure modules
-like ``conf/layers.py`` (see its module docstring). The other 37 classes
-of the JAX file are :class:`~.layers.UnportedLayer` stubs under their
-JAX names, waiting for ``ROADMAP.md`` queue 1 item 9.
+``MaskZeroLayer``, ``MaskLayer`` and ``RnnLossLayer`` — and transfer
+learning's ``FrozenLayer``, as pure modules like ``conf/layers.py`` (see
+its module docstring). The other 36 classes of the JAX file are
+:class:`~.layers.UnportedLayer` stubs under their JAX names, waiting for
+``ROADMAP.md`` queue 1 item 9.
 
 Masking: ``MaskLayer`` emits a ``[B, T]`` keep-mask (``emits_mask``)
 that ``MultiLayerNetwork`` threads into the layers with
@@ -240,11 +241,55 @@ class RnnLossLayer(Layer):
         return False
 
 
+@dataclasses.dataclass
+class FrozenLayer(Layer):
+    """Wrapper excluding the inner layer's params from training (reference
+    layers/FrozenLayer.java). The inner params are stored under
+    ``state_frozen__`` keys, which every network treats as not trainable,
+    and the inner layer runs with ``training=False``: a frozen batch norm
+    uses its running statistics and never updates them.
+
+    Under a bf16 body the inner float params are cast to the activations'
+    dtype, as the network casts an unfrozen layer's; the JAX package
+    leaves them f32 and its bf16 convolution then refuses the mix
+    (``ROADMAP.md`` queue 3, reference fault 6)."""
+    underlying: Layer = None
+
+    PREFIX = "state_frozen__"
+
+    def init_params(self, generator, input_type):
+        inner = self.underlying.init_params(generator, input_type)
+        return {self.PREFIX + k: v for k, v in inner.items()}
+
+    @classmethod
+    def wrap_params(cls, inner_params):
+        """Freeze an existing param dict (used by TransferLearning)."""
+        return {k if k.startswith(cls.PREFIX) else cls.PREFIX + k: v
+                for k, v in inner_params.items()}
+
+    def forward(self, params, x, training=False, key=None):
+        n = len(self.PREFIX)
+        inner = {k[n:]: v for k, v in params.items()
+                 if k.startswith(self.PREFIX)}
+        if x.is_floating_point():
+            inner = {k: (v.to(x.dtype) if not k.startswith("state_")
+                         and isinstance(v, torch.Tensor)
+                         and v.is_floating_point() else v)
+                     for k, v in inner.items()}
+        return self.underlying.forward(inner, x, training=False, key=key)
+
+    def output_type(self, input_type):
+        return self.underlying.output_type(input_type)
+
+    def has_params(self):
+        return self.underlying.has_params()
+
+
 _LATER = "layers_extra.py"
 (AlphaDropout, CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer,
  ChannelNormalizationLayer, Cnn3DLossLayer, CnnLossLayer, Convolution3D,
  Cropping1D, Cropping2D, Cropping3D, DepthToSpaceLayer,
- ElementWiseMultiplicationLayer, FrozenLayer, GaussianDropout,
+ ElementWiseMultiplicationLayer, GaussianDropout,
  GaussianNoise, LayerNormalizationLayer, LearnedSelfAttentionLayer,
  LocallyConnected1D, LocallyConnected2D, PReLULayer, PermuteLayer,
  PrimaryCapsules, RecurrentAttentionLayer, RepeatVector, ReshapeLayer,
@@ -256,7 +301,7 @@ _LATER = "layers_extra.py"
         "CenterLossOutputLayer", "ChannelNormalizationLayer",
         "Cnn3DLossLayer", "CnnLossLayer", "Convolution3D", "Cropping1D",
         "Cropping2D", "Cropping3D", "DepthToSpaceLayer",
-        "ElementWiseMultiplicationLayer", "FrozenLayer", "GaussianDropout",
+        "ElementWiseMultiplicationLayer", "GaussianDropout",
         "GaussianNoise", "LayerNormalizationLayer",
         "LearnedSelfAttentionLayer", "LocallyConnected1D",
         "LocallyConnected2D", "PReLULayer", "PermuteLayer",

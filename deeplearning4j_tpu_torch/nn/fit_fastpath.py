@@ -7,9 +7,10 @@ Counterpart of ``deeplearning4j_tpu/nn/fit_fastpath.py``:
   and the loss head stay f32. ``_cast_layer_params`` casts floating
   tensors only, so an int8 twin's ``QuantizedTensor`` weights pass
   through untouched and stay int8 at rest.
-- **Full f32, never TF32**: every forward and backward of a network runs
-  under :func:`full_f32`, so an f32 matmul or convolution on the card
-  gives f32 results whatever the process's TF32 flags say.
+- **Full f32 unless TF32 is asked for**: every forward and backward of a
+  network runs under :func:`full_f32`, so an f32 matmul or convolution
+  on the card gives f32 results whatever the process's TF32 flags say,
+  unless ``set_property("matmul_precision", "high")`` applied TF32.
 - **The epoch loop**: finite sources are staged on the network's device
   once per ``fit``; with no listener overriding ``iteration_done``, an
   epoch runs its steps back to back with the loss left on the device
@@ -42,7 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..common import rng
-from ..common.environment import environment
+from ..common.environment import environment, tf32_applied
 from ..common.tracing import span
 from ..learning import tree_map
 from ..ndarray.ndarray import NDArray
@@ -74,9 +75,11 @@ _f32_saved = None
 
 @contextlib.contextmanager
 def full_f32():
-    """TF32 off for the matmuls and convolutions run inside (restored
-    after): the port computes f32 products in f32, as the JAX package
-    does on the CPU.
+    """The applied ``matmul_precision`` level for the matmuls and
+    convolutions run inside (the flags restored after): TF32 off, so the
+    port computes f32 products in f32 as the JAX package does on the CPU,
+    unless ``set_property("matmul_precision", "high")`` (or
+    "tensorfloat32") applied TF32.
 
     The flags are process-wide, and two threads (two engines' batchers,
     or a batcher and a caller) may hold this at once: the first holder
@@ -87,8 +90,9 @@ def full_f32():
         if _f32_holders == 0:
             _f32_saved = (torch.backends.cuda.matmul.allow_tf32,
                           torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            tf32 = tf32_applied()
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
         _f32_holders += 1
     try:
         yield

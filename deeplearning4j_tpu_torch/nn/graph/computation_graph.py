@@ -17,10 +17,10 @@ in ``conf.dtype``, the inputs of the output vertices cast to f32 and
 their params left as they are.
 
 ``output()`` pads the batch up the inference bucket ladder and
-``warm_buckets`` runs that ladder ahead of traffic. ``distribute``
-(``ROADMAP.md`` queue 1 item 10) and ``save`` / ``load``
-(``nn/serde.py``, item 9) are not ported and raise
-``NotImplementedError`` naming their item.
+``warm_buckets`` runs that ladder ahead of traffic. ``save`` / ``load``
+write and read ``nn/serde.py``'s zip. ``distribute`` (``ROADMAP.md``
+queue 1 item 10) is not ported and raises ``NotImplementedError`` naming
+its item.
 """
 from __future__ import annotations
 
@@ -363,11 +363,14 @@ class ComputationGraph(FitFastPathMixin):
         raise unported("distribute", 10, "ComputationGraph")
 
     def save(self, path, save_updater: bool = False):
-        raise unported("save (nn/serde.py)", 9, "ComputationGraph")
+        """The zip of ``nn/serde.py``, which the JAX package reads too."""
+        from ..serde import save_computation_graph
+        save_computation_graph(self, path, save_updater)
 
     @staticmethod
-    def load(path, load_updater: bool = False):
-        raise unported("load (nn/serde.py)", 9, "ComputationGraph")
+    def load(path, load_updater: bool = False, device="cuda"):
+        from ..serde import restore_computation_graph
+        return restore_computation_graph(path, load_updater, device)
 
     def _trainable(self, params):
         return {n: {k: v for k, v in p.items() if not k.startswith("state_")}

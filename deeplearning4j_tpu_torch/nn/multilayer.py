@@ -11,9 +11,9 @@ parameter tensors, as the JAX package's donated step does.
 
 ``output()`` pads the batch up the inference bucket ladder
 (``runtime.inference.maybe_pad_tree``) and ``warm_buckets`` runs that
-ladder ahead of traffic, as the JAX package's do. ``distribute`` (queue
-1 item 10), ``warm_compile`` (item 12) and ``save`` / ``load``
-(``nn/serde.py``, item 9) are not ported and raise
+ladder ahead of traffic, as the JAX package's do. ``save`` / ``load``
+write and read ``nn/serde.py``'s zip. ``distribute`` (queue 1 item 10)
+and ``warm_compile`` (item 12) are not ported and raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
@@ -109,11 +109,14 @@ class MultiLayerNetwork(FitFastPathMixin):
         raise unported("warm_compile", 12)
 
     def save(self, path, save_updater: bool = False):
-        raise unported("save (nn/serde.py)", 9)
+        """The zip of ``nn/serde.py``, which the JAX package reads too."""
+        from .serde import save_multilayer
+        save_multilayer(self, path, save_updater)
 
     @staticmethod
-    def load(path, load_updater: bool = False):
-        raise unported("load (nn/serde.py)", 9)
+    def load(path, load_updater: bool = False, device="cuda"):
+        from .serde import restore_multilayer
+        return restore_multilayer(path, load_updater, device)
 
     def _trainable(self, params):
         """Trainable subset (excludes ``state_*`` running stats)."""

@@ -273,15 +273,19 @@ class TestConstruction:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TG.ComputationGraph(_simple(*TORCH_NS))
 
-    def test_unported_entry_points_name_their_item(self):
+    def test_unported_entry_points_name_their_item(self, tmp_path):
         net = TG.ComputationGraph(_simple(*TORCH_NS), device="cpu").init()
         assert net.warm_buckets(None) == []
-        for call, item in ((lambda: net.distribute(None), "item 10"),
-                           (lambda: net.save("x"), "item 9"),
-                           (lambda: TG.ComputationGraph.load("x"),
-                            "item 9")):
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+        with pytest.raises(NotImplementedError, match="item 10"):
+            net.distribute(None)
+        # save / load are ported (nn/serde.py, queue 1 item 9f)
+        path = str(tmp_path / "g.zip")
+        net.save(path, save_updater=True)
+        back = TG.ComputationGraph.load(path, load_updater=True,
+                                        device="cpu")
+        x = np.ones((2, 4), np.float32)
+        assert np.array_equal(back.output(x)[0].numpy(),
+                              net.output(x)[0].numpy())
 
     def test_uninitialized_graph_refuses(self):
         net = TG.ComputationGraph(_simple(*TORCH_NS), device="cpu")

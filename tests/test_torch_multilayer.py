@@ -221,19 +221,26 @@ class TestConfig:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tzoo.LeNet().init_model()
 
-    def test_unported_entry_points_name_their_item(self):
+    def test_unported_entry_points_name_their_item(self, tmp_path):
         net = TMLN(_lenet(*TORCH_NS), device="cpu").init()
         # warm_buckets is ported (item 7): with no example and no
         # manifest it has nothing to replay, as the JAX package's
         assert net.warm_buckets(None) == []
         for call, item in ((lambda: net.distribute(None), "item 10"),
-                           (lambda: net.warm_compile(None), "item 12"),
-                           (lambda: net.save("x"), "item 9"),
-                           (lambda: TMLN.load("x"), "item 9"),
-                           (lambda: tzoo.LeNet().init_pretrained(),
-                            "item 9")):
+                           (lambda: net.warm_compile(None), "item 12")):
             with pytest.raises(NotImplementedError, match=item):
                 call()
+        # save / load and the pretrained restore are ported (nn/serde.py
+        # and zoo/base.py, queue 1 item 9f)
+        path = str(tmp_path / "lenet.zip")
+        net.save(path)
+        x = np.ones((2, 1, 28, 28), np.float32)
+        for back in (TMLN.load(path, device="cpu"),
+                     tzoo.LeNet().init_pretrained(path=path, device="cpu")):
+            assert np.array_equal(back.output(x).numpy(),
+                                  net.output(x).numpy())
+        with pytest.raises(RuntimeError, match="path="):
+            tzoo.LeNet().init_pretrained()
 
 
 # -- layers -------------------------------------------------------------------

@@ -10,6 +10,8 @@
 """
 import ast
 import inspect
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -23,8 +25,12 @@ from deeplearning4j_tpu_torch.kernels import (attention_dispatch,
                                               dispatch_snapshot,
                                               flash_attention,
                                               flash_attention_plain)
-from deeplearning4j_tpu_torch.datasets.iterators import AsyncDataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    AsyncDataSetIterator, BenchmarkDataSetIterator)
 from deeplearning4j_tpu_torch.models import bert, causal_lm
+from deeplearning4j_tpu_torch.nn import serde
+from deeplearning4j_tpu_torch.nn.earlystopping import LocalFileModelSaver
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.quant import transforms
 from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
@@ -54,6 +60,39 @@ def test_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+#: the modules of the common/ and training-utility slice, imported in a
+#: fresh interpreter that must load neither JAX nor the JAX package
+SLICE_MODULES = [
+    "deeplearning4j_tpu_torch", "deeplearning4j_tpu_torch.common",
+    "deeplearning4j_tpu_torch.common.config",
+    "deeplearning4j_tpu_torch.common.faults",
+    "deeplearning4j_tpu_torch.common.profile_analyzer",
+    "deeplearning4j_tpu_torch.common.rng",
+    "deeplearning4j_tpu_torch.datasets",
+    "deeplearning4j_tpu_torch.datasets.fetchers",
+    "deeplearning4j_tpu_torch.datasets.normalizers",
+    "deeplearning4j_tpu_torch.datasets.record_iterator",
+    "deeplearning4j_tpu_torch.nn.checkpoint",
+    "deeplearning4j_tpu_torch.nn.earlystopping",
+    "deeplearning4j_tpu_torch.nn.serde",
+    "deeplearning4j_tpu_torch.nn.solvers",
+    "deeplearning4j_tpu_torch.nn.transferlearning",
+    "deeplearning4j_tpu_torch.zoo.base",
+]
+
+
+def test_slice_modules_load_no_jax_at_run_time():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'deeplearning4j_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 ENTRY_POINTS = [
     causal_lm.CausalLM.__init__,
     causal_lm.init_params,
@@ -72,6 +111,14 @@ ENTRY_POINTS = [
     SameDiff.create,
     SameDiff.load,
     TestCase.__init__,
+    MultiLayerNetwork.load,
+    ComputationGraph.load,
+    serde.restore_multilayer,
+    serde.restore_computation_graph,
+    serde.restore_model,
+    ZooModel.init_pretrained,
+    BenchmarkDataSetIterator.__init__,
+    LocalFileModelSaver.__init__,
 ]
 
 

@@ -396,7 +396,7 @@ def test_extra_layers_left_are_stubs_naming_their_item():
               and issubclass(c, JL.Layer) and c.__module__ == jextra.__name__}
     ported = {"SimpleRnn", "GRU", "GRUResetAfter", "LastTimeStep",
               "TimeDistributed", "MaskZeroLayer", "MaskLayer",
-              "RnnLossLayer"}
+              "RnnLossLayer", "FrozenLayer"}
     assert len(jnames) == 45 and ported <= jnames
     for n in jnames - ported:
         cls = getattr(textra, n)
