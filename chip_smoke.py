@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
 (the CausalLM, BERT-base, the layer API's LeNet, quantized MLP and
 ResNet-50, a SameDiff BERT-base QA graph, the Seq2Seq LSTM,
-TextGenerationLSTM and Word2Vec, directly, behind the predict route and
-behind the fleet front door).
+TextGenerationLSTM and Word2Vec, YOLO2 and the convolution zoo, directly,
+behind the predict route and behind the fleet front door).
 
     python3 chip_smoke.py
 
@@ -250,6 +250,33 @@ exits non-zero without printing a result:
               recurrent and NLP phases run none of the five kernels (no
               recurrent, NLP or seq2seq module of the JAX package
               reaches a ``pallas_call``).
+   yolo2    — ``zoo.YOLO2`` at its published width (20 VOC classes,
+              3x416x416, 5 anchors, a 125-channel 13x13 head, bf16, Adam
+              1e-3): 64 seeded 375x500x3 images resized on the card by
+              the port's ``resize_bilinear``, labels of 1-4 boxes an
+              image; ``ComputationGraph.fit`` at B=32, one warm step and
+              10 timed steps on one batch (losses must be finite and
+              fall), one step profiled (device ms by kernel group, busy
+              share, peak memory), the loss head's own forward and
+              backward; then ``InferenceEngine(max_batch=16)`` warmed over
+              its ladder answers 32 requests of 1-4 images submitted
+              together, each held against ``output()`` on the same rows
+              (``YOLO_SERVE_RTOL``) with a census of 0 after warmup; then
+              an f32 copy on the card against the CPU on 2 images
+              (``YOLO_F32_RTOL``, TF32 switched on in the process).
+   zoo_cnn  — Xception (224, 1000 classes, bf16, B=64), UNet (512,
+              64 base filters, f32, B=4, binary masks) and NASNet (224,
+              4 blocks, 1056 penultimate filters, bf16, B=32) at their
+              zoo widths: one warm step, 3 timed, one profiled, with the
+              depthwise kernels' share; TinyYOLO's ``output()`` at B=32
+              (bf16) and its ``fit`` refusing the YOLO2 head as the JAX
+              package's does.
+   ops_card — each op name of the convolution and image families (and
+              ``deconv2d_bp``, ``avgpool3dnew_bp``) on the card against
+              a CPU copy of the same draw, at the CPU op tests'
+              tolerances. None of these phases reaches one of the five
+              kernels: no convolution or image module of the JAX package
+              reaches a ``pallas_call``.
    host_profile — ``torch.profiler`` (CPU activities, every thread)
               and a 1 kHz sampling of every thread's innermost Python
               frame over a second run of serve_http's 16 requests and a
@@ -4352,6 +4379,479 @@ def phase_word2vec():
     torch.cuda.empty_cache()
 
 
+
+# YOLO2 at its published width (reference YOLO2.java, the zoo's VOC
+# configuration): 20 classes, 3x416x416, 5 anchors, a 125-channel 13x13
+# head, bf16 body, the zoo's Adam(1e-3). YOLO_IMAGES seeded images at
+# VOC's typical 375x500x3 (NHWC) are resized on the card through the
+# port's resize_bilinear to 416x416, then laid out NCHW; labels are
+# [B, 4 + 20, 13, 13] in the corner format, 1-4 boxes an image, each at
+# the cell that holds its centre. fit at B=YOLO_B: one warm step, then
+# YOLO_STEPS timed steps on the first batch repeated (a loss read each
+# step), one step profiled
+YOLO_B, YOLO_IMAGES, YOLO_STEPS = 32, 64, 10
+YOLO_SRC_HW, YOLO_HW, YOLO_CLASSES, YOLO_GRID = (375, 500), 416, 20, 13
+YOLO_MAX_BOXES = 4
+# the trained network behind InferenceEngine(max_batch=YOLO_MAX_BATCH),
+# warmed over its ladder: YOLO_REQUESTS requests of 1-YOLO_MAX_ROWS
+# images, submitted together
+YOLO_MAX_BATCH, YOLO_REQUESTS, YOLO_MAX_ROWS = 16, 32, 4
+# an engine answer against output() on the same rows, relative to the
+# largest head value: the engine batched the requests into other buckets
+# than a direct call, so cuDNN may pick other algorithms and the bf16
+# body rounds at other places (a bf16 ulp is 2**-8 of a value); the raw
+# head is f32
+YOLO_SERVE_RTOL = 5e-2
+# an f32 copy of the trained weights: output() on the card against the
+# CPU's on YOLO_F32_ROWS images, relative to the largest head value; f32
+# summed in another order through 23 convolutions stays near 1e-5, TF32
+# (switched on in the process; output() runs under full_f32()) would
+# move it by ~1e-2
+YOLO_F32_ROWS, YOLO_F32_RTOL = 2, 1e-3
+# the detection, segmentation and depthwise-separable zoo at its default
+# widths: (model, constructor arguments, batch); one warm step, then
+# ZOO_STEPS timed steps on one seeded batch, one step profiled
+ZOO_CNN = (
+    ("Xception", dict(num_classes=1000, dtype="bfloat16"), 64),
+    ("UNet", dict(base_filters=64), 4),
+    ("NASNet", dict(num_classes=1000, num_blocks=4,
+                    penultimate_filters=1056, dtype="bfloat16"), 32))
+ZOO_STEPS = 3
+TINY_YOLO_B = 32
+# a CNN training step's kernels by group: PyTorch's own depthwise
+# kernels first, then KERNEL_GROUPS
+CNN_KERNEL_GROUPS = (("depthwise", ("depthwise",)),) + KERNEL_GROUPS
+
+
+def grouped(by_name, groups=CNN_KERNEL_GROUPS):
+    out = {}
+    for k, v in by_name.items():
+        g = kernel_group(k, groups)
+        out[g] = out.get(g, 0.0) + v
+    return out
+
+
+def yolo_labels(rng, B, classes, grid, max_boxes=YOLO_MAX_BOXES):
+    """[B, 4 + classes, grid, grid]: 1..max_boxes boxes an image, corners
+    (x1, y1, x2, y2) in [0, 1] and a one-hot class, at the cell of the
+    box's centre (a later box in the same cell replaces it)."""
+    import numpy as np
+    y = np.zeros((B, 4 + classes, grid, grid), np.float32)
+    for b in range(B):
+        for _ in range(rng.randint(1, max_boxes + 1)):
+            w, h = rng.uniform(0.05, 0.5, 2)
+            x1, y1 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            cx = min(int((x1 + w / 2) * grid), grid - 1)
+            cy = min(int((y1 + h / 2) * grid), grid - 1)
+            y[b, :, cy, cx] = 0.0
+            y[b, :4, cy, cx] = (x1, y1, x1 + w, y1 + h)
+            y[b, 4 + rng.randint(classes), cy, cx] = 1.0
+    return y
+
+
+def train_record(net, ds, steps):
+    """One warm step of ``net.fit`` on ``ds``, then ``steps`` timed steps
+    on it (a loss read each step), then one step under the profiler:
+    losses, samples/s, host ms a step, device ms a step by kernel group,
+    the busy share and the peak memory."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.listeners import CollectScoresListener
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit([ds], num_epochs=1)   # includes cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    scores = CollectScoresListener()
+    net.set_listeners(scores)
+    t0 = time.perf_counter()
+    net.fit([ds] * steps, num_epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    net.set_listeners()
+    counts = {}
+    by_name = device_ms_by_kernel(lambda: net.fit([ds], num_epochs=1), 1,
+                                  counts=counts)
+    device_ms = sum(by_name.values())
+    step_ms = wall * 1e3 / steps
+    B = ds.features.shape[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"B": B, "params": net.num_params(), "warm_step_s": warm_s,
+            "losses": [float(v) for v in scores.scores],
+            "step_ms": step_ms, "samples_per_s": steps * B / wall,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / step_ms,
+            "ms_per_step_by_group": grouped(by_name),
+            "launches_per_step": counts.get("launches"),
+            "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def check_losses(name, losses, steps, fall=True):
+    import numpy as np
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise RuntimeError(f"{name}: losses not finite: {losses}")
+    if fall and not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: the loss did not fall over {steps} "
+                           f"steps on one batch: {losses}")
+
+
+def phase_yolo2():
+    """YOLO2 trained and served at full width (see YOLO_*)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning import tree_map
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import exec_op
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    rng = np.random.RandomState(13)
+    h0, w0 = YOLO_SRC_HW
+    src = torch.from_numpy(rng.rand(YOLO_IMAGES, h0, w0, 3)
+                           .astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resized = exec_op("resize_bilinear", src, size=(YOLO_HW, YOLO_HW))
+    images = resized.permute(0, 3, 1, 2).contiguous()
+    torch.cuda.synchronize()
+    resize_ms = (time.perf_counter() - t0) * 1e3
+    resize_dev_ms = time_ms(lambda: exec_op("resize_bilinear", src,
+                                            size=(YOLO_HW, YOLO_HW)),
+                            iters=3, warm=1)
+    if not (images.is_cuda and images.shape == (YOLO_IMAGES, 3, YOLO_HW,
+                                                YOLO_HW)
+            and bool(torch.isfinite(images).all())):
+        raise RuntimeError(f"resize on the card gave {images.shape} on "
+                           f"{images.device}")
+    del src, resized
+    labels = torch.from_numpy(yolo_labels(rng, YOLO_IMAGES, YOLO_CLASSES,
+                                          YOLO_GRID)).cuda()
+    zoo = YOLO2(num_classes=YOLO_CLASSES, input_shape=(3, YOLO_HW, YOLO_HW),
+                dtype="bfloat16")
+    net = zoo.init_model()
+    head = net.conf.vertex_output_types()["detect_conv"]
+    if head != (125, YOLO_GRID, YOLO_GRID):
+        raise RuntimeError(f"YOLO2 head is {head}, not 125x13x13")
+    batch = DataSet(images[:YOLO_B], labels[:YOLO_B])
+    rec = {"phase": "yolo2", "dtype": "bfloat16", "updater": "Adam(1e-3)",
+           "input": [3, YOLO_HW, YOLO_HW], "head": list(head),
+           "source_images": [YOLO_IMAGES, h0, w0, 3],
+           "resize_host_ms": resize_ms, "resize_device_ms": resize_dev_ms,
+           "boxes": int((labels[:, :4].sum(1) > 0).sum())}
+    rec.update(train_record(net, batch, YOLO_STEPS))
+    # the loss head alone, forward and backward, on the step's output
+    ylayer = net.conf.vertices["yolo"].layer
+    out = net.output(images[:YOLO_B])[0].torch().float().requires_grad_(True)
+
+    def loss_step():
+        torch.autograd.grad(ylayer.compute_loss(labels[:YOLO_B], out), out)
+    rec["loss_fwd_bwd_device_ms"] = time_ms(loss_step, iters=5, warm=1)
+    emit({**rec, "part": "train"})
+    check_losses("YOLO2", rec["losses"], YOLO_STEPS)
+    # serving: the engine over its ladder, requests submitted together
+    env = environment()
+    eng = InferenceEngine(net, max_batch=YOLO_MAX_BATCH)
+    t0 = time.perf_counter()
+    warmed = eng.warmup(images[:1])
+    warm_s = time.perf_counter() - t0
+    reqs = []
+    for _ in range(YOLO_REQUESTS):
+        rows = int(rng.randint(1, YOLO_MAX_ROWS + 1))
+        lo = int(rng.randint(0, YOLO_IMAGES - rows + 1))
+        reqs.append((lo, rows))
+    s0 = eng.stats()
+    c0 = env.compile_count()
+    t0 = time.perf_counter()
+    futs = [eng.submit(images[lo:lo + rows]) for lo, rows in reqs]
+    answers = [f.result()[0].numpy() for f in futs]
+    wall = time.perf_counter() - t0
+    census = env.compile_count() - c0
+    s1 = eng.stats()
+    eng.close()
+    err = 0.0
+    for (lo, rows), got in zip(reqs, answers):
+        ref = net.output(images[lo:lo + rows])[0].numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"engine answer {got.shape} for {rows} rows")
+        err = max(err, float(np.abs(got - ref).max()
+                             / max(float(np.abs(ref).max()), 1e-30)))
+    rows_total = sum(r for _, r in reqs)
+    rec_s = {"phase": "yolo2", "part": "serve", "max_batch": YOLO_MAX_BATCH,
+             "warmed_buckets": warmed, "warmup_s": warm_s,
+             "requests": len(reqs), "rows": rows_total, "wall_s": wall,
+             "samples_per_s": rows_total / wall,
+             "dispatches": s1["dispatches"] - s0["dispatches"],
+             "census_after_warmup": census,
+             "max_rel_err_vs_output": err, "rtol": YOLO_SERVE_RTOL}
+    emit(rec_s)
+    if census != 0 or err > YOLO_SERVE_RTOL:
+        raise RuntimeError(f"YOLO2 serving: census {census} after warmup "
+                           f"(want 0), answers off output() by {err} of "
+                           f"the largest value (tol {YOLO_SERVE_RTOL})")
+    # card against CPU: an f32 copy of the trained weights
+    conf = YOLO2(num_classes=YOLO_CLASSES,
+                 input_shape=(3, YOLO_HW, YOLO_HW)).build_conf()
+    params = tree_map(torch.clone, net._params)
+    f32 = ComputationGraph(conf, device="cuda").init(params=params)
+    cpu = ComputationGraph(conf, device="cpu").init(
+        params=tree_map(lambda v: v.cpu(), params))
+    x = images[:YOLO_F32_ROWS]
+    ref = cpu.output(x.cpu())[0].numpy()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = f32.output(x)[0].numpy()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    f32_err = float(np.abs(got - ref).max()
+                    / max(float(np.abs(ref).max()), 1e-30))
+    emit({"phase": "yolo2", "part": "f32_vs_cpu", "rows": YOLO_F32_ROWS,
+          "max_rel_err": f32_err, "rtol": YOLO_F32_RTOL,
+          "head_max_abs": float(np.abs(ref).max())})
+    if not f32_err <= YOLO_F32_RTOL:
+        raise RuntimeError(f"f32 YOLO2 on the card differs from the CPU's "
+                           f"by {f32_err} of the largest value (tol "
+                           f"{YOLO_F32_RTOL})")
+    del f32, cpu, params, net, images, labels, batch, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zoo_cnn():
+    """Xception, UNet and NASNet trained at their zoo widths, and
+    TinyYOLO's output() at B=TINY_YOLO_B with fit refusing its head as
+    the JAX package's does (see ZOO_CNN)."""
+    import numpy as np
+    import torch
+    import deeplearning4j_tpu_torch.zoo as zoo
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    recs = []
+    for name, kw, B in ZOO_CNN:
+        model = getattr(zoo, name)(**kw)
+        net = model.init_model()
+        rng = np.random.RandomState(len(name))
+        shape = (B,) + tuple(model.input_shape)
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+        if name == "UNet":    # binary masks
+            y = (torch.rand((B, 1) + shape[2:], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+                 > 0.5).float()
+        else:
+            y = torch.zeros((B, model.num_classes), device="cuda")
+            y[torch.arange(B, device="cuda"), torch.from_numpy(
+                rng.randint(0, model.num_classes, B)).cuda()] = 1.0
+        rec = {"phase": "zoo_cnn", "model": name,
+               "input": list(model.input_shape),
+               "dtype": net.conf.dtype or "float32"}
+        rec.update(train_record(net, DataSet(x, y), ZOO_STEPS))
+        g = rec["ms_per_step_by_group"]
+        rec["depthwise_share"] = g.get("depthwise", 0.0) \
+            / rec["device_ms_per_step"]
+        emit(rec)
+        check_losses(name, rec["losses"], ZOO_STEPS, fall=False)
+        recs.append(rec)
+        del net, x, y
+        torch.cuda.empty_cache()
+    model = zoo.TinyYOLO(dtype="bfloat16")
+    net = model.init_model()
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        TINY_YOLO_B, *model.input_shape).astype(np.float32)).cuda()
+    out = net.output(x).torch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        net.output(x)
+    torch.cuda.synchronize()
+    out_ms = (time.perf_counter() - t0) * 1e3 / 3
+    dev_ms = time_ms(lambda: net.output(x), iters=3, warm=1)
+    refused = None
+    try:
+        net.fit(DataSet(x, torch.zeros((TINY_YOLO_B, 24, 13, 13),
+                                       device="cuda")))
+    except ValueError as e:
+        refused = str(e)
+    rec = {"phase": "zoo_cnn", "model": "TinyYOLO", "B": TINY_YOLO_B,
+           "dtype": "bfloat16", "output_shape": list(out.shape),
+           "output_host_ms": out_ms, "output_device_ms": dev_ms,
+           "samples_per_s": TINY_YOLO_B * 1e3 / out_ms,
+           "fit_refused": refused}
+    emit(rec)
+    if tuple(out.shape) != (TINY_YOLO_B, 125, 13, 13) or not bool(
+            torch.isfinite(out).all()) or refused is None or \
+            "output/loss layer" not in refused:
+        raise RuntimeError(f"TinyYOLO: output {tuple(out.shape)}, fit "
+                           f"refused with {refused!r}")
+    del net, x, out
+    torch.cuda.empty_cache()
+    return recs + [rec]
+
+
+# the ops of the convolution and image families on the card: each name
+# once, from one seeded draw, against the same op on a CPU copy, at the
+# CPU op tests' tolerances (sums 1e-5, selections 1e-6); input kinds:
+# ("f", shape) normal, ("u", shape) uniform [0, 1), ("t", shape) small
+# integers as floats (ties), ("b", shape) boxes, ("i", shape, hi) int32
+_F, _U, _T, _B = "f", "u", "t", "b"
+CARD_SUM, CARD_SEL = 1e-5, 1e-6
+CARD_OPS = (
+    ("conv1d", [(_F, (2, 3, 9)), (_F, (3, 3, 4)), (_F, (4,))],
+     {"strides": 2}, CARD_SUM),
+    ("conv3dnew", [(_F, (2, 2, 5, 6, 5)), (_F, (3, 3, 2, 2, 3))],
+     {"strides": (2, 2, 1)}, CARD_SUM),
+    ("conv3d", [(_F, (1, 5, 4, 5, 2)), (_F, (2, 3, 2, 2, 3))],
+     {"padding": "VALID", "data_format": "NDHWC"}, CARD_SUM),
+    ("depthwise_conv2d", [(_F, (2, 3, 7, 8)), (_F, (3, 3, 3, 2)),
+                          (_F, (6,))], {"strides": (2, 2)}, CARD_SUM),
+    ("sconv2d", [(_F, (2, 3, 7, 8)), (_F, (3, 3, 3, 2)), (_F, (1, 1, 6, 4)),
+                 (_F, (4,))], {"strides": (2, 2)}, CARD_SUM),
+    ("separable_conv2d", [(_F, (2, 8, 7, 3)), (_F, (3, 3, 3, 1)),
+                          (_F, (1, 1, 3, 5))],
+     {"padding": "VALID", "data_format": "NHWC"}, CARD_SUM),
+    ("pointwise_conv2d", [(_F, (2, 3, 5, 5)), (_F, (1, 1, 3, 4))], {},
+     CARD_SUM),
+    ("deconv2d", [(_F, (2, 3, 4, 5)), (_F, (3, 3, 4, 3)), (_F, (4,))],
+     {"strides": (2, 2), "padding": "SAME"}, CARD_SUM),
+    ("deconv3d", [(_F, (1, 2, 3, 4, 3)), (_F, (2, 3, 2, 3, 2))],
+     {"strides": (2, 1, 2)}, CARD_SUM),
+    ("dilation2d", [(_F, (2, 7, 8, 3)), (_F, (3, 2, 3))],
+     {"strides": (2, 2), "rates": (1, 2)}, CARD_SUM),
+    ("maxpool3dnew", [(_F, (2, 2, 5, 6, 5))], {"kernel": (2, 2, 2)},
+     CARD_SEL),
+    ("maxpool3d", [(_F, (2, 2, 5, 6, 5))],
+     {"kernel": (3, 3, 3), "strides": (2, 2, 2), "padding": "SAME"},
+     CARD_SEL),
+    ("avgpool3dnew", [(_F, (2, 2, 5, 6, 5))], {"kernel": (2, 2, 2)},
+     CARD_SUM),
+    ("avgpool3d", [(_F, (2, 2, 5, 6, 5))],
+     {"kernel": (3, 3, 3), "strides": (2, 2, 2), "padding": "SAME",
+      "include_pad": False}, CARD_SUM),
+    ("max_pool_with_argmax", [(_T, (2, 6, 6, 3))],
+     {"kernel": (2, 3), "strides": (2, 1)}, CARD_SEL),
+    ("upsampling2d", [(_F, (2, 3, 3, 4))], {"factor_h": 2, "factor_w": 3},
+     CARD_SEL),
+    ("upsampling3d", [(_F, (1, 2, 2, 3, 2))], {"fd": 2, "fh": 1, "fw": 3},
+     CARD_SEL),
+    ("im2col", [(_F, (2, 3, 6, 7))],
+     {"kh": 3, "kw": 2, "sh": 2, "sw": 1, "ph": 1, "pw": 0, "dh": 1,
+      "dw": 2}, CARD_SEL),
+    ("col2im", [(_F, (2, 3, 3, 2, 3, 5))],
+     {"sh": 2, "sw": 1, "ph": 1, "pw": 0, "h": 6, "w": 7, "dh": 1, "dw": 2},
+     CARD_SUM),
+    ("extract_image_patches", [(_F, (2, 5, 5, 3))],
+     {"ksizes": (2, 2), "strides": (1, 1), "rates": (1, 1),
+      "padding": "SAME"}, CARD_SEL),
+    ("rgb_to_yiq", [(_U, (2, 4, 5, 3))], {}, CARD_SUM),
+    ("yiq_to_rgb", [(_U, (2, 4, 5, 3))], {}, CARD_SUM),
+    ("rgb_to_yuv", [(_U, (2, 4, 5, 3))], {}, CARD_SUM),
+    ("yuv_to_rgb", [(_U, (2, 4, 5, 3))], {}, CARD_SUM),
+    ("rgb_to_grs", [(_U, (2, 4, 5, 3))], {}, CARD_SUM),
+    ("rgb_to_hsv", [(_U, (2, 4, 5, 3))], {}, CARD_SEL),
+    ("hsv_to_rgb", [(_U, (2, 4, 5, 3))], {}, CARD_SEL),
+    ("adjust_contrast", [(_U, (2, 4, 5, 3))], {"factor": 1.7}, CARD_SUM),
+    ("adjust_contrast_v2", [(_U, (4, 5, 3))], {"factor": 0.4}, CARD_SUM),
+    ("adjust_saturation", [(_U, (2, 4, 5, 3))], {"factor": 0.6}, CARD_SUM),
+    ("adjust_hue", [(_U, (2, 4, 5, 3))], {"delta": 0.3}, CARD_SUM),
+    ("resize_bilinear", [(_F, (2, 9, 10, 3))], {"size": (4, 6)}, CARD_SUM),
+    ("resize_nearest_neighbor", [(_F, (2, 4, 5, 3))],
+     {"height": 7, "width": 9}, CARD_SEL),
+    ("resize_bicubic", [(_F, (2, 4, 5, 3))], {"size": (7, 9)}, CARD_SUM),
+    ("resize_area", [(_F, (2, 9, 10, 3))], {"size": (4, 6)}, CARD_SUM),
+    ("image_resize", [(_F, (9, 10, 3))],
+     {"size": (4, 6), "method": "lanczos3"}, CARD_SUM),
+    ("resize_images", [(_F, (2, 4, 5, 3))],
+     {"size": (7, 9), "method": "lanczos5"}, CARD_SUM),
+    ("crop_and_resize", [(_F, (2, 6, 7, 3)), (_B, (3,)), ("i", (3,), 2),
+                         (3, 4)], {}, CARD_SUM),
+    ("non_max_suppression", [(_B, (9,)), (_T, (9,)), 4],
+     {"iou_threshold": 0.3}, CARD_SEL),
+    ("non_max_suppression_v3", [(_B, (7,)), (_T, (7,)), 9],
+     {"iou_threshold": 0.5, "score_threshold": 0.5}, CARD_SEL),
+    ("non_max_suppression_overlaps", [(_U, (8, 8)), (_T, (8,)), 3],
+     {"overlap_threshold": 0.6}, CARD_SEL),
+    ("draw_bounding_boxes", [(_F, (2, 6, 7, 3)), (_B, (2, 3)),
+                             (_U, (3, 3))], {}, CARD_SEL),
+    # one bp op of each family's module: the gradient ops autobp derives
+    ("deconv2d_bp", [(_F, (2, 3, 4, 5)), (_F, (3, 3, 4, 3)), (_F, (4,)),
+                     (_F, (2, 4, 8, 10))],
+     {"strides": (2, 2), "padding": "SAME"}, CARD_SUM),
+    ("avgpool3dnew_bp", [(_F, (2, 2, 5, 6, 5)), (_F, (2, 2, 2, 3, 2))],
+     {"kernel": (2, 2, 2)}, CARD_SUM))
+
+
+def card_input(rng, spec):
+    import numpy as np
+    if not isinstance(spec, list) and not (isinstance(spec, tuple)
+                                           and isinstance(spec[0], str)):
+        return spec   # a constant
+    kind, shape = spec[0], spec[1]
+    if kind == _F:
+        return rng.randn(*shape).astype(np.float32)
+    if kind == _U:
+        return rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    if kind == _T:
+        return rng.randint(0, 3, shape).astype(np.float32)
+    if kind == _B:
+        a, b = rng.uniform(0, 1, shape + (2,)), rng.uniform(0, 1, shape + (2,))
+        return np.concatenate([np.minimum(a, b), np.maximum(a, b)],
+                              -1).astype(np.float32)
+    return rng.randint(0, spec[2], shape).astype(np.int32)
+
+
+def phase_ops_card():
+    """Each newly registered op name (and one bp op of each family's
+    module) on the card and on a CPU copy of the same draw (see
+    CARD_OPS): results on the card, dtypes and shapes equal, values
+    within the CPU op tests' tolerances."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.ops import exec_op
+
+    def leaves(out):
+        if isinstance(out, (tuple, list)):
+            return [leaf for o in out for leaf in leaves(o)]
+        return [out]
+
+    rows, bad = [], []
+    for i, (name, specs, kw, tol) in enumerate(CARD_OPS):
+        rng = np.random.RandomState(i)
+        args = [card_input(rng, s) for s in specs]
+        cpu = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+               for a in args]
+        dev = [a.cuda() if isinstance(a, torch.Tensor) else a for a in cpu]
+        try:
+            got = leaves(exec_op(name, *dev, **kw))
+            ref = leaves(exec_op(name, *cpu, **kw))
+            err = 0.0
+            for g, r in zip(got, ref):
+                if not g.is_cuda or g.dtype != r.dtype or g.shape != r.shape:
+                    raise RuntimeError(f"{g.device} {g.dtype} "
+                                       f"{tuple(g.shape)} against "
+                                       f"{r.dtype} {tuple(r.shape)}")
+                gc = g.cpu().double()
+                rd = r.double()
+                err = max(err, float(((gc - rd).abs()
+                                      - tol * rd.abs()).max()))
+            ok = len(got) == len(ref) and err <= tol
+            rows.append([name, err, ok])
+            if not ok:
+                bad.append(f"{name}: off by {err} beyond rtol {tol}")
+        except Exception as e:   # noqa: BLE001 (reported, then raised)
+            rows.append([name, None, False])
+            bad.append(f"{name}: {type(e).__name__}: {e}")
+    emit({"phase": "ops_card", "ops": len(rows),
+          "passed": sum(1 for r in rows if r[2]),
+          "worst_abs_err_beyond_rtol": max((r[1] for r in rows
+                                         if r[1] is not None), default=None),
+          "failures": bad})
+    if bad:
+        raise RuntimeError(f"ops on the card: {bad}")
+    return rows
+
+
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
@@ -4416,6 +4916,10 @@ def main():
     phase_seq2seq()
     phase_text_lstm()
     phase_word2vec()
+    torch.cuda.empty_cache()
+    phase_yolo2()
+    phase_zoo_cnn()
+    phase_ops_card()
     emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:

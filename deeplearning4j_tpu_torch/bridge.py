@@ -70,8 +70,12 @@ def load_multilayer(net, params, updater_state=None, iteration: int = 0):
     (:func:`load_graph` does the same for a ``ComputationGraph``).
 
     ``params`` is the JAX network's ``_params`` as numpy (a list of
-    per-layer dicts, ``state_*`` running stats included, convolution
-    weights HWIO as on both sides); ``updater_state`` its
+    per-layer dicts, convolution weights HWIO as on both sides; every
+    layer's keys as the JAX layer names them: ``W`` / ``b``, a separable
+    convolution's ``Wd`` / ``Wp``, the VAE's flat ``eW{i}`` / ``dW{i}`` /
+    ``Wmu`` / ``Wlv`` / ``Wout``, a capsule layer's ``W``, and the
+    non-trainable ``state_*`` entries: running stats, center-loss
+    ``state_centers``); ``updater_state`` its
     ``_updater_state`` likewise, else a fresh one from
     ``net.conf.updater``; ``iteration`` its ``_iteration``, so that a
     ``fit`` continued on both sides takes the same Adam bias correction.
@@ -88,9 +92,8 @@ def load_graph(net, params, updater_state=None, iteration: int = 0):
     built from the same configuration, and return ``net``.
 
     ``params`` is the JAX graph's ``_params`` as numpy (a vertex-name ->
-    dict of ``W``, ``b``, ``gamma``, ``beta``, ``state_*``; convolution
-    weights HWIO as on both sides); ``updater_state`` and ``iteration``
-    as for :func:`load_multilayer`."""
+    dict keyed as for :func:`load_multilayer`); ``updater_state`` and
+    ``iteration`` as for :func:`load_multilayer`."""
     return load_multilayer(net, params, updater_state, iteration)
 
 

@@ -1,9 +1,8 @@
 """Layer-based NN API (the DL4J layer API): the configuration DSL,
 ``MultiLayerNetwork``, the ``ComputationGraph`` and its vertices,
 evaluation and listeners, and the training utilities (``serde``,
-``checkpoint``, ``earlystopping``, ``transferlearning``, ``solvers``).
-The layers listed in ``ROADMAP.md`` queue 1 item 9 wait for that
-item."""
+``checkpoint``, ``earlystopping``, ``transferlearning``, ``solvers``),
+with every layer class of the JAX package's ``nn/conf/``."""
 from .conf.config import (InputType, MultiLayerConfiguration,  # noqa: F401
                           NeuralNetConfiguration)
 from .conf import layers  # noqa: F401

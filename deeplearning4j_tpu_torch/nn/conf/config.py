@@ -164,12 +164,9 @@ def layer_to_dict(layer) -> dict:
 
 
 def layer_from_dict(d: dict):
-    """The layer of :func:`layer_to_dict`'s form; a layer this port does
-    not run yet raises naming its roadmap item."""
+    """The layer of :func:`layer_to_dict`'s form."""
     d = dict(d)
     cls = getattr(L, d.pop("@class"))
-    if isinstance(cls, type) and issubclass(cls, L.UnportedLayer):
-        raise cls.error()
     for k, v in d.items():
         if k == "weight_noise":
             d[k] = weightnoise_mod.weight_noise_from_dict(v)
@@ -178,13 +175,6 @@ def layer_from_dict(d: dict):
         elif isinstance(v, list):
             d[k] = tuple(v)
     return cls(**d)
-
-
-def check_ported(layers):
-    """Raise for the first layer this port does not run yet."""
-    for layer in layers:
-        if isinstance(layer, L.UnportedLayer):
-            raise layer.error()
 
 
 @dataclasses.dataclass
@@ -228,7 +218,6 @@ class MultiLayerConfiguration:
         return types
 
     def to_json(self) -> str:
-        check_ported(self.layers)
         return json.dumps({
             "layers": [layer_to_dict(l) for l in self.layers],
             "input_type": self.input_type,
@@ -298,7 +287,6 @@ class ListBuilder:
         return self
 
     def build(self) -> MultiLayerConfiguration:
-        check_ported(self._layers)
         pres = dict(self._preprocessors)
         if self._input_type is not None:
             cur = self._input_type

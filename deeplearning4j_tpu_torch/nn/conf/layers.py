@@ -12,16 +12,11 @@ convolution ``W`` is HWIO ``[kh, kw, n_in, n_out]`` (permuted to torch's
 OIHW inside ``conv_ops.conv2d``), batch-norm running stats are
 ``state_mean`` / ``state_var``. Input types are tuples without the batch
 dim: FF ``(n,)``, CNN ``(c, h, w)`` NCHW, RNN ``(features, timesteps)``.
-
-The layers this slice does not port are :class:`UnportedLayer`
-subclasses under their JAX names: they construct, and a configuration
-naming one fails at ``build()`` with ``NotImplementedError`` naming its
-roadmap item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,9 +28,6 @@ from ..losses import get_loss
 from ..weights import init_weights
 
 IntPair = Union[int, Tuple[int, int]]
-
-#: the roadmap entry every unported layer names
-ROADMAP_ITEM = "ROADMAP.md queue 1 item 9"
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -539,43 +531,232 @@ class GlobalPoolingLayer(Layer):
         return False
 
 
-class UnportedLayer:
-    """A layer of the JAX package this port does not run yet. It takes
-    any arguments, so configurations naming it still construct; building
-    one raises :meth:`error`."""
+@dataclasses.dataclass
+class Convolution1DLayer(Layer):
+    """1-D convolution over RNN-format input [B, features, T] (reference
+    Conv1DLayer); ``W`` is ``[k, n_in, n_out]``.
 
-    #: what the layer needs before it can be ported
-    needs = ""
+    padding "CAUSAL" (keras Conv1D padding='causal'): left-pads the time
+    axis with dilation*(kernel_size-1) zeros and convolves VALID, so
+    output t sees only inputs <= t."""
+    n_in: int = 0
+    n_out: int = 0
+    kernel_size: int = 3
+    stride: int = 1
+    padding: Union[str, int] = "SAME"
+    dilation: int = 1
+    activation: str = "identity"
+    weight_init: str = "relu"
+    has_bias: bool = True
 
-    def __init__(self, *args, **kwargs):
-        self.args, self.kwargs = args, kwargs
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        p = {"W": init_weights(generator, (self.kernel_size, n_in,
+                                           self.n_out), self.weight_init)}
+        if self.has_bias:
+            p["b"] = _zeros(generator, self.n_out)
+        return p
 
-    @classmethod
-    def error(cls) -> NotImplementedError:
-        return NotImplementedError(
-            f"{cls.__name__} is not ported yet ({cls.needs}); it waits "
-            f"for {ROADMAP_ITEM}")
+    def _is_causal(self):
+        return (isinstance(self.padding, str)
+                and self.padding.upper() == "CAUSAL")
+
+    def forward(self, params, x, training=False, key=None):
+        if self._is_causal():
+            left = self.dilation * (self.kernel_size - 1)
+            x = torch.nn.functional.pad(x, (left, 0))
+            pad = "VALID"
+        else:
+            pad = (self.padding if isinstance(self.padding, str)
+                   else int(self.padding))
+        return get_activation(self.activation)(
+            conv_ops.conv1d(x, params["W"], params.get("b"),
+                            strides=self.stride, padding=pad,
+                            dilation=self.dilation, data_format="NCW"))
+
+    def output_type(self, input_type):
+        c, t = input_type
+        if self._is_causal() or (isinstance(self.padding, str)
+                                 and self.padding.upper() == "SAME"):
+            ot = -(-t // self.stride)
+        else:
+            p = self.padding if not isinstance(self.padding, str) else 0
+            span = self.dilation * (self.kernel_size - 1) + 1
+            ot = (t + 2 * p - span) // self.stride + 1
+        return (self.n_out, ot)
 
 
-def _unported(name, needs):
-    return type(name, (UnportedLayer,), {"needs": needs,
-                                         "__module__": __name__})
+@dataclasses.dataclass
+class SelfAttentionLayer(Layer):
+    """Multi-head self attention over RNN-format input [B, F, T]
+    (reference SelfAttentionLayer), through
+    ``nn_ops.multi_head_dot_product_attention``."""
+    n_in: int = 0
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = None
+    weight_init: str = "xavier"
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        hs = self.head_size or (self.n_out // self.n_heads)
+        proj = (n_in, self.n_heads, hs)
+        return {"Wq": init_weights(generator, proj, self.weight_init),
+                "Wk": init_weights(generator, proj, self.weight_init),
+                "Wv": init_weights(generator, proj, self.weight_init),
+                "Wo": init_weights(generator, (self.n_heads * hs,
+                                               self.n_out),
+                                   self.weight_init)}
+
+    def forward(self, params, x, training=False, key=None):
+        xt = x.transpose(1, 2)  # [B, T, F]
+        out = nn_ops.multi_head_dot_product_attention(
+            xt, xt, xt, params["Wq"], params["Wk"], params["Wv"],
+            params["Wo"])
+        return out.transpose(1, 2)
+
+    def output_type(self, input_type):
+        return (self.n_out, input_type[1])
 
 
-Convolution1DLayer = _unported("Convolution1DLayer", "1-D convolution")
-SelfAttentionLayer = _unported("SelfAttentionLayer", "attention ops")
-Upsampling2D = _unported("Upsampling2D", "upsampling op")
-ZeroPaddingLayer = _unported("ZeroPaddingLayer", "padding layers")
-DeconvolutionLayer = _unported("DeconvolutionLayer",
-                               "transposed convolution")
-SeparableConvolution2D = _unported("SeparableConvolution2D",
-                                   "separable convolution")
-DepthwiseConvolution2D = _unported("DepthwiseConvolution2D",
-                                   "depthwise convolution")
+@dataclasses.dataclass
+class Upsampling2D(Layer):
+    """Nearest upsampling by repetition (reference Upsampling2D)."""
+    size: IntPair = (2, 2)
+
+    def forward(self, params, x, training=False, key=None):
+        sh, sw = _pair(self.size)
+        return conv_ops.upsampling2d(x, sh, sw, "NCHW")
+
+    def output_type(self, input_type):
+        c, h, w = input_type
+        sh, sw = _pair(self.size)
+        return (c, h * sh, w * sw)
+
+    def has_params(self):
+        return False
+
+
+@dataclasses.dataclass
+class ZeroPaddingLayer(Layer):
+    """Zero padding of NCHW input (reference ZeroPaddingLayer)."""
+    padding: Sequence[int] = (1, 1, 1, 1)  # top, bottom, left, right
+
+    def forward(self, params, x, training=False, key=None):
+        t, b, l, r = self.padding
+        return torch.nn.functional.pad(x, (l, r, t, b))
+
+    def output_type(self, input_type):
+        c, h, w = input_type
+        t, b, l, r = self.padding
+        return (c, h + t + b, w + l + r)
+
+    def has_params(self):
+        return False
+
+
+@dataclasses.dataclass
+class DeconvolutionLayer(ConvolutionLayer):
+    """Transposed convolution (reference conf/layers/Deconvolution2D.java);
+    ``W`` is ``[kh, kw, n_out, n_in]``.
+
+    ``output_type`` keeps the JAX package's formula, ``s(h-1)+k-2p``
+    (torch's), while the forward pads lax's way, ``s(h-1)+2p-k+2``: with
+    explicit padding other than ``k // 2`` the two disagree on both
+    sides (``ROADMAP.md`` queue 3, reference fault 8)."""
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        kh, kw = _pair(self.kernel_size)
+        p = {"W": init_weights(generator, (kh, kw, self.n_out, n_in),
+                               self.weight_init)}
+        if self.has_bias:
+            p["b"] = _zeros(generator, self.n_out)
+        return p
+
+    def forward(self, params, x, training=False, key=None):
+        out = conv_ops.deconv2d(x, params["W"], params.get("b"),
+                                strides=_pair(self.stride),
+                                padding=self._padding_arg(),
+                                data_format="NCHW")
+        return get_activation(self.activation)(out)
+
+    def output_type(self, input_type):
+        c, h, w = input_type
+        sh, sw = _pair(self.stride)
+        kh, kw = _pair(self.kernel_size)
+        pad = self._padding_arg()
+        if pad == "SAME":
+            return (self.n_out, h * sh, w * sw)
+        ph, pw = pad if isinstance(pad, tuple) else (0, 0)
+        return (self.n_out, sh * (h - 1) + kh - 2 * ph,
+                sw * (w - 1) + kw - 2 * pw)
+
+
+@dataclasses.dataclass
+class SeparableConvolution2D(ConvolutionLayer):
+    """Depthwise-separable convolution (reference
+    SeparableConvolution2D): ``Wd`` ``[kh, kw, n_in, depth_multiplier]``,
+    then the 1x1 ``Wp`` ``[1, 1, n_in * depth_multiplier, n_out]``."""
+    depth_multiplier: int = 1
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        kh, kw = _pair(self.kernel_size)
+        p = {"Wd": init_weights(generator,
+                                (kh, kw, n_in, self.depth_multiplier),
+                                self.weight_init),
+             "Wp": init_weights(generator,
+                                (1, 1, n_in * self.depth_multiplier,
+                                 self.n_out), self.weight_init)}
+        if self.has_bias:
+            p["b"] = _zeros(generator, self.n_out)
+        return p
+
+    def forward(self, params, x, training=False, key=None):
+        out = conv_ops.sconv2d(x, params["Wd"], params["Wp"],
+                               params.get("b"), strides=_pair(self.stride),
+                               padding=self._padding_arg(),
+                               data_format="NCHW")
+        return get_activation(self.activation)(out)
+
+
+@dataclasses.dataclass
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """Depthwise convolution (reference DepthwiseConvolution2D): ``W``
+    ``[kh, kw, n_in, depth_multiplier]``, ``n_in * depth_multiplier``
+    output channels."""
+    depth_multiplier: int = 1
+
+    def init_params(self, generator, input_type):
+        n_in = self.n_in or input_type[0]
+        kh, kw = _pair(self.kernel_size)
+        p = {"W": init_weights(generator,
+                               (kh, kw, n_in, self.depth_multiplier),
+                               self.weight_init)}
+        if self.has_bias:
+            p["b"] = _zeros(generator, n_in * self.depth_multiplier)
+        return p
+
+    def forward(self, params, x, training=False, key=None):
+        out = conv_ops.depthwise_conv2d(x, params["W"], params.get("b"),
+                                        strides=_pair(self.stride),
+                                        padding=self._padding_arg(),
+                                        data_format="NCHW")
+        return get_activation(self.activation)(out)
+
+    def output_type(self, input_type):
+        base = super().output_type(input_type)
+        return (input_type[0] * self.depth_multiplier,) + base[1:]
+
 
 # the extended layer set lives in layers_extra.py; re-exported here as the
 # JAX package does, so the catalog (and the JSON's getattr on this
-# module) has one namespace
+# module) has one namespace. The same seven classes are left out as
+# there (ChannelNormalizationLayer, GRUResetAfter,
+# LayerNormalizationLayer, PermuteLayer, RescaleLayer, ReshapeLayer,
+# SpatialDropout): a configuration holding one writes its JSON and cannot
+# read it back, on both sides (ROADMAP.md queue 3, reference fault 4)
 from .layers_extra import (  # noqa: E402,F401
     AlphaDropout, CapsuleLayer, CapsuleStrengthLayer, CenterLossOutputLayer,
     Cnn3DLossLayer, CnnLossLayer, Convolution3D, Cropping1D, Cropping2D,

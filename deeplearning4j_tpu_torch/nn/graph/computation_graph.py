@@ -38,7 +38,7 @@ from ...ndarray.ndarray import NDArray
 from ..conf import constraints as constraints_mod
 from ..conf import layers as L
 from ..conf import weightnoise as weightnoise_mod
-from ..conf.config import (PREPROCESSORS, check_ported, infer_preprocessor,
+from ..conf.config import (PREPROCESSORS, infer_preprocessor,
                            layer_from_dict, layer_to_dict)
 from ..fit_fastpath import FitFastPathMixin, full_f32
 from ..multilayer import resolve_device, unported
@@ -169,7 +169,6 @@ class ComputationGraphConfiguration:
                 d[f.name] = fv
             return d
 
-        check_ported(_layer_of(v) for v in self.vertices.values())
         return json.dumps({
             "inputs": self.inputs, "outputs": self.outputs,
             "vertices": {n: vert(v) for n, v in self.vertices.items()},
@@ -274,9 +273,7 @@ class GraphBuilder:
         return self
 
     def build(self) -> ComputationGraphConfiguration:
-        """The configuration; a layer this port does not run yet raises
-        ``NotImplementedError`` naming its roadmap item."""
-        check_ported(_layer_of(v) for v in self._vertices.values())
+        """The configuration."""
         conf = ComputationGraphConfiguration(
             inputs=self._inputs, outputs=self._outputs,
             vertices=self._vertices, vertex_inputs=self._vertex_inputs,
@@ -318,7 +315,6 @@ class ComputationGraph(FitFastPathMixin):
     """Reference org/deeplearning4j/nn/graph/ComputationGraph.java."""
 
     def __init__(self, conf: ComputationGraphConfiguration, device="cuda"):
-        check_ported(_layer_of(v) for v in conf.vertices.values())
         self.device = resolve_device(device)
         self.conf = conf
         self._order = [n for n in conf.topological_order()
@@ -518,7 +514,7 @@ class ComputationGraph(FitFastPathMixin):
 
     def _stateful_vertices(self):
         """Vertices whose layer carries non-trainable state (batch-norm
-        running stats)."""
+        running stats, center-loss centres)."""
         return [n for n in self._order
                 if hasattr(_layer_of(self.conf.vertices[n]), "new_state")]
 
@@ -530,7 +526,12 @@ class ComputationGraph(FitFastPathMixin):
                                            key=key, collect_state=True)
         loss = 0.0
         for (name, layer), y in zip(self._output_layers(), labels):
-            loss = loss + layer.compute_loss(y, acts[name])
+            if hasattr(layer, "compute_loss_ext"):
+                # a head whose loss reads its input features (center loss)
+                loss = loss + layer.compute_loss_ext(
+                    params[name], y, acts[name], state_inputs.get(name))
+            else:
+                loss = loss + layer.compute_loss(y, acts[name])
         return self._regularized(loss, trainable), state_inputs
 
     def score(self, dataset=None) -> float:

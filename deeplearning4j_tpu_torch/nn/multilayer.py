@@ -27,7 +27,7 @@ from ..common import rng
 from ..datasets.dataset import DataSet
 from ..learning import tree_map
 from ..ndarray.ndarray import NDArray
-from .conf.config import MultiLayerConfiguration, check_ported
+from .conf.config import MultiLayerConfiguration
 from .conf.layers import LossLayer, OutputLayer, RnnOutputLayer
 from .fit_fastpath import FitFastPathMixin, _leaves, full_f32
 
@@ -52,7 +52,6 @@ def unported(what, item, owner="MultiLayerNetwork"):
 
 class MultiLayerNetwork(FitFastPathMixin):
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
-        check_ported(conf.layers)
         self.device = resolve_device(device)
         self.conf = conf
         self.layers = conf.layers
@@ -278,9 +277,15 @@ class MultiLayerNetwork(FitFastPathMixin):
         out, kmask, bn_inputs = self._forward_core(params, x, training=True,
                                                    key=key, collect_bn=True)
         ll = self._loss_layer()
+        li = len(self.layers) - 1
         # a live MaskLayer mask masks a temporal loss head too
         mask = kmask if isinstance(ll, RnnOutputLayer) else None
-        loss = ll.compute_loss(y, out, mask)
+        if hasattr(ll, "compute_loss_ext"):
+            # a head whose loss reads its input features (center loss)
+            loss = ll.compute_loss_ext(params[li], y, out, bn_inputs.get(li),
+                                       mask)
+        else:
+            loss = ll.compute_loss(y, out, mask)
         return self._regularized(loss, trainable), bn_inputs
 
     def score(self, dataset: DataSet = None) -> float:
@@ -299,8 +304,9 @@ class MultiLayerNetwork(FitFastPathMixin):
     # -- training --------------------------------------------------------
     @torch.no_grad()
     def _refresh_states(self, states, bn_inputs, y):
-        """Stateful layers (batch-norm running stats) refresh from the
-        inputs collected during the forward pass."""
+        """Stateful layers (batch-norm running stats, center-loss
+        centres, which also read the labels) refresh from the inputs
+        collected during the forward pass."""
         new_states = []
         for i, layer in enumerate(self.layers):
             if hasattr(layer, "new_state") and i in bn_inputs:

@@ -11,6 +11,7 @@ from .registry import OpRegistry, exec_op, op  # noqa: F401
 from . import (  # noqa: F401  (import for registration side effects)
     controlflow,
     conv_ops,
+    image_ops,
     linalg_ops,
     loss_ops,
     nlp_ops,

@@ -16,21 +16,6 @@ PENDING = {
     "compression": (
         "decode_bitmap", "decode_threshold", "encode_bitmap",
         "encode_threshold"),
-    "conv_ops": (
-        "avgpool3d", "avgpool3dnew", "col2im", "conv1d", "conv3d",
-        "conv3dnew", "deconv2d", "deconv3d", "depthwise_conv2d",
-        "dilation2d", "extract_image_patches", "im2col",
-        "max_pool_with_argmax", "maxpool3d", "maxpool3dnew",
-        "pointwise_conv2d", "sconv2d", "separable_conv2d", "upsampling2d",
-        "upsampling3d"),
-    "image_ops": (
-        "adjust_contrast", "adjust_contrast_v2", "adjust_hue",
-        "adjust_saturation", "crop_and_resize", "draw_bounding_boxes",
-        "hsv_to_rgb", "image_resize", "non_max_suppression",
-        "non_max_suppression_overlaps", "non_max_suppression_v3",
-        "resize_area", "resize_bicubic", "resize_bilinear", "resize_images",
-        "resize_nearest_neighbor", "rgb_to_grs", "rgb_to_hsv", "rgb_to_yiq",
-        "rgb_to_yuv", "yiq_to_rgb", "yuv_to_rgb"),
     # the decompositions; the "blas" half (matmul, batched_gemm,
     # tensormmul, einsum) is ported in linalg_ops.py
     "linalg_ops": (

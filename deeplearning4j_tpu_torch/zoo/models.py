@@ -1,10 +1,9 @@
 """Sequential zoo architectures (MultiLayerNetwork-based).
 
 Counterpart of the sequential models of ``deeplearning4j_tpu/zoo/
-models.py`` (the reference's ``zoo/model/``) whose layers the port runs:
-LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19 and
-TextGenerationLSTM. TinyYOLO (a YOLO2 output layer) waits for its layer
-(``ROADMAP.md`` queue 1 item 9).
+models.py`` (the reference's ``zoo/model/``): LeNet, SimpleCNN, AlexNet,
+VGG16, VGG19, Darknet19, TinyYOLO and TextGenerationLSTM, with the same
+configurations, so each model's JSON is the JAX package's.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ from ..nn.conf.layers import (ActivationLayer, BatchNormalization,
                               ConvolutionLayer, DenseLayer, DropoutLayer,
                               GlobalPoolingLayer, LocalResponseNormalization,
                               LossLayer, LSTM, OutputLayer, RnnOutputLayer,
-                              SubsamplingLayer)
+                              SubsamplingLayer, Yolo2OutputLayer)
 from .base import ZooModel
 
 
@@ -180,6 +179,46 @@ class Darknet19(ZooModel):
                    LossLayer(loss="mcxent", activation="softmax")]
         b = (NeuralNetConfiguration.builder()
              .seed(self.seed).updater(Nesterovs(1e-3, 0.9)).list())
+        for layer in layers:
+            b = b.layer(layer)
+        return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+#: VOC anchors of the reference TinyYOLO and YOLO2 priors
+_TINY_YOLO_ANCHORS = ((1.08, 1.19), (3.42, 4.41), (6.63, 11.38),
+                      (9.42, 5.11), (16.62, 10.52))
+_YOLO2_ANCHORS = ((0.57273, 0.677385), (1.87446, 2.06253),
+                  (3.33843, 5.47434), (7.88282, 3.52778),
+                  (9.77052, 9.16828))
+
+
+@dataclasses.dataclass
+class TinyYOLO(ZooModel):
+    """Reference zoo/model/TinyYOLO.java (9-conv darknet + YOLO2 head).
+
+    Its head is a ``Yolo2OutputLayer``, which ``MultiLayerNetwork.fit``
+    refuses as the JAX package's does ("last layer must be an
+    output/loss layer"; ``ROADMAP.md`` queue 3, reference fault 7):
+    ``output()`` runs, training goes through ``YOLO2``'s graph."""
+    num_classes: int = 20
+    input_shape: Tuple[int, int, int] = (3, 416, 416)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        layers = []
+        for ch in (16, 32, 64, 128, 256):
+            layers += _conv_bn_leaky(ch) + [
+                SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2))]
+        # reference TinyYOLO.java: stride-1 SAME maxpool after the 512 block
+        layers += _conv_bn_leaky(512) + [
+            SubsamplingLayer(kernel_size=(2, 2), stride=(1, 1),
+                             padding="SAME")]
+        layers += _conv_bn_leaky(1024) + _conv_bn_leaky(1024)
+        layers += [ConvolutionLayer(
+            n_out=len(_TINY_YOLO_ANCHORS) * (5 + self.num_classes),
+            kernel_size=(1, 1)), Yolo2OutputLayer(anchors=_TINY_YOLO_ANCHORS)]
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed).updater(Adam(1e-3)).list())
         for layer in layers:
             b = b.layer(layer)
         return b.set_input_type(InputType.convolutional(h, w, c)).build()

@@ -3,13 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/zoo/models_graph.py`` (the
 reference's ``zoo/model/`` ResNet50, SqueezeNet, UNet, Xception,
 InceptionResNetV1, FaceNetNN4Small2, NASNet and YOLO2), with the same
-configurations, so each model's JSON is the JAX package's. ResNet50,
-SqueezeNet, InceptionResNetV1 and FaceNetNN4Small2 run on the port's
-layers. UNet (``Upsampling2D``, ``CnnLossLayer``), Xception and NASNet
+configurations, so each model's JSON is the JAX package's: UNet
+(``Upsampling2D``, ``CnnLossLayer``), Xception and NASNet
 (``SeparableConvolution2D``) and YOLO2 (``SpaceToDepthLayer``,
-``Yolo2OutputLayer``) construct, and ``conf()`` / ``init_model()`` raise
-``NotImplementedError`` naming ``ROADMAP.md`` queue 1 item 9, where
-their layers wait.
+``Yolo2OutputLayer``) among them.
 
 Block-repeat counts are parameters, so tests build tiny variants; the
 defaults are the reference's.
@@ -30,12 +27,7 @@ from ..nn.conf.layers import (ActivationLayer, BatchNormalization,
 from ..nn.graph import (ComputationGraph, ElementWiseVertex,
                         L2NormalizeVertex, MergeVertex, ScaleVertex)
 from .base import ZooModel
-from .models import _conv_bn_leaky
-
-#: YOLO2's anchor boxes (reference YOLO2.java)
-_YOLO2_ANCHORS = ((0.57273, 0.677385), (1.87446, 2.06253),
-                  (3.33843, 5.47434), (7.88282, 3.52778),
-                  (9.77052, 9.16828))
+from .models import _YOLO2_ANCHORS, _conv_bn_leaky
 
 
 @dataclasses.dataclass

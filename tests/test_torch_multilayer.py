@@ -193,23 +193,32 @@ class TestConfig:
 
     @pytest.mark.parametrize("model", ["LeNet", "SimpleCNN", "AlexNet",
                                        "VGG16", "VGG19", "Darknet19",
-                                       "TextGenerationLSTM"])
+                                       "TinyYOLO", "TextGenerationLSTM"])
     def test_zoo_confs_match_jax(self, model):
         t = getattr(tzoo, model)(dtype="bfloat16").build_conf()
         j = getattr(jzoo, model)(dtype="bfloat16").build_conf()
         assert t.to_json() == j.to_json()
 
-    def test_unported_layer_fails_at_build(self):
-        b = TNNC.builder().list().layer(TL.Convolution1DLayer(n_out=4))
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            b.layer(TL.RnnOutputLayer(n_in=4, n_out=2)).build()
-        # the graph builder is ported; a graph naming an unported layer
-        # fails at build() the same way
-        g = (TNNC.builder().graph_builder().add_inputs("in")
-             .add_layer("up", TL.Upsampling2D(size=2), "in")
-             .set_outputs("up"))
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            g.build()
+    def test_tiny_yolo_forward_matches_jax_and_fit_refuses_alike(self):
+        """TinyYOLO at the JAX zoo test's size: the 45-channel 2x2 head
+        against the JAX network on the same weights; ``fit`` refuses its
+        ``Yolo2OutputLayer`` head on both sides (reference fault 7)."""
+        kw = dict(num_classes=4, input_shape=(3, 64, 64))
+        jnet = JMLN(jzoo.TinyYOLO(**kw).build_conf()).init()
+        tnet = tzoo.TinyYOLO(**kw).init_model(device="cpu")
+        bridge.load_multilayer(tnet, _np_tree(jnet._params))
+        x = np.random.RandomState(3).randn(2, 3, 64, 64).astype(np.float32)
+        got = tnet.output(x).numpy()
+        assert got.shape == (2, 5 * 9, 2, 2)
+        np.testing.assert_allclose(got, np.asarray(jnet.output(x).jax()),
+                                   atol=F32, rtol=F32)
+        assert tnet.num_params() == jnet.num_params()
+        y = np.zeros((2, 8, 2, 2), np.float32)
+        msg = "last layer must be an output/loss layer"
+        with pytest.raises(ValueError, match=msg):
+            jnet.fit(JDataSet(x, y))
+        with pytest.raises(ValueError, match=msg):
+            tnet.fit(TDataSet(x, y))
 
     def test_network_needs_a_device_it_can_use(self):
         """No ``device=`` means the card; without one it raises rather

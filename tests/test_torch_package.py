@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.quant import transforms
 from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
 from deeplearning4j_tpu_torch.zoo.base import ZooModel
+from deeplearning4j_tpu_torch.zoo.models_graph import YOLO2
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) \
@@ -60,8 +61,9 @@ def test_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-#: the modules of the common/ and training-utility slice, imported in a
-#: fresh interpreter that must load neither JAX nor the JAX package
+#: the modules of the common/ and training-utility slice and of the
+#: convolution slice, imported in a fresh interpreter that must load
+#: neither JAX nor the JAX package
 SLICE_MODULES = [
     "deeplearning4j_tpu_torch", "deeplearning4j_tpu_torch.common",
     "deeplearning4j_tpu_torch.common.config",
@@ -78,6 +80,10 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.nn.solvers",
     "deeplearning4j_tpu_torch.nn.transferlearning",
     "deeplearning4j_tpu_torch.zoo.base",
+    "deeplearning4j_tpu_torch.ops.conv_ops",
+    "deeplearning4j_tpu_torch.ops.image_ops",
+    "deeplearning4j_tpu_torch.nn.conf.layers_extra",
+    "deeplearning4j_tpu_torch.zoo.models_graph",
 ]
 
 
@@ -119,6 +125,7 @@ ENTRY_POINTS = [
     ZooModel.init_pretrained,
     BenchmarkDataSetIterator.__init__,
     LocalFileModelSaver.__init__,
+    YOLO2.init_model,
 ]
 
 

@@ -394,17 +394,13 @@ def test_params_keep_the_jax_keys_and_forget_bias(layer, keys):
 def test_extra_layers_left_are_stubs_naming_their_item():
     jnames = {n for n, c in vars(jextra).items() if isinstance(c, type)
               and issubclass(c, JL.Layer) and c.__module__ == jextra.__name__}
-    ported = {"SimpleRnn", "GRU", "GRUResetAfter", "LastTimeStep",
-              "TimeDistributed", "MaskZeroLayer", "MaskLayer",
-              "RnnLossLayer", "FrozenLayer"}
-    assert len(jnames) == 45 and ported <= jnames
-    for n in jnames - ported:
+    # every class is ported (the recurrent ones here, the rest in
+    # test_torch_layers_extra.py) and builds into a configuration
+    assert len(jnames) == 45
+    for n in jnames:
         cls = getattr(textra, n)
-        assert issubclass(cls, TL.UnportedLayer), n
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            TNNC.builder().list().layer(cls()).build()
-    for n in ported:
-        assert issubclass(getattr(textra, n), TL.Layer), n
+        assert isinstance(cls, type) and issubclass(cls, TL.Layer), n
+    TNNC.builder().list().layer(textra.GaussianNoise()).build()
 
 
 def test_graph_runs_recurrent_layers_as_jax():

@@ -9,7 +9,11 @@ both run the same numbers. Every port call runs on the CPU.
 Tolerances, each with its reason:
 - f32 forwards: convolutions and products summed in another order
   through 10-70 layers; softmax probabilities within atol 1e-5
-  (``F32``).
+  (``F32``), and the detection, segmentation and depthwise-separable
+  models' outputs within atol plus rtol 1e-5.
+- f32 fit steps of YOLO2 and UNet (Adam, batch norm over 2x2 maps):
+  the loss before the step and the step's loss within rtol 1e-4
+  (``FIT_RTOL``), sums over every output cell in another order.
 - ResNet-50's bf16 train step (``conf.dtype = "bfloat16"``): both sides
   round activations to bf16, at other places (XLA keeps some fused
   intermediates in f32); the loss (about ln 7 = 1.9, a mean over the
@@ -33,6 +37,7 @@ import deeplearning4j_tpu_torch.zoo as tzoo
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet as TDataSet
 
 F32 = 1e-5
+FIT_RTOL = 1e-4
 BF16_LOSS_ATOL = BF16_STAT_ATOL = 2e-2
 
 TINY_RESNET = dict(num_classes=7, stages=(1, 1, 1, 1), input_shape=(3, 32, 32))
@@ -119,8 +124,84 @@ def test_resnet50_full_width_types_and_params():
                if not k.startswith("state_")) == 53 + 2 * 53 + 2
 
 
-@pytest.mark.parametrize("name", ["UNet", "Xception", "NASNet", "YOLO2"])
-def test_unported_graph_models_name_their_item(name):
-    model = getattr(tzoo, name)()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        model.init_model(device="cpu")
+# the detection, segmentation and depthwise-separable models, at the JAX
+# zoo tests' sizes, with their output shapes
+DETECTION = {
+    "UNet": (dict(input_shape=(3, 32, 32), base_filters=4), (1, 32, 32)),
+    "Xception": (dict(num_classes=5, middle_blocks=1,
+                      input_shape=(3, 64, 64)), (5,)),
+    "NASNet": (dict(num_classes=5, num_blocks=1, penultimate_filters=48,
+                    input_shape=(3, 32, 32)), (5,)),
+    "YOLO2": (dict(num_classes=4, input_shape=(3, 64, 64)), (5 * 9, 2, 2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DETECTION))
+def test_detection_and_separable_forward_matches_jax(name):
+    kw, out_shape = DETECTION[name]
+    jnet, tnet = _pair(name, **kw)
+    x, _ = _batch(2, kw["input_shape"], 2, 1)
+    got, ref = tnet.output(x), jnet.output(x)
+    assert len(got) == len(ref) == 1
+    assert got[0].shape == (2,) + out_shape == tuple(ref[0].shape)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0].jax()),
+                               atol=F32, rtol=F32)
+    assert tnet.num_params() == jnet.num_params()
+
+
+def yolo_labels(B, classes, grid, seed):
+    """[B, 4 + classes, grid, grid]: one or two boxes an image in the
+    corner format, each at the cell that holds its centre."""
+    rng = np.random.RandomState(seed)
+    y = np.zeros((B, 4 + classes, grid, grid), np.float32)
+    for b in range(B):
+        for _ in range(rng.randint(1, 3)):
+            x1, y1 = rng.uniform(0, 0.6, 2)
+            x2, y2 = x1 + rng.uniform(0.1, 0.4), y1 + rng.uniform(0.1, 0.4)
+            cx = min(int((x1 + x2) / 2 * grid), grid - 1)
+            cy = min(int((y1 + y2) / 2 * grid), grid - 1)
+            y[b, :4, cy, cx] = (x1, y1, x2, y2)
+            y[b, 4:, cy, cx] = 0.0
+            y[b, 4 + rng.randint(classes), cy, cx] = 1.0
+    return y
+
+
+def _fit_step_matches(jnet, tnet, x, y):
+    before = tnet.score(TDataSet(x, y))
+    np.testing.assert_allclose(before, jnet.score(JDataSet(x, y)),
+                               rtol=FIT_RTOL)
+    jnet.fit(JDataSet(x, y))
+    tnet.fit(TDataSet(x, y))
+    assert math.isfinite(tnet.score_value)
+    np.testing.assert_allclose(tnet.score_value, jnet.score_value,
+                               rtol=FIT_RTOL)
+    # after the step only that it moved: Adam steps each weight by about
+    # lr whatever its gradient's size, so a weight whose gradient is ~0 on
+    # both sides may step either way
+    after = tnet.score(TDataSet(x, y))
+    assert math.isfinite(after) and after != before
+
+
+def test_yolo2_tiny_fit_step_matches_jax():
+    """One Adam step (the zoo's updater) of the tiny YOLO2 on a batch
+    with one or two boxes an image: the loss before the step and the
+    step's loss against the JAX graph's."""
+    kw, _ = DETECTION["YOLO2"]
+    jnet, tnet = _pair("YOLO2", **kw)
+    x, _ = _batch(2, kw["input_shape"], 2, 3)
+    _fit_step_matches(jnet, tnet, x, yolo_labels(2, 4, 2, 4))
+
+
+def test_unet_tiny_fit_step_matches_jax():
+    """One Adam step of the tiny UNet on binary masks, the per-pixel
+    sigmoid cross-entropy against the JAX graph's. The bottom dropout's
+    draws cannot match ``jax.random``'s, so the step runs with its rate
+    set to 0 on both sides."""
+    kw, _ = DETECTION["UNet"]
+    jnet, tnet = _pair("UNet", **kw)
+    for net in (jnet, tnet):
+        net.conf.vertices["bottom_drop"].layer.rate = 0.0
+    x, _ = _batch(2, kw["input_shape"], 2, 5)
+    y = (np.random.RandomState(6).rand(2, 1, 32, 32) > 0.5) \
+        .astype(np.float32)
+    _fit_step_matches(jnet, tnet, x, y)
