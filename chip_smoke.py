@@ -272,11 +272,27 @@ exits non-zero without printing a result:
               (bf16) and its ``fit`` refusing the YOLO2 head as the JAX
               package's does.
    ops_card — each op name of the convolution and image families (and
-              ``deconv2d_bp``, ``avgpool3dnew_bp``) on the card against
-              a CPU copy of the same draw, at the CPU op tests'
-              tolerances. None of these phases reaches one of the five
-              kernels: no convolution or image module of the JAX package
-              reaches a ``pallas_call``.
+              ``deconv2d_bp``, ``avgpool3dnew_bp``) and of the op tail
+              (bitwise, compression, segment with its 11 bp ops, the
+              linear-algebra decompositions, the parity tail, strings,
+              lists; ``gelu(approximate=False)``, ``cross(axis=0)``) on
+              the card against a CPU copy of the same draw, at the CPU
+              op tests' tolerances (``qr``, ``svd``, ``eig`` and
+              ``self_adjoint_eig`` by reconstruction and invariants; the
+              string ops, ``hashcode`` and ``broadcastgradientargs``,
+              whose JAX results are host values, equal on the host).
+   opbench  — ``benchmarks/opbench.py``'s whole-registry sweep on the
+              card at N = 512 (``OPBENCH_ITERS`` calls and CUDA-graph
+              replays an op): counts and names benched, skipped,
+              excluded and not captured, the 10 slowest ops, the
+              phase's seconds, the names the JAX CPU sweep
+              (``OPBENCH_cpu_baseline.json``) benched that the card did
+              not, with reasons; the JSON to ``OPBENCH_OUT``. A
+              registered name neither benched, skipped nor excluded, or
+              an op skipped on the card that its CPU copy benches, fails
+              the phase. None of these phases reaches one of the five
+              kernels: no convolution, image or op-tail module of the
+              JAX package reaches a ``pallas_call``.
    host_profile — ``torch.profiler`` (CPU activities, every thread)
               and a 1 kHz sampling of every thread's innermost Python
               frame over a second run of serve_http's 16 requests and a
@@ -334,6 +350,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -4781,6 +4799,120 @@ CARD_OPS = (
     ("avgpool3dnew_bp", [(_F, (2, 2, 5, 6, 5)), (_F, (2, 2, 2, 3, 2))],
      {"kernel": (2, 2, 2)}, CARD_SUM))
 
+# the op tail (bitwise, compression, segment and its bp ops, linear
+# algebra, the parity tail, strings, lists) and the keyword repairs, each
+# name once, at the CPU op tests' tolerances (bits, integers and host
+# values exactly, elementwise 1e-6, sums 1e-5, factorisations 1e-4); more
+# input kinds: ("w", shape) int32 over the whole range, ("n", shape, lo,
+# hi) small ints, ("s", shape) an int8 sign field, ("+", shape) uniform
+# [0.5, 2), ("p", n, asym) symmetric positive definite plus asym times a
+# non-symmetric draw, ("d", n) diagonally dominant, ("L", n, shape) a
+# list of n normal draws; numpy arrays and Python values are constants
+_W, _N, _S, _P, _SPD, _D, _L = "w", "n", "s", "+", "p", "d", "L"
+CARD_EXACT, CARD_F32, CARD_FACTOR = 0.0, 1e-6, 1e-4
+#: ids over [-2, 12) for 10 segments: negative and past-the-end ids
+#: dropped, some segments empty
+_SEG_IDS = np.random.RandomState(99).randint(-2, 12, 64).astype(np.int32)
+_SEGMENTS = tuple(f"{p}segment_{r}" for p in ("", "unsorted_")
+                  for r in ("sum", "max", "min", "prod", "mean")) + (
+    "unsorted_segment_sqrt_n",)
+_STRINGS = np.asarray([["a b  c", "hello world"], ["", "x,y z"]], object)
+CARD_TAIL_OPS = tuple(
+    [(n, [(_W, (64, 64)), (_W, (64, 64))], {}, CARD_EXACT)
+     for n in ("bitwise_and", "bitwise_or", "bitwise_xor",
+               "bits_hamming_distance")]
+    + [("toggle_bits", [(_W, (64, 64))], {}, CARD_EXACT)]
+    + [(n, [(_W, (64, 64)), (_N, (64, 64), -2, 35)], {}, CARD_EXACT)
+       for n in ("shift_bits", "rshift_bits", "cyclic_shift_bits",
+                 "cyclic_rshift_bits")]
+    + [("encode_threshold", [(_F, (64, 64))], {"threshold": 0.5}, CARD_F32),
+       ("encode_bitmap", [(_F, (64, 64))], {"threshold": 0.5}, CARD_F32),
+       ("decode_threshold", [(_S, (64, 64))], {"threshold": 0.5}, CARD_F32),
+       ("decode_bitmap", [(_S, (64, 64))], {"dtype": "float16"}, CARD_F32)]
+    + [(n, [(_F, (64, 8)), _SEG_IDS], {"num_segments": 10}, CARD_SUM)
+       for n in _SEGMENTS]
+    + [(n + "_bp", [(_F, (64, 8)), _SEG_IDS, (_F, (10, 8))],
+        {"num_segments": 10}, CARD_SUM) for n in _SEGMENTS]
+    + [("cholesky", [(_SPD, 8, 0.3)], {}, CARD_FACTOR),
+       ("qr", [(_F, (16, 8))], {}, CARD_FACTOR),
+       ("svd", [(_F, (16, 8))], {}, CARD_FACTOR),
+       ("matrix_inverse", [(_D, 8)], {}, CARD_SUM),
+       ("matrix_determinant", [(_D, 8)], {}, CARD_SUM),
+       ("log_matrix_determinant", [(_F, (8, 8))], {}, CARD_SUM),
+       ("logdet", [(_SPD, 8, 0.3)], {}, CARD_FACTOR),
+       ("eig", [(_F, (8, 8))], {}, CARD_FACTOR),
+       ("self_adjoint_eig", [(_SPD, 8, 0.3)], {}, CARD_FACTOR),
+       ("lu", [(_F, (8, 8))], {}, CARD_FACTOR),
+       ("solve", [(_D, 8), (_F, (8, 3))], {}, CARD_SUM),
+       ("triangular_solve", [(_D, 8), (_F, (8, 3))],
+        {"lower": False, "adjoint": True}, CARD_SUM),
+       ("lstsq", [(_F, (6, 10)), (_F, (6, 3))], {}, CARD_FACTOR),
+       ("solve_ls", [(_F, (12, 5)), (_F, (12, 2))], {}, CARD_FACTOR),
+       ("sqrtm", [(_SPD, 8, 0.0)], {}, CARD_FACTOR),
+       ("cross_batched", [(_F, (16, 3)), (_F, (16, 3))], {}, CARD_F32),
+       ("knn_mindistance", [(_F, (16, 3)), np.full(3, -0.5, np.float32),
+                            np.full(3, 0.5, np.float32)], {}, CARD_F32)]
+    + [("Assert", [np.ones(4, bool), (_F, (3,))], {}, CARD_EXACT),
+       ("confusion_matrix", [np.asarray([0, 1, 5, -1, 2, 1, 2], np.int32),
+                             np.asarray([0, 2, 1, 0, 2, 3, 2], np.int32)],
+        {"num_classes": 3}, CARD_EXACT),
+       ("fake_quant_with_min_max_vars", [(_F, (64, 64)), -1.0, 1.0], {},
+        CARD_F32),
+       ("fake_quant_with_min_max_vars_per_channel",
+        [(_F, (64, 16)), np.linspace(-2, -0.5, 16).astype(np.float32),
+         np.linspace(0.5, 2, 16).astype(np.float32)], {}, CARD_F32),
+       ("compare_and_bitpack", [(_F, (16, 64)), 0.25], {}, CARD_EXACT),
+       ("create_view", [(_F, (8, 8))], {}, CARD_EXACT),
+       ("norm", [(_F, (64, 64))], {"mode": 0, "dims": [1]}, CARD_SUM),
+       ("min_max_datatype", [(_S, (4,))], {"min_or_max": 1}, CARD_EXACT),
+       ("broadcastgradientargs", [np.asarray([2, 1, 3]), np.asarray([4, 3])],
+        {}, CARD_EXACT),
+       ("deconv2d_tf", [np.asarray([2, 8, 8, 3], np.int32),
+                        (_F, (3, 3, 3, 4)), (_F, (2, 4, 4, 4))],
+        {"strides": (2, 2)}, CARD_SUM),
+       ("conv2d_input_bp", [np.asarray([2, 3, 6, 6], np.int32),
+                            (_F, (3, 3, 3, 4)), (_F, (2, 4, 6, 6))], {},
+        CARD_SUM),
+       ("ctc_beam", [(_F, (2, 6, 4)), np.asarray([6, 4], np.int32)],
+        {"beam_width": 3, "top_paths": 2}, CARD_F32),
+       ("print_variable", [(_F, (4,))], {"message": "ops_card: "},
+        CARD_EXACT),
+       ("barnes_symmetrized", [np.asarray([0, 2, 3, 5], np.int32),
+                               np.asarray([1, 2, 0, 0, 1], np.int32),
+                               (_P, (5,))], {}, CARD_F32),
+       ("barnes_edge_forces", [(_P, (16, 16)), (_F, (16, 2))], {}, CARD_SUM),
+       ("barnes_gains", [(_P, (16, 3)), (_F, (16, 3)), (_F, (16, 3))], {},
+        CARD_F32),
+       ("cell_contains", [(_F, (2,)), (_P, (2,)), (_F, (16, 2))], {},
+        CARD_EXACT)]
+    + [("split_string", [_STRINGS], {}, CARD_EXACT),
+       ("compat_string_split", [_STRINGS], {"delimiter": ","}, CARD_EXACT),
+       ("compat_sparse_to_dense", [np.asarray([[0, 1], [2, 0]]),
+                                   np.asarray([3, 2]),
+                                   np.asarray(["p", "q"], object), "-"], {},
+        CARD_EXACT),
+       ("hashcode", [(_F, (8, 8))], {}, CARD_EXACT)]
+    + [("create_list", [], {}, CARD_EXACT),
+       ("write_list", [(_L, 3, (4, 4)), (_F, (4, 4)), 4], {}, CARD_EXACT),
+       ("read_list", [(_L, 3, (4, 4)), 1], {}, CARD_EXACT),
+       ("pick_list", [(_L, 4, (4,)), (3, 1)], {}, CARD_EXACT),
+       ("size_list", [(_L, 3, (2,))], {}, CARD_EXACT),
+       ("scatter_list", [(_L, 2, (3,)), (0, 3), (_F, (2, 3))], {},
+        CARD_EXACT),
+       ("gather_list", [(_L, 4, (2,)), (3, 0, 3)], {}, CARD_EXACT),
+       ("stack_list", [(_L, 3, (2, 2))], {}, CARD_EXACT),
+       ("unstack_list", [(_F, (2, 3, 4))], {"axis": 1}, CARD_EXACT),
+       ("split_list", [(_F, (6, 2)), (1, 3, 2)], {}, CARD_EXACT),
+       ("clone_list", [(_L, 2, (3,))], {}, CARD_EXACT),
+       ("delete_list", [(_L, 2, (3,))], {}, CARD_EXACT)]
+    + [("gelu", [(_F, (64, 64))], {"approximate": False}, CARD_F32),
+       ("cross", [(_F, (3, 16)), (_F, (3, 16))], {"axis": 0}, CARD_F32)])
+CARD_OPS += CARD_TAIL_OPS
+#: ops whose JAX result is a host value: held on the host, not on the card
+CARD_HOST_OPS = ("split_string", "compat_string_split",
+                 "compat_sparse_to_dense", "hashcode",
+                 "broadcastgradientargs")
+
 
 def card_input(rng, spec):
     import numpy as np
@@ -4798,14 +4930,89 @@ def card_input(rng, spec):
         a, b = rng.uniform(0, 1, shape + (2,)), rng.uniform(0, 1, shape + (2,))
         return np.concatenate([np.minimum(a, b), np.maximum(a, b)],
                               -1).astype(np.float32)
+    if kind == _W:
+        return rng.randint(-2 ** 31, 2 ** 31 - 1, shape,
+                           dtype=np.int64).astype(np.int32)
+    if kind == _N:
+        return rng.randint(spec[2], spec[3], shape).astype(np.int32)
+    if kind == _S:
+        return rng.randint(-1, 2, shape).astype(np.int8)
+    if kind == _P:
+        return rng.uniform(0.5, 2.0, shape).astype(np.float32)
+    if kind == _SPD:
+        a = rng.randn(shape, shape)
+        return (a @ a.T + shape * np.eye(shape)
+                + spec[2] * rng.randn(shape, shape)).astype(np.float32)
+    if kind == _D:
+        return (rng.randn(shape, shape) + 3 * np.eye(shape)).astype(
+            np.float32)
+    if kind == _L:
+        return [rng.randn(*spec[2]).astype(np.float32)
+                for _ in range(shape)]
     return rng.randint(0, spec[2], shape).astype(np.int32)
 
 
+def card_args(a, device):
+    """numpy arrays (not strings) as tensors on ``device``, inside lists
+    too; everything else as it is."""
+    import numpy as np
+    import torch
+    if isinstance(a, np.ndarray) and a.dtype != object:
+        return torch.from_numpy(a).to(device)
+    if isinstance(a, list):
+        return [card_args(v, device) for v in a]
+    return a
+
+
+def beyond(got, ref, tol):
+    """How far ``got`` is from ``ref`` past atol = rtol = ``tol`` (<= 0
+    within), in float64 on the host."""
+    import torch
+    g = got.detach().cpu().to(torch.complex128 if got.is_complex()
+                              else torch.float64)
+    r = ref.detach().cpu().to(g.dtype)
+    if g.numel() == 0:
+        return 0.0
+    return float(((g - r).abs() - tol * r.abs()).max())
+
+
+def card_invariants(name, a, got, ref, tol):
+    """For the factorisations that the libraries may give with other
+    column signs or order: the largest excess over ``tol`` of the card's
+    factors' reconstruction of ``a`` and of their sign-free parts against
+    the CPU's."""
+    import torch
+    a = a.double()
+    g = [t.detach().cpu() for t in got]
+    r = [t.detach().cpu() for t in ref]
+    if name == "qr":
+        q, rr = g
+        return max(beyond(q.double() @ rr.double(), a, tol),
+                   beyond(rr.abs(), r[1].abs(), tol))
+    if name == "svd":
+        u, sv, vh = (t.double() for t in g)
+        k = sv.shape[-1]
+        return max(beyond(sv, r[1], tol),
+                   beyond((u[:, :k] * sv) @ vh[:k], a, tol))
+    if name == "self_adjoint_eig":
+        w, v = (t.double() for t in g)
+        sym = (a + a.T) / 2
+        return max(beyond(w, r[0], tol), beyond(sym @ v, v * w, tol))
+    w, v = (t.to(torch.complex128) for t in g)   # eig
+
+    def order(x):
+        return x[torch.argsort(x.real * 1e3 + x.imag)]
+    return max(beyond(order(w), order(r[0].to(torch.complex128)), tol),
+               beyond(a.to(torch.complex128) @ v, v * w, tol))
+
+
 def phase_ops_card():
-    """Each newly registered op name (and one bp op of each family's
-    module) on the card and on a CPU copy of the same draw (see
-    CARD_OPS): results on the card, dtypes and shapes equal, values
-    within the CPU op tests' tolerances."""
+    """Each op name of the convolution and image slice and of the op tail
+    (and one bp op of each family's module, every segment bp op) on the
+    card and on a CPU copy of the same draw (see CARD_OPS): results on
+    the card (host values, for CARD_HOST_OPS, equal on the host), dtypes
+    and shapes equal, values within the CPU op tests' tolerances; the
+    factorisations with free signs or order by their invariants."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch.ops import exec_op
@@ -4819,37 +5026,134 @@ def phase_ops_card():
     for i, (name, specs, kw, tol) in enumerate(CARD_OPS):
         rng = np.random.RandomState(i)
         args = [card_input(rng, s) for s in specs]
-        cpu = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-               for a in args]
-        dev = [a.cuda() if isinstance(a, torch.Tensor) else a for a in cpu]
+        cpu = [card_args(a, "cpu") for a in args]
+        dev = [card_args(a, "cuda") for a in args]
         try:
             got = leaves(exec_op(name, *dev, **kw))
             ref = leaves(exec_op(name, *cpu, **kw))
+            if len(got) != len(ref):
+                raise RuntimeError(f"{len(got)} results against {len(ref)}")
             err = 0.0
-            for g, r in zip(got, ref):
-                if not g.is_cuda or g.dtype != r.dtype or g.shape != r.shape:
-                    raise RuntimeError(f"{g.device} {g.dtype} "
-                                       f"{tuple(g.shape)} against "
-                                       f"{r.dtype} {tuple(r.shape)}")
-                gc = g.cpu().double()
-                rd = r.double()
-                err = max(err, float(((gc - rd).abs()
-                                      - tol * rd.abs()).max()))
-            ok = len(got) == len(ref) and err <= tol
+            if name in CARD_HOST_OPS:
+                for g, r in zip(got, ref):
+                    if isinstance(g, torch.Tensor) or not np.array_equal(
+                            np.asarray(g), np.asarray(r)):
+                        raise RuntimeError(f"host value {g!r} against "
+                                           f"{r!r}")
+            else:
+                for g, r in zip(got, ref):
+                    if not isinstance(g, torch.Tensor) or not g.is_cuda \
+                            or g.dtype != r.dtype or g.shape != r.shape:
+                        raise RuntimeError(
+                            f"{getattr(g, 'device', type(g))} "
+                            f"{getattr(g, 'dtype', '')} "
+                            f"{tuple(getattr(g, 'shape', ()))} against "
+                            f"{r.dtype} {tuple(r.shape)}")
+                if name in ("qr", "svd", "eig", "self_adjoint_eig"):
+                    err = card_invariants(name, cpu[0], got, ref, tol)
+                else:
+                    err = max([beyond(g, r, tol) for g, r in zip(got, ref)],
+                              default=0.0)
+            ok = err <= tol
             rows.append([name, err, ok])
             if not ok:
                 bad.append(f"{name}: off by {err} beyond rtol {tol}")
         except Exception as e:   # noqa: BLE001 (reported, then raised)
             rows.append([name, None, False])
             bad.append(f"{name}: {type(e).__name__}: {e}")
+    tail = {r[0] for r in CARD_TAIL_OPS}
     emit({"phase": "ops_card", "ops": len(rows),
           "passed": sum(1 for r in rows if r[2]),
+          "tail_ops": len(CARD_TAIL_OPS),
+          "tail_passed": sum(1 for r in rows if r[2] and r[0] in tail),
           "worst_abs_err_beyond_rtol": max((r[1] for r in rows
                                          if r[1] is not None), default=None),
           "failures": bad})
     if bad:
         raise RuntimeError(f"ops on the card: {bad}")
     return rows
+
+
+#: replays (and eager calls) an op in the opbench phase
+OPBENCH_ITERS = 10
+OPBENCH_OUT = os.path.join("opbench_out", "opbench_card.json")
+OPBENCH_BASELINE = "OPBENCH_cpu_baseline.json"
+
+
+def phase_opbench():
+    """The whole-registry per-op sweep on the card at the JAX sweep's size
+    (N = 512): every registered name benched, skipped or excluded; the
+    names the JAX CPU sweep benched and the card did not, each with its
+    reason; a name skipped on the card that its CPU copy benches fails
+    the phase."""
+    from deeplearning4j_tpu_torch.benchmarks.opbench import (op_us,
+                                                             run_opbench,
+                                                             summary)
+    from deeplearning4j_tpu_torch.ops import registry
+    t0 = time.perf_counter()
+    out = run_opbench(n_iter=OPBENCH_ITERS, device="cuda")
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(OPBENCH_OUT), exist_ok=True)
+    with open(OPBENCH_OUT, "w") as f:
+        json.dump(out, f, indent=1)
+    for line in summary(out):
+        print(line, flush=True)
+    names = set(registry().names())
+    unaccounted = sorted(names - set(out["results"]) - set(out["skipped"])
+                         - set(out["excluded"]))
+    cpu_benches = sorted(n for n in out["skipped"] if n in run_opbench(
+        filter_name=n, n_iter=1, device="cpu")["results"])
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           OPBENCH_BASELINE)) as f:
+        jax_names = set(json.load(f)["results"])
+    not_on_card = {n: (out["skip_reasons"].get(n)
+                       or ("excluded" if n in out["excluded"]
+                           else "neither benched, skipped nor excluded"))
+                   for n in sorted(jax_names - set(out["results"]))}
+    slowest = sorted(out["results"].items(), key=lambda kv: -op_us(kv[1]))
+    captured = [r for r in out["results"].values() if r["jit_us"]]
+    by_category = {}
+    for r in captured:
+        lo, hi = by_category.get(r["category"], (r["jit_us"], r["jit_us"]))
+        by_category[r["category"]] = (min(lo, r["jit_us"]),
+                                      max(hi, r["jit_us"]))
+    failure_kinds = {}
+    for err in out["capture_failures"].values():
+        kind = ("cpu_cuda_copy" if "Cannot copy between CPU and CUDA"
+                in err else "host_sync" if "capture" in err.lower()
+                else "other")
+        failure_kinds[kind] = failure_kinds.get(kind, 0) + 1
+    def median(vals):
+        return percentile(vals, 0.5) if vals else None
+
+    emit({"phase": "opbench_totals", "captured": len(captured),
+          "median_jit_us": median([r["jit_us"] for r in captured]),
+          "median_eager_us_of_captured": median(
+              [r["eager_us"] for r in captured]),
+          "median_eager_over_jit": median(
+              [r["eager_us"] / r["jit_us"] for r in captured]),
+          "sum_jit_ms": round(sum(r["jit_us"] for r in captured) / 1e3, 3),
+          "sum_eager_ms": round(sum(r["eager_us"] for r in
+                                    out["results"].values()) / 1e3, 3),
+          "jit_us_range_by_category": by_category,
+          "capture_failure_kinds": failure_kinds})
+    emit({"phase": "opbench", "n_iter": OPBENCH_ITERS,
+          "seconds": round(seconds, 1), "device": out["device_name"],
+          "nvidia_smi": out["nvidia_smi"], "n_benched": out["n_benched"],
+          "n_skipped": len(out["skipped"]), "skipped": out["skip_reasons"],
+          "n_excluded": len(out["excluded"]), "excluded": out["excluded"],
+          "n_capture_failures": len(out["capture_failures"]),
+          "capture_failures": out["capture_failures"],
+          "slowest": [[n, r["jit_us"], r["eager_us"], r["category"]]
+                      for n, r in slowest[:10]],
+          "jax_cpu_benched": len(jax_names),
+          "jax_benched_not_on_card": not_on_card,
+          "unaccounted": unaccounted, "raised_on_card_only": cpu_benches,
+          "json": OPBENCH_OUT})
+    if unaccounted or cpu_benches:
+        raise RuntimeError(f"opbench: unaccounted {unaccounted}, raised on "
+                           f"the card only {cpu_benches}")
+    return out
 
 
 def main():
@@ -4920,6 +5224,9 @@ def main():
     phase_yolo2()
     phase_zoo_cnn()
     phase_ops_card()
+    torch.cuda.empty_cache()
+    phase_opbench()
+    torch.cuda.empty_cache()
     emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:

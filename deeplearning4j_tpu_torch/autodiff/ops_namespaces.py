@@ -4,8 +4,6 @@ Counterpart of ``deeplearning4j_tpu/autodiff/ops_namespaces.py`` (the
 reference's generated ``SDMath``, ``SDNN``, ``SDCNN``, ``SDRNN``,
 ``SDLoss``, ``SDImage``, ``SDRandom``, ``SDLinalg``, ``SDBitwise``): a
 namespace method is any registered op name, or one of the aliases below.
-A pending op's name resolves too, and recording it raises naming the
-``ROADMAP.md`` item it waits for.
 """
 from __future__ import annotations
 

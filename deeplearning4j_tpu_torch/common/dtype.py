@@ -69,10 +69,13 @@ class DataType(enum.Enum):
     # ------------------------------------------------------------------
     @staticmethod
     def from_any(x) -> "DataType":
-        """A ``DataType`` from a name or alias, a torch dtype, or anything
-        numpy reads as a dtype."""
+        """A ``DataType`` from a name or alias, a torch dtype, anything
+        numpy reads as a dtype, or a tensor or array (its own dtype, as
+        ``jnp.dtype`` reads one)."""
         if isinstance(x, DataType):
             return x
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            x = x.dtype
         if isinstance(x, str):
             alias = _ALIASES.get(x.lower())
             if alias is not None:

@@ -7,6 +7,7 @@ give the port's ops the same result types.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
@@ -22,10 +23,13 @@ def narrow(dt: torch.dtype) -> torch.dtype:
 
 def dtype_of(d):
     """A dtype argument (a name, a ``DataType``, a torch or numpy dtype,
-    a JAX-style dtype class) as a torch dtype, 64-bit types narrowed;
-    None stays None."""
+    a JAX-style dtype class, or a tensor or array standing for its own
+    dtype, as ``jnp.dtype`` reads one) as a torch dtype, 64-bit types
+    narrowed; None stays None."""
     if d is None:
         return None
+    if isinstance(d, (torch.Tensor, np.ndarray)):
+        d = d.dtype
     if isinstance(d, torch.dtype):
         return narrow(d)
     from ..common.dtype import DataType

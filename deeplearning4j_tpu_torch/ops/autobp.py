@@ -10,8 +10,7 @@ forward's inputs followed by the upstream gradient; kwargs go to the
 forward. A gradient comes back for every input, zeros for an integer
 one. A bp op is registered only for a ported, differentiable forward
 that the reference inventory lists a bp for, as the JAX package
-registers them only for forwards it has; a bp op of a pending forward is
-pending with it.
+registers them.
 """
 from __future__ import annotations
 
@@ -70,18 +69,14 @@ def _make_bp(fwd_fn, name):
 
 def register_auto_bp():
     """Register ``<op>_bp`` / ``<op>_grad`` for every registered
-    differentiable base op that the reference inventory lists a bp for;
-    list it as pending where its base is pending."""
+    differentiable base op that the reference inventory lists a bp
+    for."""
     reg = OpRegistry.get()
-    pending = reg.pending()
     for name in all_reference_ops():
         for suffix in ("_bp", "_grad"):
             if not name.endswith(suffix):
                 continue
             base = name[: -len(suffix)]
-            if base in pending:
-                reg.add_pending(name, pending[base])
-                continue
             if reg.has(name) or not reg.has(base):
                 continue
             base_def = reg.lookup(base)
@@ -93,9 +88,7 @@ def register_auto_bp():
     # gradients
     for bp_name, base in (("lstmLayerCellBp", "lstmLayerCell"),
                           ("dynamic_partition_bp", "dynamic_partition")):
-        if base in pending:
-            reg.add_pending(bp_name, pending[base])
-        elif not reg.has(bp_name) and reg.has(base):
+        if not reg.has(bp_name) and reg.has(base):
             reg.register(OpDef(name=bp_name,
                                fn=_make_bp(reg.lookup(base).fn, bp_name),
                                category="autodiff_bp", differentiable=False))

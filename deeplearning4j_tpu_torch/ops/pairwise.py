@@ -9,6 +9,7 @@ floors, and index results are int32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ._util import i32, tensor_like
 from .registry import op
@@ -44,8 +45,26 @@ op("maximum", "pairwise")(_binary(torch.maximum))
 op("minimum", "pairwise")(_binary(torch.minimum))
 op("Pow", "pairwise", aliases=("pow",))(_binary(torch.pow))
 op("squaredsubtract", "pairwise")(_binary(lambda x, y: torch.square(x - y)))
-op("cross", "pairwise")(_binary(
-    lambda a, b: torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)))
+
+
+@op("cross", "pairwise")
+def cross(a, b, axisa=-1, axisb=-1, axisc=-1, axis=None):
+    """``jnp.cross``: the vector axes of ``a`` and ``b`` (2 or 3 long; a
+    2-vector has a zero third component) and of the result, or ``axis``
+    for all three; two 2-vectors give the z component alone."""
+    if axis is not None:
+        axisa = axisb = axisc = axis
+    a = torch.movedim(tensor_like(a, b), axisa, -1)
+    b = torch.movedim(tensor_like(b, a), axisb, -1)
+    n_a, n_b = a.shape[-1], b.shape[-1]
+    if n_a not in (2, 3) or n_b not in (2, 3):
+        raise ValueError("cross: the vector axes must be 2 or 3 long")
+    a = F.pad(a, (0, 3 - n_a)) if n_a == 2 else a
+    b = F.pad(b, (0, 3 - n_b)) if n_b == 2 else b
+    c = torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+    if n_a == 2 and n_b == 2:
+        return c[..., 2]
+    return torch.movedim(c, -1, axisc)
 
 
 @op("divide_no_nan", "pairwise")

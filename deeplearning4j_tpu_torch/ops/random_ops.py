@@ -91,8 +91,9 @@ def random_shuffle(key, x, axis=0):
 @op("random_crop", "random", differentiable=False)
 def random_crop(key, x, size):
     size = ints(size)
-    g = generator(key, "cpu")
-    starts = [int(torch.randint(0, d - s + 1, (), generator=g))
+    g = generator(key, "cpu")   # a Generator key draws on its device
+    starts = [int(torch.randint(0, d - s + 1, (), generator=g,
+                                device=g.device))
               for d, s in zip(x.shape, size)]
     return x[tuple(slice(b, b + s) for b, s in zip(starts, size))]
 

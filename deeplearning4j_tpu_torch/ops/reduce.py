@@ -166,9 +166,14 @@ def in_top_k(predictions, targets, k):
 
 @op("nth_element", "indexreduce", differentiable=False)
 def nth_element(x, n, reverse=False):
+    """The ``n``-th value of the last axis in sorted order; a sequence
+    ``n`` picks several (a trailing axis), as jax indexing does."""
     s = torch.sort(x, dim=-1).values
     if reverse:
         s = torch.flip(s, dims=(-1,))
+    if isinstance(n, (list, tuple)) or (isinstance(n, torch.Tensor)
+                                        and n.dim() > 0):
+        return s[..., torch.as_tensor(n, device=s.device).long()]
     return s[..., int(n)]
 
 

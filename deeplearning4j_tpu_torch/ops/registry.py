@@ -7,19 +7,14 @@ for the define-then-run graph (``autodiff.SameDiff`` records ops by name)
 and for eager dispatch by name (``exec_op``).
 
 Every op is registered under the JAX package's name, category,
-``differentiable`` flag and aliases. The op families the port has not
-reached yet are listed in ``ops/pending.py``: :meth:`OpRegistry.has` is
-true for such a name (so the ``sd.math`` / ``sd.nn`` namespaces resolve
-it), and :meth:`OpRegistry.lookup` raises ``NotImplementedError`` naming
-the ``ROADMAP.md`` item it waits for. An unknown name raises ``KeyError``.
+``differentiable`` flag and aliases, and every name of the JAX registry
+is registered here. An unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 from typing import Callable, Dict, Sequence
-
-from .pending import pending_item
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +32,6 @@ class OpRegistry:
 
     def __init__(self):
         self._ops: Dict[str, OpDef] = {}
-        self._pending: Dict[str, str] = {}   # name -> family module
         self._executed: set = set()  # coverage accounting
 
     @classmethod
@@ -54,31 +48,14 @@ class OpRegistry:
                 raise ValueError(f"op already registered: {key}")
             self._ops[key] = opdef
 
-    def add_pending(self, name: str, family: str):
-        """List ``name`` as an op of ``family`` still to be ported."""
-        if name not in self._ops:
-            self._pending[name] = family
-
     def lookup(self, name: str) -> OpDef:
-        d = self._ops.get(name)
-        if d is not None:
-            return d
-        family = self._pending.get(name)
-        if family is not None:
-            raise NotImplementedError(
-                f"op {name!r} ({family}) is not ported yet; it waits for "
-                f"ROADMAP.md queue 1 item {pending_item(family)}")
-        raise KeyError(f"unknown op: {name!r}")
+        try:
+            return self._ops[name]
+        except KeyError:
+            raise KeyError(f"unknown op: {name!r}") from None
 
     def has(self, name: str) -> bool:
-        return name in self._ops or name in self._pending
-
-    def is_pending(self, name: str) -> bool:
-        return name in self._pending
-
-    def pending(self) -> Dict[str, str]:
-        """name -> family of every op still to be ported."""
-        return dict(self._pending)
+        return name in self._ops
 
     def names(self) -> Sequence[str]:
         return sorted({d.name for d in self._ops.values()})

@@ -60,8 +60,23 @@ op("erf", "transforms")(torch.erf)
 op("erfc", "transforms")(torch.erfc)
 op("lgamma", "transforms")(torch.lgamma)
 op("digamma", "transforms")(torch.digamma)
-op("polygamma", "transforms")(
-    lambda n, x: torch.special.polygamma(int(n), x))
+
+
+@op("polygamma", "transforms")
+def polygamma(n, x):
+    """The n-th derivative of digamma; an integer tensor ``n`` of more
+    than one element is taken elementwise, through
+    ``(-1)^(n+1) n! zeta(n + 1, x)``."""
+    if not isinstance(n, torch.Tensor) or n.dim() == 0:
+        return torch.special.polygamma(int(n), x)
+    nf = n.to(x.dtype)
+    sign = 1.0 - 2.0 * torch.remainder(nf + 1.0, 2.0)
+    val = sign * torch.exp(torch.lgamma(nf + 1.0)) * torch.special.zeta(
+        nf + 1.0, x)
+    return torch.where(n == 0, torch.special.digamma(x), val)
+
+
+
 op("zeta", "transforms")(
     lambda x, q: torch.special.zeta(x, tensor_like(q, x)))
 op("igamma", "transforms")(
@@ -125,18 +140,27 @@ op("relu6", "activations")(lambda x: torch.clamp(x, 0.0, 6.0))
 op("lrelu", "activations", aliases=("leakyrelu",))(
     lambda x, alpha=0.01: F.leaky_relu(x, alpha))
 op("elu", "activations")(lambda x, alpha=1.0: F.elu(x, alpha))
-op("selu", "activations")(F.selu)
-# jax.nn.gelu's default is the tanh approximation
-op("gelu", "activations")(lambda x: F.gelu(x, approximate="tanh"))
+# functions of x alone, as jax.nn's: torch.nn.functional's own take an
+# `inplace=` that would overwrite the caller's tensor
+op("selu", "activations")(lambda x: F.selu(x))
+
+
+@op("gelu", "activations")
+def gelu(x, approximate=True):
+    """jax.nn.gelu: the tanh approximation by default, the erf form with
+    ``approximate=False``."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
 op("softplus", "activations")(
     lambda x: torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
                                              device=x.device)))
 op("softsign", "activations")(F.softsign)
-op("hardsigmoid", "activations")(F.hardsigmoid)
+op("hardsigmoid", "activations")(lambda x: F.hardsigmoid(x))
 op("hardtanh", "activations")(lambda x: torch.clamp(x, -1.0, 1.0))
-op("swish", "activations")(F.silu)
-op("mish", "activations")(F.mish)
-op("hardswish", "activations")(F.hardswish)
+op("swish", "activations")(lambda x: F.silu(x))
+op("mish", "activations")(lambda x: F.mish(x))
+op("hardswish", "activations")(lambda x: F.hardswish(x))
 
 
 @op("thresholdedrelu", "activations")
@@ -181,7 +205,8 @@ for _name, _dt in [("to_double", "float64"), ("to_float32", "float32"),
 op("identity", "transforms")(lambda x: x)
 op("ones_as", "transforms")(torch.ones_like)
 op("zeros_as", "transforms")(torch.zeros_like)
-op("fill_as", "transforms")(lambda x, v: torch.full_like(x, v))
+op("fill_as", "transforms")(lambda x, v: torch.as_tensor(
+    v, dtype=x.dtype, device=x.device).expand(x.shape).clone())
 op("stop_gradient", "transforms")(lambda x: x.detach())
 op("noop", "transforms")(lambda *a: a[0] if a else None)
 

@@ -19,11 +19,11 @@ against the JAX ``_bp`` op. Tolerances, each with its reason:
 import numpy as np
 import pytest
 
+from deeplearning4j_tpu.ops.registry import OpRegistry as JReg
+
 from test_torch_ops import (BP_CONV_IMAGE, F, I, K, SUM, TREG,
                             test_bp_op_matches_jax as _bp_matches,
                             test_op_matches_jax as _op_matches)
-
-from deeplearning4j_tpu_torch.ops.pending import PENDING
 
 CASES = []
 
@@ -228,14 +228,19 @@ BP_CASES = _bp_cases()
 
 
 def test_every_family_name_is_registered_and_each_bp_op_has_a_case():
-    assert "conv_ops" not in PENDING and "image_ops" not in PENDING
+    jreg = JReg.get()
+    jfam = {n for c in _FAMILY_CATEGORIES for n in jreg.by_category(c)}
+    assert all(TREG.has(n) for n in jfam)
     names = {p.values[0] for p in CASES}
     fam = {n for c in _FAMILY_CATEGORIES for n in TREG.by_category(c)}
+    assert fam == jfam
     # every registered name of the two families (aliases included), less
-    # the four forwards test_torch_ops.py holds, has a case here
+    # the four forwards test_torch_ops.py holds and parity_extra's two
+    # "conv" ops that test_torch_op_tail.py holds, has a case here
     aliases = {a for n in fam for a in TREG.lookup(n).aliases}
     assert (fam | aliases) - names == {"conv2d", "maxpool2d", "avgpool2d",
-                                       "pnormpool2d"}
+                                       "pnormpool2d", "deconv2d_tf",
+                                       "conv2d_input_bp"}
     bps = {n for n in TREG.by_category("autodiff_bp")
            if (n[:-3] if n.endswith("_bp") else n[:-5]) in fam}
     covered = {p.values[0] for p in BP_CASES}

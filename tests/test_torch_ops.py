@@ -3,12 +3,12 @@ against the JAX package's, op by op, on the same numpy inputs.
 
 Registry accounting: every name the JAX ``OpRegistry`` registers is
 registered in the port with the same category, ``differentiable`` flag
-and aliases, or is listed as pending (``ops/pending.py``) and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item. Of the reference
-inventory's 517 names (``all_reference_ops()``), the port registers 427
-and lists 83 as pending (the JAX package registers 510); the other 7
-are names neither package registers. The convolution and image
-families are held op by op in ``test_torch_conv_image_ops.py``.
+and aliases, and the port registers nothing else. Of the reference
+inventory's 517 names (``all_reference_ops()``), both packages register
+510; the other 7 are names neither registers. The convolution and image
+families are held op by op in ``test_torch_conv_image_ops.py``, the
+bitwise, compression, segment, string, list and linear-algebra
+decomposition families and the parity tail in ``test_torch_op_tail.py``.
 
 Each ported op that is not random runs through ``exec_op`` on both
 sides (JAX on the CPU, the port with CPU tensors) from one
@@ -44,7 +44,6 @@ from deeplearning4j_tpu.ops.registry import exec_op as jexec
 
 import deeplearning4j_tpu_torch.ops as tops
 from deeplearning4j_tpu_torch.ops import exec_op as texec
-from deeplearning4j_tpu_torch.ops.pending import PENDING, pending_item
 
 F32 = dict(atol=1e-6, rtol=1e-6)
 SUM = dict(atol=1e-5, rtol=1e-5)
@@ -62,57 +61,36 @@ def _jax_names():
     return sorted(set(reg._ops))
 
 
-def test_every_jax_op_registered_or_pending():
+def test_every_jax_op_registered_with_its_metadata():
+    """Every JAX name (aliases included) is registered with the same
+    name, category, differentiability and aliases; nothing else is; an
+    unknown name raises ``KeyError``."""
     jreg = JReg.get()
-    missing, mismatched = [], []
+    assert set(TREG._ops) == set(jreg._ops)
+    mismatched = []
     for name in _jax_names():
-        if not TREG.has(name):
-            missing.append(name)
-            continue
-        if TREG.is_pending(name):
-            continue
         j, t = jreg.lookup(name), TREG.lookup(name)
         if (j.name, j.category, j.differentiable, tuple(j.aliases)) != \
                 (t.name, t.category, t.differentiable, tuple(t.aliases)):
             mismatched.append((name, (j.category, j.differentiable,
                                       j.aliases),
                                (t.category, t.differentiable, t.aliases)))
-    assert not missing, f"neither registered nor pending: {missing}"
     assert not mismatched, mismatched
-    # nothing the JAX package lacks
-    extra = sorted(set(TREG.names()) - set(_jax_names()))
-    assert not extra, extra
+    assert TREG.names() == jreg.names()
+    with pytest.raises(KeyError, match="unknown op"):
+        TREG.lookup("no_such_op")
+    with pytest.raises(KeyError, match="unknown op"):
+        texec("no_such_op")
+    assert not TREG.has("no_such_op")
 
 
 def test_reference_coverage_as_stated():
     names = all_reference_ops()
-    registered = [n for n in names if TREG.has(n) and not TREG.is_pending(n)]
-    pending = [n for n in names if TREG.is_pending(n)]
+    registered = [n for n in names if TREG.has(n)]
     jax_has = [n for n in names if JReg.get().has(n)]
-    assert (len(names), len(registered), len(pending), len(jax_has)) == \
-        (517, 427, 83, 510)
-
-
-@pytest.mark.parametrize("name", sorted(TREG.pending()))
-def test_pending_op_raises_naming_its_item(name):
-    family = TREG.pending()[name]
-    item = pending_item(family)
-    assert item == (11 if family == "list_ops" else 9)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        TREG.lookup(name)
-    with pytest.raises(NotImplementedError):
-        texec(name)
-
-
-def test_pending_table_is_by_family_and_unknown_names_raise_keyerror():
-    flat = [n for names in PENDING.values() for n in names]
-    assert len(flat) == len(set(flat))
-    for name in flat:
-        assert TREG.is_pending(name)
-    with pytest.raises(KeyError, match="unknown op"):
-        TREG.lookup("no_such_op")
-    assert not TREG.has("no_such_op")
+    assert registered == jax_has
+    assert (len(names), len(registered), len(TREG), len(TREG._ops)) == \
+        (517, 510, 561, 610)
 
 
 # -- input makers -----------------------------------------------------------
@@ -753,12 +731,17 @@ BP_CONV_IMAGE = {"avgpool3dnew_bp", "conv1d_bp", "conv3dnew_bp",
                  "deconv2d_bp", "deconv3d_bp", "depthwise_conv2d_bp",
                  "im2col_bp", "maxpool3dnew_bp", "sconv2d_bp",
                  "upsampling2d_bp", "upsampling3d_bp"}
+#: the segment family's bp ops, held with their forwards in
+#: test_torch_op_tail.py
+BP_SEGMENT = {f"{p}segment_{r}_bp" for p in ("", "unsorted_")
+              for r in ("sum", "max", "min", "prod", "mean")} | {
+    "unsorted_segment_sqrt_n_bp"}
 
 
 def test_every_bp_op_has_a_case():
     covered = {p.values[0] for p in BP_CASES}
     assert set(TREG.by_category("autodiff_bp")) - covered == {
-        "ctc_loss_grad", "dynamic_partition_bp"} | BP_CONV_IMAGE
+        "ctc_loss_grad", "dynamic_partition_bp"} | BP_CONV_IMAGE | BP_SEGMENT
 
 
 @pytest.mark.parametrize("name,base,inputs,kwargs,opts", BP_CASES)

@@ -61,9 +61,9 @@ def test_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-#: the modules of the common/ and training-utility slice and of the
-#: convolution slice, imported in a fresh interpreter that must load
-#: neither JAX nor the JAX package
+#: the modules of the common/ and training-utility slice, of the
+#: convolution slice and of the op tail with the per-op sweep, imported
+#: in a fresh interpreter that must load neither JAX nor the JAX package
 SLICE_MODULES = [
     "deeplearning4j_tpu_torch", "deeplearning4j_tpu_torch.common",
     "deeplearning4j_tpu_torch.common.config",
@@ -84,6 +84,15 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.ops.image_ops",
     "deeplearning4j_tpu_torch.nn.conf.layers_extra",
     "deeplearning4j_tpu_torch.zoo.models_graph",
+    "deeplearning4j_tpu_torch.ops.bitwise_ops",
+    "deeplearning4j_tpu_torch.ops.compression",
+    "deeplearning4j_tpu_torch.ops.segment_ops",
+    "deeplearning4j_tpu_torch.ops.string_ops",
+    "deeplearning4j_tpu_torch.ops.list_ops",
+    "deeplearning4j_tpu_torch.ops.linalg_ops",
+    "deeplearning4j_tpu_torch.ops.parity_extra",
+    "deeplearning4j_tpu_torch.ops.descriptors",
+    "deeplearning4j_tpu_torch.benchmarks.opbench",
 ]
 
 

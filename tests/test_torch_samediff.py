@@ -193,15 +193,30 @@ def test_graph_matches_jax(build):
                                _np(sd.output(ph, [outs[-1]])[outs[-1].name]))
 
 
-def test_pending_op_through_a_namespace_raises_naming_its_item():
-    sd = tsd()
-    x = sd.constant(np.ones((2, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        sd.linalg.inverse(x)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        sd.bitwise.and_(x, x)
+def g_op_tail(sd):
+    m = np.asarray([[2.0, 0.5], [0.25, 1.5]], np.float32)
+    x = sd.constant(m, "m")
+    bits = sd.constant(np.asarray([[6, 5], [-3, 12]], np.int32), "bits")
+    data = sd.constant(np.asarray([1.0, 2.0, 3.0, 4.0], np.float32), "d")
+    ids = sd.constant(np.asarray([0, 0, 2, 1], np.int32), "ids")
+    return {}, [sd.linalg.inverse(x), sd.linalg.det(x),
+                sd.bitwise.and_(bits, bits * 3),
+                sd.bitwise.left_shift(bits, bits),
+                sd.math.segment_sum(data, ids, num_segments=3),
+                sd.math.unsorted_segment_max(data, ids, num_segments=4)]
+
+
+def test_op_tail_through_namespaces_matches_jax():
+    """``sd.linalg``, ``sd.bitwise`` and the segment names reach the op
+    tail and agree with the JAX ``SameDiff``; an unknown name raises."""
+    _, jout, jnames = _run(jsd, g_op_tail)
+    _, tout, tnames = _run(tsd, g_op_tail)
+    assert jnames == tnames
+    for j, t in zip(jout, tout):
+        assert j.dtype == t.dtype and j.shape == t.shape
+        np.testing.assert_allclose(t, j, **F32)
     with pytest.raises(AttributeError):
-        sd.math.no_such_op(x)
+        tsd().math.no_such_op(tsd().constant(np.ones(2, np.float32)))
 
 
 # -- gradients ------------------------------------------------------------------
@@ -293,7 +308,8 @@ def test_op_validation_testcase():
     assert "forward mismatch" in OpValidation.validate(bad)
     assert "tanh" in OpValidation.validated_ops()
     rep = OpValidation.coverage_report()
-    assert rep["total"] == 482 and rep["validated"] >= 1
+    # every op of the JAX registry (561 names less aliases) is registered
+    assert rep["total"] == 561 and rep["validated"] >= 1
 
 
 # -- eager mode -------------------------------------------------------------------
