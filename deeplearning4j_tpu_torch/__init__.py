@@ -92,6 +92,15 @@ Ported so far:
     probs = sd.output({"x": xs}, [y])[y.name]
     registry.deploy("sd", "v1", sd, outputs=[y.name], example={"x": xs})
 
+- training parallelism on ``torch.distributed`` (``parallel``,
+  ``common.mesh``, ``nn.sharding``): the mesh and its collectives, the
+  sequence-parallel ring over the flash kernels, BERT's tensor, FSDP,
+  sequence and pipeline steps, ``distribute`` and ``ParallelWrapper``,
+  checkpoints that restore onto another mesh; every rank runs the same
+  program on the same global batch::
+
+    python -m deeplearning4j_tpu_torch.parallel.dryrun --world 8 --device cpu
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 """

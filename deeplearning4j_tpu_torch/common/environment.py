@@ -297,7 +297,7 @@ class Environment:
 
     def training_zero1(self) -> bool:
         """ZeRO-1 optimizer-state sharding (``DL4J_TPU_ZERO1``); applied by
-        the parallel trainers, which queue 1 item 10 ports."""
+        ``parallel.trainer.ParallelWrapper``."""
         return self.property("training_zero1") not in (
             "0", "false", "off", None)
 

@@ -77,9 +77,13 @@ def adam_apply(params, grads, opt_state, learning_rate, iteration,
 
 
 def adam_init(params):
-    """Zero f32 moments ``(u_list, m_list)`` beside each parameter."""
+    """Zero f32 moments ``(u_list, m_list)`` beside each parameter; a
+    placed parameter's (a mesh shard) are placed as it is."""
+    from ..common.mesh import placement, tag
+
+    def zeros(p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        pl = placement(p)
+        return z if pl is None else tag(z, *pl)
     flat = tree_leaves(params)
-    return ([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in flat],
-            [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in flat])
+    return [zeros(p) for p in flat], [zeros(p) for p in flat]

@@ -11,10 +11,15 @@ writes them). A step is written under a temporary name and renamed into
 place, so a crash mid-save leaves no partial step. ``keep_last`` keeps
 the newest steps and deletes the rest after each save.
 
-Reading an orbax directory is out of scope, and so is restoring onto
-another device mesh, which waits for ``ROADMAP.md`` queue 1 item 10: a
-restore puts each leaf on the device of the matching leaf of ``target``
-(the network's own placement).
+Reading an orbax directory is out of scope. **Across meshes:** a leaf
+that is a mesh shard (``common.mesh.place``) is gathered to its global
+array before it is written, so a step holds global arrays whatever mesh
+wrote it; every rank of that mesh calls ``save_tree`` (the gathers are
+collectives), the lowest rank writes, and the others wait for it. A
+restore reads the global arrays on every calling rank and places each
+leaf as the matching leaf of ``target`` is placed: its shard of the
+target's mesh and spec, or the target leaf's device. So a step saved
+under any mesh restores under any other, or under none.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..autodiff.serialization import _from_host, host_array
+from ..common.mesh import gather, place, placement
 
 
 def _encode(tree, leaves: list):
@@ -37,7 +43,7 @@ def _encode(tree, leaves: list):
         kind = "list" if isinstance(tree, list) else "tuple"
         return {kind: [_encode(v, leaves) for v in tree]}
     if isinstance(tree, (torch.Tensor, np.ndarray)):
-        leaves.append(host_array(tree))
+        leaves.append(host_array(gather(tree)))
         return {"leaf": len(leaves) - 1}
     return {"value": tree}
 
@@ -58,8 +64,32 @@ def _decode(node, arrays, target, device):
             return seq if kind == "list" else tuple(seq)
     if "leaf" in node:
         dev = target.device if isinstance(target, torch.Tensor) else device
-        return _from_host(arrays[f"leaf{node['leaf']}"], dev)
+        pl = placement(target) if isinstance(target, torch.Tensor) else None
+        full = _from_host(arrays[f"leaf{node['leaf']}"],
+                          "cpu" if pl is not None else dev)
+        return full if pl is None else place(full, pl[0], pl[1])
     return node["value"]
+
+
+def _mesh_of(tree):
+    """The mesh of the first placed leaf of ``tree``, or None."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            m = _mesh_of(v)
+            if m is not None:
+                return m
+        return None
+    pl = placement(tree) if isinstance(tree, torch.Tensor) else None
+    return None if pl is None else pl[0]
+
+
+def _barrier(mesh):
+    g = mesh.group(mesh.axis_names)
+    if g is not None:
+        import torch.distributed as dist
+        dist.barrier(group=g)
 
 
 def _net_state(net) -> dict:
@@ -84,8 +114,21 @@ class ShardedCheckpointer:
 
     # -- generic tree API -------------------------------------------------
     def save_tree(self, step: int, tree: Any):
+        """Write ``tree`` as step ``step`` (mesh shards gathered first;
+        on a mesh every rank calls, the lowest writes)."""
         leaves: list = []
         structure = _encode(tree, leaves)
+        mesh = _mesh_of(tree)
+        if mesh is not None and mesh.rank != int(mesh.devices.min()):
+            _barrier(mesh)
+            return
+        try:
+            self._write(step, structure, leaves)
+        finally:
+            if mesh is not None:
+                _barrier(mesh)
+
+    def _write(self, step, structure, leaves):
         final = self._step_dir(step)
         tmp = f"{final}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -109,7 +152,8 @@ class ShardedCheckpointer:
     def restore_tree(self, step: Optional[int] = None, target: Any = None,
                      device="cpu") -> Any:
         """The tree saved at ``step`` (the latest by default); each array
-        on the device of ``target``'s matching leaf, else on ``device``."""
+        placed as ``target``'s matching leaf (a shard of its mesh, or on
+        its device), else on ``device``."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

@@ -21,6 +21,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from ...common import rng
+from ...common.mesh import batch_memo, batch_moments
 from ...ops import conv_ops, nn_ops, recurrent
 from ...quant.transforms import QuantizedTensor, dequant_matmul, dequantize
 from ..activations import get_activation
@@ -243,7 +244,10 @@ class BatchNormalization(Layer):
     keys: the biased batch variance, updated as ``decay * old + (1 -
     decay) * batch`` by the network after each step (``new_state``) —
     not ``nn.BatchNorm2d``'s unbiased variance and momentum convention.
-    Batch statistics are computed in f32, also under bf16 compute.
+    Batch statistics are computed in f32, also under bf16 compute; inside
+    a ``common.mesh.batch_context`` they are the global batch's (one
+    collective over the data-parallel group a layer, as ``SyncBatchNorm``
+    takes them).
     """
     n_out: int = 0  # inferred
     decay: float = 0.9
@@ -264,16 +268,20 @@ class BatchNormalization(Layer):
         return p
 
     @staticmethod
-    def _batch_stats(xf):
-        axis, red = _stats_axes(xf)
-        mean = torch.mean(xf, dim=red)
-        var = torch.var(xf, dim=red, correction=0)
-        return axis, mean, var
+    def _batch_stats(x, fresh=False):
+        """(axis, mean, var) of the layer input ``x`` in f32; inside a
+        batch context the running statistics reuse the forward's, so both
+        share one collective."""
+        def stats():
+            xf = x.float()
+            axis, red = _stats_axes(xf)
+            return (axis,) + batch_moments(xf, red)
+        return batch_memo(x, stats, fresh)
 
     def forward(self, params, x, training=False, key=None):
         xf = x.float()
         if training:
-            axis, mean, var = self._batch_stats(xf)
+            axis, mean, var = self._batch_stats(x, fresh=True)
         else:
             axis, _ = _stats_axes(xf)
             mean, var = params["state_mean"], params["state_var"]
@@ -283,7 +291,7 @@ class BatchNormalization(Layer):
 
     def new_state(self, params, x, labels=None):
         """Updated running stats given a training batch (applied by the net)."""
-        _, mean, var = self._batch_stats(x.float())
+        _, mean, var = self._batch_stats(x)
         return {"state_mean": self.decay * params["state_mean"]
                 + (1 - self.decay) * mean,
                 "state_var": self.decay * params["state_var"]

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ...common import rng
+from ...common.mesh import rows_draw
 from ...ops import conv_ops, nn_ops, recurrent
 from ..activations import get_activation
 from ..losses import get_loss
@@ -822,8 +823,9 @@ class SpatialDropout(_Noise):
 
     def _draw(self, x, gen):
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape[:2] + (1,) * (x.dim() - 2), generator=gen,
-                          device=x.device) < keep
+        mask = rows_draw(lambda shape: torch.rand(shape, generator=gen,
+                                                  device=x.device),
+                         x.shape[:2] + (1,) * (x.dim() - 2), x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

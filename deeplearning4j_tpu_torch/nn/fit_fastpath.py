@@ -231,11 +231,42 @@ class FitFastPathMixin:
         return apply_constraints(getattr(self.conf, "constraints", None),
                                  new), updater_state
 
+    # -- distribution (``distribute(mesh)``, nn/sharding.py) -------------
+    def _distribute(self, mesh, sharded_params):
+        """Keep ``sharded_params`` (this rank's shards), re-initialise the
+        updater state from them and drop the cached steps, as the JAX
+        package's ``distribute`` does."""
+        from ..common.mesh import placement, tag
+        self._mesh = mesh
+        self.device = mesh.device
+        self._params = sharded_params
+        trainable = self._trainable(self._params)
+        state = self.conf.updater.init(trainable)
+        if state is not None:
+            state = {k: tree_map(lambda z, p: tag(z, *placement(p)), v,
+                                 trainable) for k, v in state.items()}
+        self._updater_state = state
+        self.__dict__.pop("_out_fns", None)
+        return self
+
+    def _full_params(self, params):
+        """``params`` with every mesh shard all-gathered (as they are
+        without a mesh)."""
+        if getattr(self, "_mesh", None) is None:
+            return params
+        from ..common.mesh import gather
+        return tree_map(gather, params)
+
     # -- steps -----------------------------------------------------------
     def _train_step_fn(self):
         """The step of one logical batch: ``_step_fn()`` when grad_accum
         <= 1, else k micro-batches whose gradients are averaged before
-        the updater runs once (exact for mean-reduced losses)."""
+        the updater runs once (exact for mean-reduced losses). On a mesh
+        (``distribute``) the sharded step of ``nn/sharding.py``."""
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None:
+            from .sharding import sharded_train_step
+            return sharded_train_step(self, mesh)
         k = self._grad_accum()
         if k <= 1:
             return self._step_fn()

@@ -18,9 +18,10 @@ their params left as they are.
 
 ``output()`` pads the batch up the inference bucket ladder and
 ``warm_buckets`` runs that ladder ahead of traffic. ``save`` / ``load``
-write and read ``nn/serde.py``'s zip. ``distribute`` (``ROADMAP.md``
-queue 1 item 10) is not ported and raises ``NotImplementedError`` naming
-its item.
+write and read ``nn/serde.py``'s zip. ``distribute(mesh)`` keeps each
+rank's shards of the params (``nn/sharding.py``'s rules) and ``fit``
+runs the sharded step on the global batches, as ``MultiLayerNetwork``'s
+does.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from ..conf import weightnoise as weightnoise_mod
 from ..conf.config import (PREPROCESSORS, infer_preprocessor,
                            layer_from_dict, layer_to_dict)
 from ..fit_fastpath import FitFastPathMixin, full_f32
-from ..multilayer import resolve_device, unported
+from ..multilayer import resolve_device
 from .vertices import VERTEX_CLASSES, GraphVertex, PreprocessorVertex
 
 
@@ -324,6 +325,8 @@ class ComputationGraph(FitFastPathMixin):
         self._iteration = 0
         self._epoch = 0
         self._listeners: List[Any] = []
+        #: the mesh of ``distribute`` (None: one process, whole params)
+        self._mesh = None
         #: host stream of the int keys the training forwards draw from
         self._rng = torch.Generator().manual_seed(int(conf.seed))
         self._initialized = False
@@ -356,7 +359,14 @@ class ComputationGraph(FitFastPathMixin):
             raise RuntimeError("call init() first")
 
     def distribute(self, mesh):
-        raise unported("distribute", 10, "ComputationGraph")
+        """Shard the graph over a mesh (dp/fsdp/tp); see
+        ``MultiLayerNetwork.distribute`` and ``nn/sharding.py``."""
+        self._check_init()
+        from ..sharding import shard_layer_params
+        return self._distribute(mesh, {
+            name: shard_layer_params(mesh, _layer_of(self.conf.vertices[
+                name]), p) if p else p
+            for name, p in self._params.items()})
 
     def save(self, path, save_updater: bool = False):
         """The zip of ``nn/serde.py``, which the JAX package reads too."""
@@ -451,7 +461,8 @@ class ComputationGraph(FitFastPathMixin):
             def forward(params, ind):
                 with torch.no_grad(), full_f32():
                     acts = self._forward(
-                        params, {k: self._stage(x) for k, x in ind.items()},
+                        self._full_params(params),
+                        {k: self._stage(x) for k, x in ind.items()},
                         training)
                 return [acts[o] for o in self.conf.outputs]
             fn = counted_dispatch(forward, tag=tag)
@@ -541,10 +552,10 @@ class ComputationGraph(FitFastPathMixin):
         if dataset is None:
             return self.score_value
         inputs, labels = self._split_dataset(dataset)
+        params = self._full_params(self._params)
         with torch.no_grad(), full_f32():
-            loss, _ = self._loss(self._trainable(self._params),
-                                 self._states(self._params), inputs, labels,
-                                 None)
+            loss, _ = self._loss(self._trainable(params),
+                                 self._states(params), inputs, labels, None)
         return float(loss)
 
     # -- training --------------------------------------------------------
@@ -638,8 +649,8 @@ class ComputationGraph(FitFastPathMixin):
 
     def params(self) -> NDArray:
         self._check_init()
-        leaves = [self._params[n][k].reshape(-1)
-                  for n, k in self._flat_leaves()]
+        params = self._full_params(self._params)
+        leaves = [params[n][k].reshape(-1) for n, k in self._flat_leaves()]
         if not leaves:
             return NDArray(torch.zeros((0,), device=self.device))
         return NDArray(torch.cat(leaves))

@@ -12,15 +12,19 @@ from typing import Callable, Union
 
 import torch
 
+from ..common.mesh import batch_mean, batch_sum
+
 
 def _masked_mean(per_example, mask):
+    """The mean over the batch (over the global batch inside a
+    ``common.mesh.batch_context``: sums and counts over the group)."""
     if mask is None:
-        return torch.mean(per_example)
+        return batch_mean(per_example)
     while mask.dim() < per_example.dim():
         mask = mask[..., None]
     mask = torch.broadcast_to(mask, per_example.shape).to(per_example.dtype)
-    return torch.sum(per_example * mask) / torch.clamp_min(torch.sum(mask),
-                                                           1e-12)
+    return batch_sum(torch.sum(per_example * mask)) / torch.clamp_min(
+        batch_sum(torch.sum(mask)), 1e-12)
 
 
 def mcxent(labels, output, mask=None, eps=1e-7):

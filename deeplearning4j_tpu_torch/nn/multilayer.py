@@ -12,9 +12,12 @@ parameter tensors, as the JAX package's donated step does.
 ``output()`` pads the batch up the inference bucket ladder
 (``runtime.inference.maybe_pad_tree``) and ``warm_buckets`` runs that
 ladder ahead of traffic, as the JAX package's do. ``save`` / ``load``
-write and read ``nn/serde.py``'s zip. ``distribute`` (queue 1 item 10)
-and ``warm_compile`` (item 12) are not ported and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+write and read ``nn/serde.py``'s zip. ``distribute(mesh)`` keeps each
+rank's shards of the params (``nn/sharding.py``'s rules); ``fit`` then
+takes the global batch on every rank and runs the sharded step, and
+``output`` / ``score`` / ``params`` see the gathered params.
+``warm_compile`` (``ROADMAP.md`` queue 1 item 12) is not ported and
+raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -60,6 +63,8 @@ class MultiLayerNetwork(FitFastPathMixin):
         self._iteration = 0
         self._epoch = 0
         self._listeners: List[Any] = []
+        #: the mesh of ``distribute`` (None: one process, whole params)
+        self._mesh = None
         #: host stream of the int keys the training forwards draw from
         self._rng = torch.Generator().manual_seed(int(conf.seed))
         self._initialized = False
@@ -89,7 +94,15 @@ class MultiLayerNetwork(FitFastPathMixin):
             raise RuntimeError("call init() first")
 
     def distribute(self, mesh):
-        raise unported("distribute", 10)
+        """Shard this network over a mesh (dp/fsdp/tp): each layer's
+        params placed by its spec rule (``nn/sharding.py``), the updater
+        state re-initialised, the cached steps dropped. Every rank then
+        calls ``fit`` with the same global batches."""
+        self._check_init()
+        from .sharding import shard_layer_params
+        return self._distribute(mesh, [
+            shard_layer_params(mesh, layer, p) if p else p
+            for layer, p in zip(self.layers, self._params)])
 
     def warm_buckets(self, example, batch_sizes=None) -> List[int]:
         """Run the inference bucket ladder of the direct ``output()`` /
@@ -231,7 +244,8 @@ class MultiLayerNetwork(FitFastPathMixin):
 
             def forward(params, x):
                 with torch.no_grad(), full_f32():
-                    return self._forward(params, self._stage(x), training)
+                    return self._forward(self._full_params(params),
+                                         self._stage(x), training)
             fn = counted_dispatch(forward, tag=tag)
             fns[training] = fn
         return fn
@@ -295,10 +309,10 @@ class MultiLayerNetwork(FitFastPathMixin):
         if dataset is None:
             return self.score_value
         x, y = self._stage(dataset.features), self._stage(dataset.labels)
+        params = self._full_params(self._params)
         with torch.no_grad(), full_f32():
-            loss, _ = self._loss_with_bn(self._trainable(self._params),
-                                         self._states(self._params), x, y,
-                                         None)
+            loss, _ = self._loss_with_bn(self._trainable(params),
+                                         self._states(params), x, y, None)
         return float(loss)
 
     # -- training --------------------------------------------------------
@@ -391,8 +405,8 @@ class MultiLayerNetwork(FitFastPathMixin):
         """Flattened parameter vector (reference params() view semantics):
         layer by layer, keys sorted within a layer."""
         self._check_init()
-        leaves = [v.reshape(-1) for p in self._trainable(self._params)
-                  for _, v in sorted(p.items())]
+        leaves = [v.reshape(-1) for p in self._trainable(
+            self._full_params(self._params)) for _, v in sorted(p.items())]
         if not leaves:
             return NDArray(torch.zeros((0,), device=self.device))
         return NDArray(torch.cat(leaves))

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ..common.mesh import rows_draw
 from ._util import axes, generator
 from .registry import op
 
@@ -95,7 +96,9 @@ def lrn(x, depth_radius=5, bias=1.0, alpha=1.0, beta=0.5):
 
 def _keep_mask(x, keep, key):
     g = generator(key, x.device)
-    return torch.rand(x.shape, generator=g, device=x.device) < keep
+    return rows_draw(lambda shape: torch.rand(shape, generator=g,
+                                              device=x.device),
+                     x.shape, x.device) < keep
 
 
 @op("dropout", "nn")
@@ -125,7 +128,10 @@ def alpha_dropout(x, rate, key, training=True):
 
 def _normal_like(x, key):
     g = generator(key, x.device)
-    return torch.randn(x.shape, generator=g, device=x.device, dtype=x.dtype)
+    return rows_draw(lambda shape: torch.randn(shape, generator=g,
+                                               device=x.device,
+                                               dtype=x.dtype),
+                     x.shape, x.device)
 
 
 @op("gaussian_dropout", "nn")

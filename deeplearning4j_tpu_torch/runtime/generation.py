@@ -39,8 +39,8 @@ PyTorch on the model's device.
 
 The KV pools are written in place by the model's step functions (the JAX
 package donates them to its jitted steps instead). Tensor-parallel decode
-(``mesh=``/``param_spec=``) waits for the parallelism slice. The engine
-carries the JAX package's registry-compat surface (``max_batch``,
+(``mesh=``/``param_spec=``) waits for ``ROADMAP.md`` queue 1 item 10b.
+The engine carries the JAX package's registry-compat surface (``max_batch``,
 ``manifest_path``, ``observed_entries()``) and the dispatch instant the
 serving watchdog reads (``_dispatch_started_at``).
 
@@ -408,7 +408,8 @@ class DecodeEngine:
         if mesh is not None or param_spec is not None:
             raise NotImplementedError(
                 "tensor-parallel decode (mesh=/param_spec=) is not ported "
-                "yet (ROADMAP.md: mesh= decode)")
+                "yet; it waits for ROADMAP.md queue 1 item 10b (sharded "
+                "serving)")
         if not is_generative_model(model):
             raise TypeError(
                 f"cannot decode a {type(model).__name__}: expected the "

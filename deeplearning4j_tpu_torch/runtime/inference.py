@@ -28,8 +28,8 @@ through ``maybe_pad_tree``.
 
 A ``MultiLayerNetwork``, a ``ComputationGraph`` or a ``SameDiff`` graph
 (with ``outputs=[...]``, a placeholder dict a request) is served;
-``mesh=``/``param_spec=`` raise naming item 10, before anything is
-allocated.
+``mesh=``/``param_spec=`` raise naming item 10b (sharded serving),
+before anything is allocated.
 """
 from __future__ import annotations
 
@@ -332,7 +332,7 @@ class _SameDiffAdapter:
     def shard(self, mesh, spec):
         raise NotImplementedError(
             "sharded SameDiff serving is not ported yet; it waits for "
-            "ROADMAP.md queue 1 item 10")
+            "ROADMAP.md queue 1 item 10b")
 
 
 def _make_adapter(model, outputs):
@@ -446,7 +446,7 @@ class InferenceEngine:
         if mesh is not None or param_spec is not None:
             raise NotImplementedError(
                 "InferenceEngine(mesh=, param_spec=): sharded serving is "
-                "not ported yet; it waits for ROADMAP.md queue 1 item 10")
+                "not ported yet; it waits for ROADMAP.md queue 1 item 10b")
         self.model = model
         self._adapter = _make_adapter(model, outputs)
         self.device = _model_device(model)

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``serving/fleet/``. Its scale-up half
 (a version sharded over a device mesh) waits for ``ROADMAP.md`` queue 1
-item 10; ``deploy(mesh=...)`` raises until then.
+item 10b; ``deploy(mesh=...)`` raises until then.
 
 **Scale-out** (replica routing) is this package:
 :class:`~.router.FleetRouter` fronts N ``ModelServer`` replicas by URL

@@ -32,7 +32,7 @@ auto-rollback.
 
 What waits for other slices, and is refused before anything is allocated
 or registered: ``mesh=`` / ``param_spec=`` (sharded deploys are
-``ROADMAP.md`` queue 1 item 10).
+``ROADMAP.md`` queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -44,7 +44,6 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from ..common.environment import environment
 from ..common.locks import ordered_rlock
-from ..common.mesh import mesh_shape as _mesh_shape, spec_desc
 from ..common.metrics import registry as metrics_registry
 from ..common.tracing import span
 from ..quant.calibrate import QuantSpec, calibrate as quant_calibrate
@@ -244,7 +243,7 @@ class ModelRegistry:
         A ``SameDiff`` graph deploys behind an ``InferenceEngine`` with
         ``outputs=`` (the variable names to serve); its requests are
         placeholder dicts. ``mesh``/``param_spec`` are refused naming
-        ``ROADMAP.md`` queue 1 item 10."""
+        ``ROADMAP.md`` queue 1 item 10b."""
         name, version = str(name), str(version)
         with self._lock:
             if self._draining:
@@ -256,10 +255,13 @@ class ModelRegistry:
                         "deployed (versions are immutable; bump the "
                         "version)")
             outgoing = self._current.get(name)
-        # sharded deploys wait for ROADMAP.md queue 1 item 10: the mesh
-        # helpers refuse anything but None, before anything is allocated
-        _mesh_shape(mesh)
-        spec_desc(param_spec)
+        # sharded deploys wait for ROADMAP.md queue 1 item 10b: refused
+        # before anything is allocated
+        if mesh is not None or param_spec is not None:
+            raise NotImplementedError(
+                "sharded deploys (mesh=/param_spec=) are not ported yet; "
+                "they wait for ROADMAP.md queue 1 item 10b (sharded "
+                "serving)")
         generative = is_generative_model(model)
         if not generative:
             _make_adapter(model, outputs)  # an unservable model raises

@@ -418,9 +418,16 @@ def test_bridge_carries_params_and_adam_state(f32):
 
 
 def test_mesh_and_sequence_parallel_are_not_ported(f32):
+    """mesh= and seq_parallel= are ported (item 10a,
+    test_torch_bert_parallel.py): a mesh that is not the port's raises
+    TypeError, and seq_parallel without a mesh is the plain step, as in
+    the JAX package."""
     _, tc, tree, _ = f32
     tp, batch = fresh_port_params(tree), to_torch(make_batch(11))
-    with pytest.raises(NotImplementedError, match="queue 1 #10"):
+    with pytest.raises(TypeError, match="common.mesh.Mesh"):
         tb.encode(tp, batch["input_ids"], config=tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 #10"):
-        tb.make_train_step(tc, seq_parallel=True)
+    loss_sp = tb.make_train_step(tc, seq_parallel=True, remat=False)(
+        fresh_port_params(tree), tb.init_opt_state(tp), batch, 0)[2]
+    loss = tb.make_train_step(tc, remat=False)(
+        fresh_port_params(tree), tb.init_opt_state(tp), batch, 0)[2]
+    assert float(loss_sp) == float(loss)

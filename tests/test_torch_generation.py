@@ -301,7 +301,7 @@ def test_engine_refuses_a_model_on_another_device(pair):
 
 def test_tensor_parallel_decode_waits_for_its_slice(pair):
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10b"):
         DecodeEngine(tm, device="cpu", mesh=object(), **ENGINE_KW)
 
 

@@ -269,8 +269,13 @@ class TestConstruction:
     def test_unported_entry_points_name_their_item(self, tmp_path):
         net = TG.ComputationGraph(_simple(*TORCH_NS), device="cpu").init()
         assert net.warm_buckets(None) == []
-        with pytest.raises(NotImplementedError, match="item 10"):
-            net.distribute(None)
+        # distribute is ported (item 10a): a one-rank mesh keeps outputs
+        from deeplearning4j_tpu_torch.common.mesh import (MeshConfig,
+                                                           make_mesh)
+        x0 = np.ones((2, 4), np.float32)
+        before = net.output(x0)[0].numpy()
+        assert net.distribute(make_mesh(MeshConfig(), device="cpu")) is net
+        assert np.array_equal(net.output(x0)[0].numpy(), before)
         # save / load are ported (nn/serde.py, queue 1 item 9f)
         path = str(tmp_path / "g.zip")
         net.save(path, save_updater=True)

@@ -534,7 +534,7 @@ def test_graph_submit_and_warmup_census(graphs):
 
 
 def test_sharded_engine_refused(nets):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         tinf.InferenceEngine(nets[1], mesh=object())
 
 

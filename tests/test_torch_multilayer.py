@@ -235,10 +235,16 @@ class TestConfig:
         # warm_buckets is ported (item 7): with no example and no
         # manifest it has nothing to replay, as the JAX package's
         assert net.warm_buckets(None) == []
-        for call, item in ((lambda: net.distribute(None), "item 10"),
-                           (lambda: net.warm_compile(None), "item 12")):
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+        with pytest.raises(NotImplementedError, match="item 12"):
+            net.warm_compile(None)
+        # distribute is ported (item 10a): on a one-rank mesh it places
+        # every leaf whole and the network keeps its outputs
+        from deeplearning4j_tpu_torch.common.mesh import (MeshConfig,
+                                                           make_mesh)
+        x0 = np.ones((2, 1, 28, 28), np.float32)
+        before = net.output(x0).numpy()
+        assert net.distribute(make_mesh(MeshConfig(), device="cpu")) is net
+        assert np.array_equal(net.output(x0).numpy(), before)
         # save / load and the pretrained restore are ported (nn/serde.py
         # and zoo/base.py, queue 1 item 9f)
         path = str(tmp_path / "lenet.zip")
