@@ -116,6 +116,38 @@ exits non-zero without printing a result:
               ``launches_parallel`` (the sp=2 leg's, both ranks), which
               must be > 0. Numbers from this rig are correctness and
               kernel readings, not scaling: one card.
+   sharded_serve — (after parallel, in rank processes too) sharded
+              serving on ``torch.distributed``. A world-1 NCCL rank
+              deploys the full-width CausalLM with
+              ``mesh=serving_mesh()`` behind a ``ModelServer``: every
+              greedy prompt of phase 4 over HTTP, one at a time, must
+              give the tokens a direct unsharded engine gives alike,
+              ``/v1/models`` must list ``mesh_shape`` and
+              ``"auto(model)"``; then both engines' tokens/s with those
+              prompts at once. Then 2 gloo ranks on ``cuda:0`` at
+              model=2 (6 of 12 heads a rank), the model given small
+              random biases: teacher-forced logits (a prompt's prefill
+              and ``SHARD_FORCED`` decode steps) within
+              ``SHARD_LOGIT_ATOL`` of one process, and the same logits
+              with ``bo`` and ``b2`` added twice beyond it; the bf16
+              engine, the same with the spec phase's 2-layer draft
+              (k = 4) and the int8 twin each serving 4 of phase 4's
+              prompts, every launch count set to 0 just before (each
+              rank's paged-read and dequant launches held to the count
+              the leader's step counts give, 24 all-reduces a step
+              held, the KV pool's bytes a rank held
+              to half the unsharded pool's, the follower refusing
+              ``generate`` and ending at the leader's ``close()``, the
+              greedy-token agreement with one process reported); an f32
+              model at depth 2 must give one process's greedy tokens;
+              the MLP (bf16) and its int8 twin through
+              ``InferenceEngine(mesh=)`` within rtol 1e-5 / atol 1e-6
+              of the unsharded engine with identical argmax. The
+              kernels line carries the paged read at 6 heads (Q = 1
+              and 5) and the dequant kernel on a rank's ``w1`` and
+              ``w2`` slices, each held against its plain version and
+              timed in the script's process, with ``main_path``
+              "sharded_serve" and that path's launches (both ranks).
    bert_forward — one BERT-base forward (encode + MLM head) through the
               kernel against the plain attention, B=8, T=128.
    causal   — the full-width CausalLM ``forward(use_flash=True)`` against
@@ -720,7 +752,14 @@ def qa_batch(dims, B, T, seed=0):
             "end_positions": end}
 
 
+#: the clock at import: every phase line carries its seconds since
+#: (``at_s``), so a phase's time is the gap to the line before it
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -987,13 +1026,13 @@ def phase_build():
         raise RuntimeError(f"ptxas spilled registers: {spills}")
 
 
-def paged_inputs(Q, seed=0, layers=L_FULL, lengths=None):
+def paged_inputs(Q, seed=0, layers=L_FULL, lengths=None, H=12):
     """A real 5-D pool [N, L, Bs, H, D] in bf16 with a permuted table
     (block 0 scratch) and mixed lengths (by default: empty, tiny,
     block-aligned, unaligned, and nearly full)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, D = 12, 64
+    D = 64
     N = SLOTS * MB + 1
     kp = torch.randn((N, layers, BS, H, D), generator=g, device="cuda",
                      dtype=torch.bfloat16)
@@ -1264,17 +1303,17 @@ def serve(engine, prompts, sampling, max_tokens=64, timeout=600):
     return res
 
 
-def phase_serve(model):
-    import numpy as np
-    import torch
-    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
-    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+SERVE_LENS = [17, 40, 64, 100, 150, 200, 333, 500, 600, 700]
+
+
+def serve_prompts(V):
+    """The serve phase's 16 prompts (10 alone, 6 sharing a 256-token
+    prefix) and their sampling settings (3 sampled, the rest greedy),
+    from seed 0."""
     rng = np.random.RandomState(0)
-    V = model.config.vocab_size
     shared = rng.randint(0, V, 256).astype(np.int32)
-    lens = [17, 40, 64, 100, 150, 200, 333, 500, 600, 700]
     tails = [20, 50, 100, 200, 300, 444]
-    prompts = [rng.randint(0, V, n).astype(np.int32) for n in lens]
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in SERVE_LENS]
     prompts += [np.concatenate([shared, rng.randint(0, V, t)]).astype(
         np.int32) for t in tails]
     sampling = [{}] * len(prompts)
@@ -1282,6 +1321,15 @@ def phase_serve(model):
                   (4, {"temperature": 1.0}),
                   (8, {"temperature": 0.7, "top_k": 8})):
         sampling[i] = kw
+    return prompts, sampling
+
+
+def phase_serve(model):
+    import torch
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    prompts, sampling = serve_prompts(model.config.vocab_size)
+    lens = SERVE_LENS
     eng = DecodeEngine(model, slots=SLOTS, max_ctx=MAX_CTX,
                        kv_block_size=BS, device="cuda", seed=0)
     try:
@@ -1935,113 +1983,181 @@ def phase_step(model, twin):
         del cache
 
 
-def phase_kernels(twin, launches, errs):
+def paged_record(Q, seed, H=12):
+    """The paged read at ``Q`` query rows and ``H`` heads of 64: kernel,
+    plain version and SDPA over the pre-gathered view, device times
+    beside the bound, and the kernel's largest error against the plain
+    version (held to ``PAGED_ATOL``). Each timed call reads another
+    layer's slice of the pool, so the 12-layer working set (several
+    hundred MB) keeps L2 cold as in serving."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import (paged_flash_decode,
                                                   paged_flash_decode_plain)
+    q, kp, vp, tables, lengths = paged_inputs(Q, seed=seed, H=H)
+    views = [(kp[:, i], vp[:, i]) for i in range(L_FULL)]
+    n0 = paged_flash_decode.launches
+    err = (paged_flash_decode(q, *views[0], tables, lengths).float()
+           - paged_flash_decode_plain(q, *views[0], tables, lengths)
+           .float()).abs().max().item()
+    if not err <= PAGED_ATOL:
+        raise RuntimeError(f"paged_flash_decode at Q={Q}, H={H}: max error "
+                           f"{err} against the plain read")
+    it = iter(range(10 ** 9))
+
+    def kern():
+        k, v = views[next(it) % L_FULL]
+        paged_flash_decode(q, k, v, tables, lengths)
+
+    def plain():
+        k, v = views[next(it) % L_FULL]
+        paged_flash_decode_plain(q, k, v, tables, lengths)
+    # the library yardstick: SDPA over the pre-gathered view
+    C = MB * BS
+    idx = tables.long()
+    pos = lengths.long()[:, None] + torch.arange(Q, device="cuda")
+    mask = (torch.arange(C, device="cuda")[None, None] <= pos[:, :, None])
+    gathered = [(k[idx].reshape(SLOTS, C, H, 64).transpose(1, 2),
+                 v[idx].reshape(SLOTS, C, H, 64).transpose(1, 2))
+                for k, v in views]
+    qt = q.transpose(1, 2)
+
+    def lib():
+        k, v = gathered[next(it) % L_FULL]
+        F.scaled_dot_product_attention(qt, k, v, attn_mask=mask[:, None])
+    byt, flops = paged_work(Q, lengths.tolist(), H=H)
+    b_ms, b_by = bound_ms(byt, flops)
+    rec = {"Q": Q, "heads": H, "max_abs_err": err,
+           "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+           "windows": WINDOWS}
+    timed(rec, "ms", kern)
+    timed(rec, "library_ms", lib)
+    # the comparison's and the readings' launches are no main path's
+    paged_flash_decode.launches = n0
+    return rec
+
+
+def dequant_record(ws, M, flush):
+    """The dequant kernel at (M, K, N) of the int8 weights ``ws`` (one a
+    layer, each timed call on the next one, L2 flushed before each call,
+    kernel and library alike; also warm on the first), beside its plain
+    version and ``torch.matmul`` on a bf16 copy, and the kernel's
+    largest error against the plain version (held to ``DEQ_RTOL`` /
+    ``DEQ_ATOL``)."""
+    import torch
     from deeplearning4j_tpu_torch.quant.transforms import (
         _fused_dequant_matmul, dequant_matmul_plain, dequantize)
+    K, N = ws[0].shape
+    x = torch.randn((M, K), device="cuda", dtype=torch.bfloat16)
+    wbf = [dequantize(w, torch.bfloat16) for w in ws]
+    n0 = _fused_dequant_matmul.launches
+    got = _fused_dequant_matmul(x, ws[0].q, ws[0].scale.reshape(-1)).float()
+    want = dequant_matmul_plain(x, ws[0].q, ws[0].scale.reshape(-1)).float()
+    if not torch.allclose(got, want, rtol=DEQ_RTOL, atol=DEQ_ATOL):
+        raise RuntimeError(f"dequant_matmul at ({M}, {K}, {N}) against "
+                           "the plain version")
+    it = iter(range(10 ** 9))
+
+    def kern():
+        w = ws[next(it) % len(ws)]
+        _fused_dequant_matmul(x, w.q, w.scale.reshape(-1))
+
+    def plain():
+        w = ws[next(it) % len(ws)]
+        dequant_matmul_plain(x, w.q, w.scale.reshape(-1))
+
+    def lib():
+        torch.matmul(x, wbf[next(it) % len(ws)])
+
+    def kern_warm():
+        _fused_dequant_matmul(x, ws[0].q, ws[0].scale.reshape(-1))
+
+    def lib_warm():
+        torch.matmul(x, wbf[0])
+    byt = M * K * 2 + K * N + N * 4 + M * N * 2
+    b_ms, b_by = bound_ms(byt, 2 * M * K * N)
+    rec = {"M": M, "K": K, "N": N,
+           "max_abs_err": (got - want).abs().max().item(),
+           "plain_ms": time_ms(plain, flush=flush),
+           "ms_warm": time_ms(kern_warm),
+           "library_ms_warm": time_ms(lib_warm),
+           "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS}
+    timed(rec, "ms", kern, flush=flush)
+    timed(rec, "library_ms", lib, flush=flush)
+    _fused_dequant_matmul.launches = n0
+    return rec
+
+
+PAGED_ROW = {"name": "paged_flash_decode", "route": "cuda",
+             "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                       "paged_flash_decode.cu",
+             "replaces": "deeplearning4j_tpu/kernels/"
+                         "paged_flash_decode.py:138"}
+DEQUANT_ROW = {"name": "dequant_matmul", "route": "cuda",
+               "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                         "dequant_matmul.cu",
+               "replaces": "deeplearning4j_tpu/quant/transforms.py:216"}
+
+
+def phase_kernels(twin, launches, errs):
     rows, shapes = [], []
-    # paged read at the decode (Q=1) and spec-verify (Q=5) shapes; each
-    # timed call reads another layer's slice of the pool, so the 12-layer
-    # working set (several hundred MB) keeps L2 cold as in serving
+    # paged read at the decode (Q=1) and spec-verify (Q=5) shapes
     for Q in (1, 5):
-        q, kp, vp, tables, lengths = paged_inputs(Q, seed=20 + Q)
-        views = [(kp[:, i], vp[:, i]) for i in range(L_FULL)]
-        it = iter(range(10 ** 9))
-
-        def kern():
-            k, v = views[next(it) % L_FULL]
-            paged_flash_decode(q, k, v, tables, lengths)
-
-        def plain():
-            k, v = views[next(it) % L_FULL]
-            paged_flash_decode_plain(q, k, v, tables, lengths)
-        # the library yardstick: SDPA over the pre-gathered view
-        C = MB * BS
-        idx = tables.long()
-        pos = lengths.long()[:, None] + torch.arange(Q, device="cuda")
-        mask = (torch.arange(C, device="cuda")[None, None] <= pos[:, :, None])
-        gathered = [(k[idx].reshape(SLOTS, C, 12, 64).transpose(1, 2),
-                     v[idx].reshape(SLOTS, C, 12, 64).transpose(1, 2))
-                    for k, v in views]
-        qt = q.transpose(1, 2)
-
-        def lib():
-            k, v = gathered[next(it) % L_FULL]
-            F.scaled_dot_product_attention(qt, k, v,
-                                           attn_mask=mask[:, None])
-        byt, flops = paged_work(Q, lengths.tolist())
-        b_ms, b_by = bound_ms(byt, flops)
-        rec = {"Q": Q, "plain_ms": time_ms(plain), "bound_ms": b_ms,
-               "bound_by": b_by, "windows": WINDOWS}
-        timed(rec, "ms", kern)
-        timed(rec, "library_ms", lib)
+        rec = paged_record(Q, seed=20 + Q)
         shapes.append({"name": "paged_flash_decode", **rec})
         if Q == 1:
-            rows.append({
-                "name": "paged_flash_decode", "route": "cuda",
-                "source": "deeplearning4j_tpu_torch/kernels/csrc/"
-                          "paged_flash_decode.cu",
-                "replaces": "deeplearning4j_tpu/kernels/"
-                            "paged_flash_decode.py:138",
-                "launches": launches["paged_flash_decode"],
-                "max_abs_err": errs["paged_flash_decode"],
-                **{k: rec[k] for k in ROW_KEYS}})
-        del views, gathered, kp, vp
+            rows.append({**PAGED_ROW,
+                         "launches": launches["paged_flash_decode"],
+                         "max_abs_err": errs["paged_flash_decode"],
+                         **{k: rec[k] for k in ROW_KEYS}})
     # dequant-matmul at decode (M = 8 slots), spec verify (M = 40) and
     # prefill (M = 4 x 1024) rows, over the twin's own 12 layers' weights
-    # in turn, L2 flushed before each call (kernel and library alike)
+    # in turn
     mlps = [lyr["mlp"] for lyr in twin.params["layers"]]
     flush = l2_flusher()
     for M in (8, 40, 4096):
         for wname in ("w1", "w2"):
-            ws = [m[wname] for m in mlps]
-            K, N = ws[0].shape
-            x = torch.randn((M, K), device="cuda", dtype=torch.bfloat16)
-            wbf = [dequantize(w, torch.bfloat16) for w in ws]
-            it = iter(range(10 ** 9))
-
-            def kern():
-                w = ws[next(it) % L_FULL]
-                _fused_dequant_matmul(x, w.q, w.scale.reshape(-1))
-
-            def plain():
-                w = ws[next(it) % L_FULL]
-                dequant_matmul_plain(x, w.q, w.scale.reshape(-1))
-
-            def lib():
-                w = wbf[next(it) % L_FULL]
-                torch.matmul(x, w)
-
-            def kern_warm():
-                _fused_dequant_matmul(x, ws[0].q, ws[0].scale.reshape(-1))
-
-            def lib_warm():
-                torch.matmul(x, wbf[0])
-            byt = M * K * 2 + K * N + N * 4 + M * N * 2
-            b_ms, b_by = bound_ms(byt, 2 * M * K * N)
-            rec = {"M": M, "K": K, "N": N,
-                   "plain_ms": time_ms(plain, flush=flush),
-                   "ms_warm": time_ms(kern_warm),
-                   "library_ms_warm": time_ms(lib_warm),
-                   "bound_ms": b_ms, "bound_by": b_by, "windows": WINDOWS}
-            timed(rec, "ms", kern, flush=flush)
-            timed(rec, "library_ms", lib, flush=flush)
+            rec = dequant_record([m[wname] for m in mlps], M, flush)
             shapes.append({"name": "dequant_matmul", **rec})
             if M == 8 and wname == "w1":
-                rows.append({
-                    "name": "dequant_matmul", "route": "cuda",
-                    "source": "deeplearning4j_tpu_torch/kernels/csrc/"
-                              "dequant_matmul.cu",
-                    "replaces": "deeplearning4j_tpu/quant/"
-                                "transforms.py:216",
-                    "launches": launches["dequant_matmul"],
-                    "max_abs_err": errs["dequant_matmul"],
-                    **{k: rec[k] for k in ROW_KEYS}})
-            del wbf
+                rows.append({**DEQUANT_ROW,
+                             "launches": launches["dequant_matmul"],
+                             "max_abs_err": errs["dequant_matmul"],
+                             **{k: rec[k] for k in ROW_KEYS}})
     return rows, shapes
+
+
+def sharded_kernel_rows(twin):
+    """The two serving kernels at a model=2 rank's shapes (the
+    sharded_serve phase's): the paged read over 6 of the 12 heads at
+    Q = 1 and Q = 5 (the spec verify, k = 4), and the dequant kernel on
+    a rank's slices of the twin's MLP, w1 (768, 1536) and w2 (1536,
+    768) at M = 8 slots; each held against its plain version and timed
+    as ``phase_kernels`` times it. The rows' launches come later, from
+    the phase's rank processes."""
+    from deeplearning4j_tpu_torch.quant.transforms import QuantizedTensor
+    rows = []
+    for Q in (1, 5):
+        rec = paged_record(Q, seed=40 + Q, H=L_FULL // 2)
+        rows.append({**PAGED_ROW, "main_path": "sharded_serve",
+                     **{k: rec[k] for k in ROW_KEYS + ("Q", "heads",
+                                                       "max_abs_err")}})
+    flush = l2_flusher()
+    half = twin.config.intermediate_size // 2
+    for wname, cut in (("w1", (slice(None), slice(0, half))),
+                       ("w2", (slice(0, half), slice(None)))):
+        ws = []
+        for lyr in twin.params["layers"]:
+            w = lyr["mlp"][wname]
+            scale = w.scale[:, cut[1]] if wname == "w1" else w.scale
+            ws.append(QuantizedTensor(w.q[cut].contiguous(),
+                                      scale.contiguous(), w.orig_dtype))
+        rec = dequant_record(ws, SLOTS, flush)
+        rows.append({**DEQUANT_ROW, "main_path": "sharded_serve",
+                     **{k: rec[k] for k in ROW_KEYS + (
+                         "M", "K", "N", "max_abs_err", "ms_warm",
+                         "library_ms_warm")}})
+    return rows
 
 
 #: the timing keys a kernels-line row copies from its shape record
@@ -5837,6 +5953,451 @@ def phase_parallel():
     torch.cuda.empty_cache()
     return launches
 
+# -- sharded serving (the sharded_serve phase) -------------------------------
+
+# Teacher-forced logits of the full-width CausalLM at model=2 (6 of 12
+# heads a rank, 2 gloo ranks on cuda:0) against one process over the same
+# weights, bf16: each layer's wo and w2 products reach the residual as two
+# partial sums, each rounded to bf16 by its rank's einsum, summed in f32
+# through host memory and rounded once more, where one process rounds the
+# whole contraction once: about one extra bf16 ulp (2**-8 relative) a
+# layer output, through 12 layers and the tied head. On an H100 the
+# reading is 0.03125 (one bf16 ulp of a logit in [4, 8)) with and without
+# the biases below; the limit is about 2.5x that, and bo and b2 added
+# twice read 0.78125. Greedy tokens can flip where the top two logits sit
+# closer than that, so the bf16 runs report token agreement; the f32 run
+# at depth 2 holds it
+SHARD_LOGIT_ATOL = 0.08
+# std of the random biases the leg's models get (the init's are 0): a rank
+# that adds bo or b2 before the all-reduce adds it twice, which zero biases
+# would hide. The same logits with bo and b2 doubled in one process are
+# what that fault gives the leader; the leg holds them beyond the limit
+SHARD_BIAS_STD = 0.05
+# decode steps teacher-forced after the prompt's prefill
+SHARD_FORCED = 16
+# the rig's requests: serve-phase prompts (17, 100, 500 and 256 + 200
+# tokens, all greedy), SHARD_TOKENS new tokens each; the world-1 leg
+# serves every greedy prompt of the serve phase
+SHARD_PICKS, SHARD_TOKENS = (0, 3, 7, 13), 32
+SHARD_F32_LAYERS = 2
+# the spec leg's self-draft (the first layers of the model) and its k
+SHARD_DRAFT_LAYERS, SHARD_K = 2, 4
+# sharded predict (the MLP twin and its bf16 network): params stored over
+# model=2 and gathered at use, the batch whole on both ranks: the
+# reference's tolerance against the unsharded engine
+SHARD_PREDICT_RTOL, SHARD_PREDICT_ATOL = 1e-5, 1e-6
+SHARD_PREDICT_ROWS = (1, 8, MLP_B)
+
+
+def with_biases(model, seed):
+    """``model`` with every layer's biases drawn at SHARD_BIAS_STD."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    for layer in model.params["layers"]:
+        for group in (layer["attn"], layer["mlp"]):
+            for k, v in group.items():
+                if k.startswith("b"):
+                    group[k] = (SHARD_BIAS_STD * torch.randn(
+                        v.shape, generator=g, device="cuda")).to(v.dtype)
+    return model
+
+
+def _biases_twice(params):
+    """``params`` with bo and b2 doubled: what a rank of two adding them
+    before the all-reduce gives."""
+    layers = []
+    for layer in params["layers"]:
+        layer = dict(layer, attn=dict(layer["attn"]), mlp=dict(layer["mlp"]))
+        layer["attn"]["bo"] = 2 * layer["attn"]["bo"]
+        layer["mlp"]["b2"] = 2 * layer["mlp"]["b2"]
+        layers.append(layer)
+    return dict(params, layers=layers)
+
+
+def _all_reduces():
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    return sum(n for (op, _), n in C.issued.items() if op == "all_reduce")
+
+
+def _run_greedy(engine, prompts, max_tokens, together=True):
+    """Greedy tokens of each prompt (all submitted at once, or one after
+    another) and the wall seconds."""
+    import torch
+    t0 = time.perf_counter()
+    if together:
+        futs = [engine.generate(p, max_tokens=max_tokens) for p in prompts]
+        toks = [f.result(timeout=600)["tokens"] for f in futs]
+    else:
+        toks = [engine.generate(p, max_tokens=max_tokens)
+                .result(timeout=600)["tokens"] for p in prompts]
+    torch.cuda.synchronize()
+    return toks, time.perf_counter() - t0
+
+
+def _delta(before, after):
+    """The step counts of an engine's stats between two readings."""
+    return {k: after[k] - before[k] for k in (
+        "decode_steps", "prefill_dispatches", "spec_steps")}
+
+
+def _rate(toks, wall, stats):
+    """Tokens/s of a run and its wall over its decode steps (the spec
+    steps among them; the prefills' time included)."""
+    n = sum(len(t) for t in toks)
+    return {"tokens": n, "wall_s": wall, "tokens_per_s": n / wall,
+            "step_ms": 1e3 * wall / max(stats["decode_steps"], 1),
+            "decode_steps": stats["decode_steps"],
+            "prefill_dispatches": stats["prefill_dispatches"],
+            "spec_steps": stats["spec_steps"]}
+
+
+def shard_world1():
+    """The world-1 NCCL leg, in a rank process of its own: the full-width
+    CausalLM deployed with ``mesh=serving_mesh()`` behind a
+    ``ModelServer``, every greedy prompt of the serve phase over HTTP
+    one after another, against a direct unsharded engine serving them
+    alike; then both engines' tokens/s with every greedy prompt at
+    once."""
+    import torch
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig)
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = CausalLM(CausalLMConfig(), seed=0, device="cuda")
+    prompts, sampling = serve_prompts(model.config.vocab_size)
+    greedy = [p for p, kw in zip(prompts, sampling) if not kw]
+    kw = dict(slots=SLOTS, max_ctx=MAX_CTX, kv_block_size=BS)
+    ref = DecodeEngine(model, device="cuda", **kw)
+    try:
+        want, _ = _run_greedy(ref, greedy, SHARD_TOKENS, together=False)
+        s0 = ref.stats()
+        toks, wall = _run_greedy(ref, greedy, SHARD_TOKENS)
+        ref_rate = _rate(toks, wall, _delta(s0, ref.stats()))
+    finally:
+        ref.close(60)
+    reg = ModelRegistry(manifest_dir=None)
+    mesh = serving_mesh(device="cuda")
+    t0 = time.perf_counter()
+    mv = reg.deploy("lm", "v1", model, mesh=mesh, decode_slots=SLOTS,
+                    decode_max_ctx=MAX_CTX, decode_kv_block_size=BS)
+    deploy_s = time.perf_counter() - t0
+    srv = ModelServer(reg)
+    port = srv.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        got = []
+        for p in greedy:
+            status, doc, _, _ = http_generate(base, p, {},
+                                              max_tokens=SHARD_TOKENS)
+            if status != 200:
+                raise RuntimeError(f"sharded generate: {status} {doc}")
+            got.append(doc["tokens"])
+        import urllib.request
+        with urllib.request.urlopen(f"{base}/v1/models", timeout=60) as r:
+            listed = json.loads(r.read())["models"]["lm"]["versions"][0]
+        eng = mv.engine
+        s0 = eng.stats()
+        toks, wall = _run_greedy(eng, greedy, SHARD_TOKENS)
+        rate = _rate(toks, wall, _delta(s0, eng.stats()))
+    finally:
+        srv.stop()
+        reg.drain_all(60, save_manifests=False)
+    return {"transport": C.transport(mesh.group("model"), "cuda"),
+            "requests": len(greedy), "tokens_identical":
+                sum(a == b for a, b in zip(got, want)),
+            "mesh_shape": listed.get("mesh_shape"),
+            "param_spec": listed.get("param_spec"),
+            "deploy_with_warmup_s": deploy_s,
+            "sharded": rate, "unsharded": ref_rate,
+            "collectives": {f"{op}/{b}": n for (op, b), n in
+                            C.issued.items()}}
+
+
+def shard_forced(model, mesh, prompt, lead):
+    """Teacher-forced logits (the prompt's prefill, then SHARD_FORCED
+    decode steps on fixed tokens) through this rank's shard of the params
+    and the pool on every rank, and on the leader through the whole ones:
+    the largest logit difference and the argmax agreement."""
+    import torch
+    from deeplearning4j_tpu_torch.runtime import sharded
+
+    def run(params, cache):
+        T = len(prompt)
+        ids = torch.as_tensor(prompt, device="cuda")[None]
+        tables = torch.arange(1, MB + 1, dtype=torch.int32,
+                              device="cuda")[None]
+        lengths = torch.tensor([T], dtype=torch.int32, device="cuda")
+        cache, lg = model.paged_prefill(params, cache, ids, tables, lengths,
+                                        torch.zeros_like(lengths))
+        outs = [lg]
+        forced = torch.as_tensor(np.random.RandomState(5).randint(
+            0, model.config.vocab_size, (SHARD_FORCED, 1, 1)), device="cuda",
+            dtype=torch.int32)
+        for j in range(SHARD_FORCED):
+            cache, lg = model.paged_decode(params, cache, tables, forced[j],
+                                           lengths + j)
+            outs.append(lg[:, 0])
+        return torch.cat(outs).float()
+    with torch.no_grad():
+        got = run(sharded.place_causal_lm(mesh, model.params),
+                  sharded.shard_kv_pool(mesh, model.init_paged_kv_cache(
+                      MB + 1, BS)))
+        if not lead:
+            return {}
+        want = run(model.params, model.init_paged_kv_cache(MB + 1, BS))
+        fault = run(_biases_twice(model.params),
+                    model.init_paged_kv_cache(MB + 1, BS))
+    return {"positions": int(got.shape[0]),
+            "max_abs_logit_diff": (got - want).abs().max().item(),
+            "argmax_agreement":
+                (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+            "atol": SHARD_LOGIT_ATOL, "bias_std": SHARD_BIAS_STD,
+            "bias_twice_max_abs_logit_diff":
+                (fault - want).abs().max().item()}
+
+
+def shard_predict(lead):
+    """The MLP (bf16 over its f32 params) and its int8 twin through
+    ``InferenceEngine(mesh=serving_mesh())`` on both ranks, against the
+    unsharded engine on the leader."""
+    import copy
+    import torch
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.quant import quantize_model
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    full = mlp_network()
+    bf16 = MultiLayerNetwork(copy.copy(full.conf), device="cuda")
+    bf16.conf.dtype = "bfloat16"
+    bf16.init(params=full._params)
+    twin = quantize_model(full, device="cuda")
+    xs = [np.random.RandomState(n).randn(n, MLP_IN).astype(np.float32)
+          for n in SHARD_PREDICT_ROWS]
+    mesh = serving_mesh(device="cuda")
+    out = {}
+    for name, net in (("bf16", bf16), ("int8", twin)):
+        n0 = _fused_dequant_matmul.launches
+        eng = InferenceEngine(net, mesh=mesh, max_batch=MLP_B)
+        if not lead:
+            out[name] = {"joined": eng.join(300),
+                         "dequant_launches": _fused_dequant_matmul.launches
+                         - n0}
+            continue
+        got = [eng.infer(x).numpy() for x in xs]
+        stats = eng.stats()
+        eng.close(60)
+        launches = _fused_dequant_matmul.launches - n0
+        # every dense layer of the twin through the kernel, a dispatch
+        expected = (MLP_HIDDEN_LAYERS + 1) * stats["dispatches"] \
+            if name == "int8" else 0
+        ref = InferenceEngine(net, max_batch=MLP_B)
+        want = [ref.infer(x).numpy() for x in xs]
+        ref.close(60)
+        out[name] = {
+            "rows": list(SHARD_PREDICT_ROWS), "dequant_launches": launches,
+            "dequant_launches_expected": expected,
+            "max_abs_err": max(float(np.abs(g - w).max())
+                               for g, w in zip(got, want)),
+            "within_tolerance": all(np.allclose(
+                g, w, rtol=SHARD_PREDICT_RTOL, atol=SHARD_PREDICT_ATOL)
+                for g, w in zip(got, want)),
+            "argmax_identical": all((g.argmax(-1) == w.argmax(-1)).all()
+                                    for g, w in zip(got, want)),
+            "mesh_shape": stats["mesh_shape"],
+            "param_spec": stats["param_spec"]}
+    return out
+
+
+def shard_tp2():
+    """The 2-rank leg, on every rank (gloo, ``cuda:0`` shared): the
+    teacher-forced logits, then the main path (the bf16 engine, the same
+    with the spec phase's 2-layer draft at k = 4, the int8 twin; every
+    launch count set to 0 just before), then on the leader the same
+    engines unsharded, the f32 depth-2 pair and sharded predict."""
+    import torch
+    from deeplearning4j_tpu_torch.common.mesh import (global_rank,
+                                                      serving_mesh)
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
+    from deeplearning4j_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig)
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.quant.transforms import (
+        _fused_dequant_matmul, quantize_model)
+    from deeplearning4j_tpu_torch.runtime import sharded
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lead = global_rank() == 0
+    model = with_biases(CausalLM(CausalLMConfig(), seed=0, device="cuda"),
+                        seed=2)
+    twin = quantize_model(model, device="cuda")
+    draft = CausalLM(CausalLMConfig(num_layers=SHARD_DRAFT_LAYERS),
+                     params={"embeddings": model.params["embeddings"],
+                             "layers":
+                                 model.params["layers"][:SHARD_DRAFT_LAYERS]},
+                     device="cuda")
+    prompts, _ = serve_prompts(model.config.vocab_size)
+    picks = [prompts[i] for i in SHARD_PICKS]
+    mesh = serving_mesh(device="cuda")
+    kw = dict(slots=SLOTS, max_ctx=MAX_CTX, kv_block_size=BS, device="cuda")
+    legs = (("bf16", model, {}),
+            ("spec", model, {"draft_model": draft, "spec_k": SHARD_K}),
+            ("int8", twin, {}))
+    out = {"rank": global_rank(),
+           "transport": C.transport(mesh.group("model"), "cuda"),
+           "forced": shard_forced(model, mesh, picks[2], lead), "runs": {}}
+    # the main path: every launch count starts at 0 here
+    paged_flash_decode.launches = 0
+    _fused_dequant_matmul.launches = 0
+    for name, m, extra in legs:
+        a0 = _all_reduces()
+        eng = DecodeEngine(m, mesh=mesh, **kw, **extra)
+        rec = {"pool_bytes_per_rank": sharded.pool_bytes(eng._cache)}
+        if lead:
+            toks, wall = _run_greedy(eng, picks, SHARD_TOKENS)
+            s = eng.stats()
+            eng.close(120)
+            rec.update(_rate(toks, wall, s), tokens_list=toks,
+                       all_reduces=_all_reduces() - a0,
+                       mesh_shape=s["mesh_shape"],
+                       param_spec=s["param_spec"])
+            steps = s["prefill_dispatches"] + s["decode_steps"]
+            rec["all_reduces_per_step"] = rec["all_reduces"] / steps \
+                if name != "spec" else None
+        else:
+            try:
+                eng.generate(picks[0], max_tokens=1)
+            except RuntimeError as e:
+                rec["refused"] = str(e)
+            rec["joined"] = eng.join(600)
+        out["runs"][name] = rec
+    out["launches"] = {"paged_flash_decode": paged_flash_decode.launches,
+                       "dequant_matmul": _fused_dequant_matmul.launches}
+    if lead:
+        for name, m, extra in legs:
+            eng = DecodeEngine(m, **kw, **extra)
+            rec = out["runs"][name]
+            rec["pool_bytes_unsharded"] = sharded.pool_bytes(eng._cache)
+            try:
+                toks, wall = _run_greedy(eng, picks, SHARD_TOKENS)
+                rec["unsharded"] = _rate(toks, wall, eng.stats())
+            finally:
+                eng.close(120)
+            rec["token_agreement"] = float(np.mean(
+                [a == b for x, y in zip(rec.pop("tokens_list"), toks)
+                 for a, b in zip(x, y)]))
+    # f32 at depth 2: identical greedy tokens, requests one at a time
+    f32 = with_biases(CausalLM(CausalLMConfig(num_layers=SHARD_F32_LAYERS,
+                                              dtype=torch.float32), seed=1,
+                               device="cuda"), seed=3)
+    eng = DecodeEngine(f32, mesh=mesh, **kw)
+    if lead:
+        got, _ = _run_greedy(eng, picks, SHARD_TOKENS, together=False)
+        eng.close(120)
+        ref = DecodeEngine(f32, **kw)
+        want, _ = _run_greedy(ref, picks, SHARD_TOKENS, together=False)
+        ref.close(120)
+        out["f32"] = {"layers": SHARD_F32_LAYERS,
+                      "tokens_identical": sum(a == b for a, b in
+                                              zip(got, want)),
+                      "requests": len(picks)}
+    else:
+        out["f32"] = {"joined": eng.join(600)}
+    out["predict"] = shard_predict(lead)
+    return out
+
+
+def shard_expected_launches(runs):
+    """Each rank's serving-kernel launches on the 2-rank leg's main path,
+    from the leader's step counts: the paged read once a layer and
+    decode step, the spec steps' draft k + 1 times a draft layer besides;
+    the dequant kernel twice a layer (w1, w2) and prefill or decode step
+    of the int8 twin."""
+    bf16, spec, int8 = runs["bf16"], runs["spec"], runs["int8"]
+    return {"paged_flash_decode":
+                L_FULL * (bf16["decode_steps"] + spec["decode_steps"]
+                          + int8["decode_steps"])
+                + SHARD_DRAFT_LAYERS * (SHARD_K + 1) * spec["spec_steps"],
+            "dequant_matmul":
+                2 * L_FULL * (int8["prefill_dispatches"]
+                              + int8["decode_steps"])}
+
+
+def phase_sharded_serve():
+    """The sharded_serve phase (module docstring). Returns the serving
+    kernels' launches on its main path, both ranks summed."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    with RankPool(1, "cuda", timeout=900) as pool:    # NCCL, world 1
+        w1 = pool.run("chip_smoke:shard_world1")[0]
+    emit({"phase": "sharded_serve_world1", "model": "causal_lm 768x12",
+          **w1, "seconds": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    with RankPool(2, "cuda", timeout=900) as pool:
+        r0, r1 = pool.run("chip_smoke:shard_tp2")
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                for k in r0["launches"]}
+    emit({"phase": "sharded_serve", "ranks": 2, "model_parallel": 2,
+          "heads_per_rank": L_FULL // 2, "transport": r0["transport"],
+          "forced": r0["forced"], "runs": r0["runs"],
+          "follower": {"runs": r1["runs"], "f32": r1["f32"],
+                       "predict": r1["predict"]},
+          "f32": r0["f32"], "predict": r0["predict"],
+          "launches_by_rank": [r0["launches"], r1["launches"]],
+          "launches_expected": shard_expected_launches(r0["runs"]),
+          "seconds": time.perf_counter() - t1})
+    fails = []
+    if w1["tokens_identical"] != w1["requests"]:
+        fails.append("world-1 tokens")
+    if w1["mesh_shape"] != {"data": 1, "model": 1} or \
+            w1["param_spec"] != "auto(model)" or w1["transport"] != "nccl":
+        fails.append("world-1 listing")
+    if not r0["forced"]["max_abs_logit_diff"] <= SHARD_LOGIT_ATOL:
+        fails.append("teacher-forced logits")
+    if not r0["forced"]["bias_twice_max_abs_logit_diff"] > SHARD_LOGIT_ATOL:
+        fails.append("the logit limit would not see bo and b2 added twice")
+    for name, rec in r0["runs"].items():
+        if rec["pool_bytes_per_rank"] * 2 != rec["pool_bytes_unsharded"]:
+            fails.append(f"{name} pool bytes")
+        if rec["all_reduces_per_step"] not in (None, 2 * L_FULL):
+            fails.append(f"{name} all-reduces a step")
+        if rec["mesh_shape"] != {"data": 1, "model": 2}:
+            fails.append(f"{name} mesh_shape")
+        f = r1["runs"][name]
+        if not f["joined"] or "follower" not in f.get("refused", ""):
+            fails.append(f"{name} follower")
+    if r0["f32"]["tokens_identical"] != r0["f32"]["requests"]:
+        fails.append("f32 tokens")
+    for name, rec in r0["predict"].items():
+        if not (rec["within_tolerance"] and rec["argmax_identical"]):
+            fails.append(f"predict {name}")
+        if not r1["predict"][name]["joined"]:
+            fails.append(f"predict {name} follower")
+    for name, rec in r0["predict"].items():
+        want = rec["dequant_launches_expected"]
+        if rec["dequant_launches"] != want or \
+                r1["predict"][name]["dequant_launches"] != want:
+            fails.append(f"predict {name} dequant launches "
+                         f"{rec['dequant_launches']} / "
+                         f"{r1['predict'][name]['dequant_launches']} "
+                         f"against {want}")
+    want = shard_expected_launches(r0["runs"])
+    for r in (r0, r1):
+        if r["launches"] != want:
+            fails.append(f"rank {r['rank']} launches {r['launches']} "
+                         f"against {want}")
+    if fails:
+        raise RuntimeError(f"sharded_serve phase failed: {fails}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
@@ -5926,12 +6487,16 @@ def main():
         if row["name"] == "dequant_matmul":
             row["launches_predict_http"] = predict_launches
     flash, flash_shapes = flash_rows(launches, errs)
-    # the parallel phase runs after every profiler reading of this
-    # process (its rank processes share the card), the card's memory
-    # freed
+    shard_rows = sharded_kernel_rows(twin)
+    # the parallel and sharded_serve phases run after every profiler
+    # reading of this process (their rank processes share the card), the
+    # card's memory freed
     del twin, mlp_twin, predict_twin, resnet_twin
     torch.cuda.empty_cache()
     parallel_launches = phase_parallel()
+    shard_launches = phase_sharded_serve()
+    for row in shard_rows:
+        row["launches"] = shard_launches[row["name"]]
     ring_B, ring_T = FLASH_SHAPES[-1]
     for row in flash:
         row["launches_parallel"] = parallel_launches[row["name"]]
@@ -5942,7 +6507,7 @@ def main():
                               "plain_ms", "library_ms")}
     emit({"phase": "kernel_shapes",
           "shapes": shapes + flash_shapes + fp8_shapes})
-    emit({"kernels": flash + rows})
+    emit({"kernels": flash + rows + shard_rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1),
           "profiler_retakes": PROFILER_RETAKES,

@@ -15,10 +15,12 @@ full f32. As in the JAX package, the environment variable alone applies
 nothing.
 
 The JAX package's TPU switches (``flash_min_seq``, ``paged_kernel``,
-``fused_dequant``, ``xla_cache``, ``eager_jit``) are carried as readable
-properties that change nothing: in the port the tensor's device decides,
-a CUDA tensor always takes the hand-written kernel and a CPU tensor its
-plain PyTorch version.
+``fused_dequant``, ``xla_cache``, ``eager_jit``) and their setters are
+carried as readable properties that change nothing: in the port the
+tensor's device decides, a CUDA tensor always takes the hand-written
+kernel and a CPU tensor its plain PyTorch version. ``backend()``,
+``num_devices()`` and ``memory_stats()`` report torch's device (a card,
+or the CPU), never a TPU.
 """
 from __future__ import annotations
 
@@ -373,6 +375,106 @@ class Environment:
             return int(self.property("engine_max_restarts"))
         except (TypeError, ValueError):
             return 5
+
+    # -- the typed setters and device reports of the JAX package ----------
+    # Each setter writes the property its reader above resolves, with the
+    # JAX package's conversion (``int()`` / ``float()`` raise on a bad
+    # value, before anything is written).
+    def set_decode_slots(self, n: int):
+        return self.set_property("decode_slots", int(n))
+
+    def set_decode_max_ctx(self, n: int):
+        return self.set_property("decode_max_ctx", int(n))
+
+    def set_decode_max_tokens(self, n: int):
+        return self.set_property("decode_max_tokens", int(n))
+
+    def set_kv_block_size(self, n: int):
+        return self.set_property("kv_block_size", int(n))
+
+    def set_spec_draft_k(self, n: int):
+        return self.set_property("spec_draft_k", int(n))
+
+    def set_prefix_cache(self, v: bool):
+        return self.set_property("prefix_cache", "1" if v else "0")
+
+    def set_quant_max_divergence(self, v: float):
+        return self.set_property("quant_max_divergence", float(v))
+
+    def set_training_remat(self, mode: str):
+        return self.set_property("training_remat", mode)
+
+    def set_training_grad_accum(self, k: int):
+        return self.set_property("training_grad_accum", int(k))
+
+    def set_training_zero1(self, v: bool):
+        return self.set_property("training_zero1", "1" if v else "0")
+
+    def set_auto_rollback(self, v: bool):
+        return self.set_property("auto_rollback", "1" if v else "0")
+
+    def set_cache_dir(self, d: Optional[str]):
+        """Programmatic override; "" or None disables the cache volume.
+        Stored now; the compile cache that applies it beyond the serving
+        manifests is ``ROADMAP.md`` queue 1 item 11a."""
+        return self.set_property("cache_dir", d or "")
+
+    def set_remote_cache(self, d: Optional[str]):
+        """Programmatic override; "" or None disables the shared store.
+        Stored now; the store tiers that read it are item 11a."""
+        return self.set_property("remote_cache", d or "")
+
+    def set_cache_tier(self, tier: Optional[str]):
+        """Programmatic override; None restores "auto". Stored now; the
+        store tiers that apply it are item 11a."""
+        return self.set_property("cache_tier", tier or "auto")
+
+    def set_flash_min_seq(self, n: int):
+        """Stores the JAX package's flash threshold (:meth:`flash_min_seq`
+        reads it back). No effect in the port: which attention runs is
+        decided by the tensor's device, never by the sequence length."""
+        return self.set_property("flash_min_seq", int(n))
+
+    def set_paged_kernel(self, mode: Optional[str]):
+        """Stores the JAX package's paged-decode policy; None restores
+        "auto". No effect in the port: a CUDA pool always takes the
+        paged-decode kernel, a CPU pool its plain version."""
+        return self.set_property("paged_kernel", mode or "auto")
+
+    def set_fused_dequant(self, mode: Optional[str]):
+        """Stores the JAX package's int8 dequant-matmul policy; None
+        restores "auto". No effect in the port: a CUDA tensor always
+        takes the dequant-matmul kernel, a CPU tensor its plain
+        version."""
+        return self.set_property("fused_dequant", mode or "auto")
+
+    def metrics_enabled(self) -> bool:
+        return self.metrics().enabled
+
+    def set_metrics_enabled(self, v: bool):
+        self.set_property("metrics", "1" if v else "0")
+        self.metrics().set_enabled(v)
+        return self
+
+    def backend(self) -> str:
+        """The port's device platform: "cuda" where torch sees a card,
+        else "cpu"."""
+        import torch
+        return "cuda" if torch.cuda.is_available() else "cpu"
+
+    def num_devices(self) -> int:
+        """Cards torch sees (1 for the CPU where it sees none)."""
+        import torch
+        return torch.cuda.device_count() if torch.cuda.is_available() \
+            else 1
+
+    def memory_stats(self) -> Dict[str, int]:
+        """``torch.cuda.memory_stats()`` of the current card; {} on the
+        CPU."""
+        import torch
+        if not torch.cuda.is_available():
+            return {}
+        return {k: int(v) for k, v in torch.cuda.memory_stats().items()}
 
     # -- telemetry (common/metrics.py, common/tracing.py) ------------------
     def metrics(self):

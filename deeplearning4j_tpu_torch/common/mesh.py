@@ -68,6 +68,10 @@ class P(tuple):
             e[0] if isinstance(e, tuple) and len(e) == 1 else e
             for e in entries))
 
+    def __getnewargs__(self):
+        # unpickled (a rank's job argument) as P(*entries), not P(entries)
+        return tuple(self)
+
     def __repr__(self):
         return "P(" + ", ".join(repr(e) for e in self) + ")"
 
@@ -296,8 +300,9 @@ def data_parallel_mesh(devices=None, device="cuda") -> Mesh:
 def serving_mesh(model_parallel: Optional[int] = None,
                  devices: Sequence[int] = None, device="cuda") -> Mesh:
     """2-D ``(data, model)`` mesh for tensor-parallel serving; the
-    default puts every rank on ``model``. The deploys that would take it
-    are ``ROADMAP.md`` queue 1 item 10b."""
+    default puts every rank on ``model``. ``DecodeEngine``,
+    ``InferenceEngine`` and ``ModelRegistry.deploy`` take it as
+    ``mesh=`` (``runtime/sharded.py``)."""
     devices = list(devices) if devices is not None \
         else list(range(world_size()))
     n = len(devices)
@@ -492,7 +497,10 @@ def local_slice(x: torch.Tensor, mesh: Mesh, spec: P) -> torch.Tensor:
 
 def place(x, mesh: Mesh, spec: P = P()) -> torch.Tensor:
     """This rank's shard of the global array ``x`` under ``spec`` (with
-    the divisibility fallback), on the mesh's device, tagged."""
+    the divisibility fallback), on the mesh's device, tagged. A leaf
+    that places itself (``quant.QuantizedTensor.placed``) does so."""
+    if hasattr(x, "placed"):
+        return x.placed(mesh, spec)
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     spec = valid_spec(mesh, spec, t.shape)
     shard = local_slice(t, mesh, spec).to(mesh.device).contiguous()
@@ -505,6 +513,8 @@ def place(x, mesh: Mesh, spec: P = P()) -> torch.Tensor:
 def gather(t: torch.Tensor) -> torch.Tensor:
     """The global array of a placed tensor (itself when unplaced or
     replicated); every rank of its mesh must call it."""
+    if hasattr(t, "gathered"):
+        return t.gathered()
     pl = placement(t)
     if pl is None:
         return t

@@ -17,6 +17,16 @@ the same call shapes:
 Post-LN residual blocks, f32 layer-norm statistics and softmax, tanh GELU
 (``jax.nn.gelu``'s default), a tied word-embedding head with f32 logits.
 
+**Head-parallel decode.** Under a serving mesh (``runtime/sharded.py``)
+each rank holds the Megatron layout of the params: ``wq``/``wk``/``wv``
+and their [H, Dh] biases split on H, ``wo`` on H, ``w1``/``b1`` on F,
+``w2`` on F; ``bo``, ``b2``, the layer norms, the embeddings and the
+head whole. The functions here read the split from the params: the
+heads from the local ``wq`` (and the pool's heads dim), and a ``wo`` or
+``w2`` placed split on its dim 0 sums its product over that mesh axis
+(one all-reduce each, two a layer) before its bias enters. Whole params
+run the single-process code unchanged.
+
 Where the JAX package donates the cache buffers to its jitted steps, the
 port writes the caches IN PLACE (``index_put_`` through the block table)
 and returns the same dict: the pool is never copied per step.
@@ -36,6 +46,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..common.mesh import placement
 from ..kernels import (attention_dispatch, flash_attention,
                        paged_flash_decode)
 from ..quant.transforms import (QuantizedTensor, _leaves, dequant_matmul,
@@ -148,15 +159,38 @@ def _proj(eq, h, w, b):
     return torch.einsum(eq, h, dequantize(w, h.dtype)) + _bias(b, h.dtype)
 
 
+def _tp_sum(x, w):
+    """``x``, a product contracted over ``w``'s dim 0, summed over the
+    mesh axis that splits that dim (the Megatron row-parallel ``wo`` and
+    ``w2``: one all-reduce of this rank's partial product); ``x`` itself
+    for a whole weight."""
+    pl = placement(w.q if isinstance(w, QuantizedTensor) else w)
+    if pl is None or not pl[1] or pl[1][0] is None:
+        return x
+    from ..parallel.collectives import all_reduce_raw
+    return all_reduce_raw(x, pl[1][0], pl[0])
+
+
+def _attn_out(eq, ctx, a):
+    """The output projection; a head-parallel ``wo``'s partial products
+    are summed over the mesh before ``bo`` enters, once."""
+    out = torch.einsum(eq, ctx, dequantize(a["wo"], ctx.dtype))
+    return _tp_sum(out, a["wo"]) + _bias(a["bo"], ctx.dtype)
+
+
 def _mlp_ln(layer, h, attn_out, c: CausalLMConfig):
-    """The post-attention half of a block: residual+LN, MLP, residual+LN."""
+    """The post-attention half of a block: residual+LN, MLP, residual+LN.
+    Under the Megatron layout ``w1``/``b1`` hold this rank's columns of
+    F and ``w2`` its rows; the partial sums meet in one all-reduce
+    before ``b2``."""
     h = _ln(h + attn_out, layer["ln1_g"], layer["ln1_b"], c.layer_norm_eps)
     mlp = layer["mlp"]
     # dequant_matmul == matmul for plain weights, and the int8-at-rest
     # contraction (the fused kernel on CUDA) for a quantized twin
     inter = F.gelu(dequant_matmul(h, mlp["w1"]) + mlp["b1"],
                    approximate="tanh")
-    mlp_out = dequant_matmul(inter, mlp["w2"]) + mlp["b2"]
+    mlp_out = _tp_sum(dequant_matmul(inter, mlp["w2"]), mlp["w2"]) \
+        + mlp["b2"]
     return _ln(h + mlp_out, layer["ln2_g"], layer["ln2_b"], c.layer_norm_eps)
 
 
@@ -194,7 +228,7 @@ def _causal_block(layer, h, c: CausalLMConfig, use_flash: bool = False):
         logits = torch.where(causal[None, None], logits, _BIG_NEG)
         probs = torch.softmax(logits, dim=-1).to(h.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    out = _proj("bqhd,hde->bqe", ctx, a["wo"], a["bo"])
+    out = _attn_out("bqhd,hde->bqe", ctx, a)
     return _mlp_ln(layer, h, out, c), (k, v)
 
 
@@ -262,7 +296,7 @@ def decode(params, cache, tokens, lengths, config: CausalLMConfig):
         att = torch.where(key_mask[:, None, :], att, _BIG_NEG)
         probs = torch.softmax(att, dim=-1).to(h.dtype)
         ctx = torch.einsum("shc,schd->shd", probs, cache_v[:, i])
-        out = _proj("shd,hde->se", ctx, a["wo"], a["bo"])
+        out = _attn_out("shd,hde->se", ctx, a)
         h = _mlp_ln(layer, h, out, c)
     return cache, _lm_logits(params, h)
 
@@ -332,6 +366,7 @@ def paged_prefill(params, cache, input_ids, tables, lengths,
     scale = c.head_dim ** -0.5
     gather = tables.long()
     cache_k, cache_v = cache["k"], cache["v"]
+    H = cache_k.shape[3]               # this rank's heads under a mesh
     for i, layer in enumerate(params["layers"]):
         a = layer["attn"]
         q = _proj("bte,ehd->bthd", h, a["wq"], a["bq"])
@@ -342,13 +377,13 @@ def paged_prefill(params, cache, input_ids, tables, lengths,
         cache_v[blk, i, off] = v.to(cache_v.dtype)
         # gather each row's blocks into its contiguous [C] key view: the
         # cached prefix rows plus the tail rows written just above
-        ks = cache_k[:, i][gather].reshape(B, C, c.num_heads, c.head_dim)
-        vs = cache_v[:, i][gather].reshape(B, C, c.num_heads, c.head_dim)
+        ks = cache_k[:, i][gather].reshape(B, C, H, c.head_dim)
+        vs = cache_v[:, i][gather].reshape(B, C, H, c.head_dim)
         att = torch.einsum("bqhd,bchd->bhqc", q.float(), ks.float()) * scale
         att = torch.where(key_mask[:, None], att, _BIG_NEG)
         probs = torch.softmax(att, dim=-1).to(h.dtype)
         ctx = torch.einsum("bhqc,bchd->bqhd", probs, vs)
-        out = _proj("bqhd,hde->bqe", ctx, a["wo"], a["bo"])
+        out = _attn_out("bqhd,hde->bqe", ctx, a)
         h = _mlp_ln(layer, h, out, c)
     last = h[torch.arange(B, device=dev),
              torch.clamp(lengths - start_pos - 1, 0, T - 1)]
@@ -391,7 +426,7 @@ def paged_decode(params, cache, tables, tokens, lengths,
         # takes its strides, so the pool is never copied
         ctx = paged_flash_decode(q.contiguous(), cache_k[:, i],
                                  cache_v[:, i], tables, lengths, scale=scale)
-        out = _proj("sqhd,hde->sqe", ctx, a["wo"], a["bo"])
+        out = _attn_out("sqhd,hde->sqe", ctx, a)
         h = _mlp_ln(layer, h, out, c)
     return cache, _lm_logits(params, h)
 

@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/parallel/collectives.py``: the same
 names (``all_reduce_sum``, ``all_reduce_mean``, ``all_gather``,
 ``reduce_scatter``, ``ppermute_next``, ``all_to_all``, ``axis_index``,
 ``axis_size``, ``broadcast_from``), each over the process group of one
-mesh axis (or a tuple of axes, the first major). The mesh is the
+mesh axis (or a tuple of axes, the first major); ``broadcast_raw`` is
+the plain broadcast the sharded serving engines send their steps with. The mesh is the
 ``mesh=`` argument or the innermost ``with mesh:``; outside both they
 raise, as the JAX ones do outside ``shard_map``.
 
@@ -104,6 +105,19 @@ def all_reduce_raw(x, axis, mesh=None):
     t, info = _stage(x, g)
     _dist().all_reduce(t, group=g)
     _count("all_reduce", g)
+    return _unstage(t, info)
+
+
+def broadcast_raw(x, axis, mesh=None, root: int = 0):
+    """Axis index ``root``'s ``x`` on every member of ``axis`` (one
+    ``broadcast``); every member passes a tensor of the same shape and
+    dtype, the others' values are not read."""
+    mesh, g, ranks = _resolve(axis, mesh)
+    if g is None:
+        return x
+    t, info = _stage(x, g)
+    _dist().broadcast(t, src=ranks[root], group=g)
+    _count("broadcast", g)
     return _unstage(t, info)
 
 

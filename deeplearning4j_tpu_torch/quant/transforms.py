@@ -135,6 +135,48 @@ class QuantizedTensor:
     def mode(self) -> str:
         return "fp8" if "float8" in str(self.q.dtype) else "int8"
 
+    # -- under a partition spec (common/mesh.py's place / gather) --------
+    def _scale_spec(self, spec):
+        """``spec`` for the scale: a dim on which the keepdims scale has
+        size 1 (a reduction axis) stays whole."""
+        from ..common.mesh import P
+        return P(*(e if d < self.scale.dim() and self.scale.shape[d] != 1
+                   else None for d, e in enumerate(spec)))
+
+    def placed(self, mesh, spec):
+        """This rank's shard under ``spec`` (with the divisibility
+        fallback): ``q`` sliced on the sharded dims, the scale with it
+        where it has that dim (:meth:`_scale_spec`). Each part is
+        contiguous, so the dequant-matmul kernel reads the slice as it
+        is."""
+        from ..common.mesh import place, placement, tag, valid_spec
+        spec = valid_spec(mesh, spec, self.q.shape)
+        q = place(self.q, mesh, spec)
+        out = QuantizedTensor(q, place(self.scale, mesh,
+                                       self._scale_spec(spec)),
+                              self.orig_dtype)
+        if out.q is not q:               # an fp8 weight laid out anew
+            tag(out.q, *placement(q))
+        return out
+
+    def sliced(self, mesh, spec):
+        """This rank's views of a whole (global) quantized weight under
+        ``spec``, tagged as :meth:`placed` tags its copies."""
+        from ..common.mesh import local_slice, tag, valid_spec
+        spec = valid_spec(mesh, spec, self.q.shape)
+        sspec = self._scale_spec(spec)
+        q = tag(local_slice(self.q, mesh, spec), mesh, spec, self.q.shape)
+        scale = tag(local_slice(self.scale, mesh, sspec), mesh, sspec,
+                    self.scale.shape)
+        return QuantizedTensor(q, scale, self.orig_dtype)
+
+    def gathered(self):
+        """The global weight of a placed one (every rank of its mesh
+        calls it)."""
+        from ..common.mesh import gather
+        return QuantizedTensor(gather(self.q), gather(self.scale),
+                               self.orig_dtype)
+
     def __repr__(self):
         return (f"QuantizedTensor(shape={tuple(self.shape)}, "
                 f"mode={self.mode}, scale={tuple(self.scale.shape)})")

@@ -38,8 +38,20 @@ PyTorch on the model's device.
   noise from a ``torch.Generator`` seeded from ``(seed, step)``.
 
 The KV pools are written in place by the model's step functions (the JAX
-package donates them to its jitted steps instead). Tensor-parallel decode
-(``mesh=``/``param_spec=``) waits for ``ROADMAP.md`` queue 1 item 10b.
+package donates them to its jitted steps instead).
+
+- **tensor-parallel decode** — with ``mesh=`` (``serving_mesh()``) every
+  rank of the mesh builds the engine with the same arguments and the same
+  global weights. The params (and the draft's) take the Megatron layout
+  (``runtime/sharded.py``; an explicit ``param_spec`` stores them as given
+  and gathers them at each step), the paged pool keeps this rank's heads
+  where they divide over ``model``, and each layer's ``wo`` and ``w2``
+  products meet in one all-reduce. The mesh's first rank leads: it takes
+  the requests, schedules and samples, and each of its prefill, decode
+  and verify steps (warmup's too) goes to the followers as a record
+  first, whose channel thread runs the same model calls on their shards.
+  ``generate`` on a follower raises; ``close()`` on the leader ends the
+  followers' engine (``join()`` on a follower waits for it).
 The engine carries the JAX package's registry-compat surface (``max_batch``,
 ``manifest_path``, ``observed_entries()``) and the dispatch instant the
 serving watchdog reads (``_dispatch_started_at``).
@@ -75,6 +87,7 @@ from ..common.environment import environment
 from ..common.locks import ordered_condition, ordered_lock, ordered_rlock
 from ..common.metrics import exponential_buckets, registry
 from ..common.tracing import current_context, record_disposition, tracer
+from . import sharded
 from .compile_cache import observe_compile
 from .inference import EngineClosedError, bucket_for, bucket_ladder
 
@@ -405,11 +418,6 @@ class DecodeEngine:
                  prefix_cache: Optional[bool] = None,
                  model_name: str = "default",
                  mesh=None, param_spec=None, device="cuda"):
-        if mesh is not None or param_spec is not None:
-            raise NotImplementedError(
-                "tensor-parallel decode (mesh=/param_spec=) is not ported "
-                "yet; it waits for ROADMAP.md queue 1 item 10b (sharded "
-                "serving)")
         if not is_generative_model(model):
             raise TypeError(
                 f"cannot decode a {type(model).__name__}: expected the "
@@ -468,6 +476,12 @@ class DecodeEngine:
         self._dcache = (self.draft.init_paged_kv_cache(
             self.kv_blocks + 1, self.block_size)
             if self._spec_enabled else None)
+        # tensor-parallel decode (module docstring); mesh=None: the
+        # single-device engine
+        self.mesh = mesh
+        self.param_spec = param_spec
+        if mesh is not None:
+            self._shard(mesh, param_spec)
         self._step = 0
         # per-slot host state (the loop thread owns it)
         S = self.slots
@@ -603,6 +617,76 @@ class DecodeEngine:
             "dl4j_kv_prefix_blocks",
             "KV-pool blocks currently held by the radix prefix cache",
             labels=("model",)).labels(model=self.model_name)
+        # last: a follower may replay the leader's steps from here on
+        self._link = sharded.StepLink.for_mesh(mesh, self._replay)
+
+    # -- the mesh ------------------------------------------------------------
+    def _shard(self, mesh, param_spec):
+        """Place the params, the draft's and both pools on this rank of
+        ``mesh`` (module docstring)."""
+        from ..common.mesh import shard_params, validate_mesh
+        validate_mesh(mesh)
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh lives on {mesh.device}, the engine "
+                             f"on {self.device}: pass device= to match")
+
+        def store(params):
+            return (sharded.place_causal_lm(mesh, params)
+                    if param_spec is None
+                    else shard_params(mesh, params, param_spec))
+        self._params = store(self._params)
+        self._cache = sharded.shard_kv_pool(mesh, self._cache)
+        if self._spec_enabled:
+            self._dparams = store(self._dparams)
+            self._dcache = sharded.shard_kv_pool(mesh, self._dcache)
+
+    def _step_params(self):
+        """(params, draft params) a step computes with; under an explicit
+        ``param_spec`` they are gathered here, on every rank."""
+        if self.mesh is None or self.param_spec is None:
+            return self._params, self._dparams
+        return (sharded.use_params(self.mesh, self._params,
+                                   self.param_spec),
+                sharded.use_params(self.mesh, self._dparams,
+                                   self.param_spec)
+                if self._spec_enabled else None)
+
+    def _on_mesh(self, kind, tensors, fn):
+        """``fn()``: on a sharded leader after the step's record, on the
+        mesh's channel thread."""
+        if self._link is None:
+            return fn()
+        return self._link.call(kind, tensors, fn)
+
+    def _replay(self, kind, t):
+        """(Follower) one of the leader's steps on this rank's shard: the
+        model calls, no sampling."""
+        with self._dispatch_lock, torch.no_grad():
+            params, dparams = self._step_params()
+            if kind == sharded.PREFILL:
+                ids, tables, lengths, starts = t
+                self.model.paged_prefill(params, self._cache, ids, tables,
+                                         lengths, starts)
+                if self._spec_enabled:
+                    self.draft.paged_prefill(dparams, self._dcache, ids,
+                                             tables, lengths, starts)
+            elif kind == sharded.DECODE:
+                tables, tokens, lengths = t
+                self.model.paged_decode(params, self._cache, tables,
+                                        tokens[:, None], lengths)
+            elif kind == sharded.SPEC:
+                self._spec(params, dparams, self._cache, self._dcache, *t)
+            else:
+                raise RuntimeError(f"unknown decode step record {kind}")
+            self._step += 1
+
+    def _is_follower(self) -> bool:
+        return self._link is not None and not self._link.is_leader
+
+    def join(self, timeout_s: Optional[float] = None) -> bool:
+        """(Follower) wait until the leader closed this engine; True once
+        it has."""
+        return self._link is None or self._link.done.wait(timeout_s)
 
     # -- steps ---------------------------------------------------------------
     def _build_steps(self):
@@ -702,17 +786,22 @@ class DecodeEngine:
                 args = (self._t(ids), self._t(tables), self._t(lengths),
                         self._t(starts), self._t(temps, torch.float32),
                         self._t(top_ks), self._seed, self._step)
-                if self._spec_enabled:
-                    cache, dcache, toks = self._prefill(
-                        self._params, self._dparams, self._cache,
-                        self._dcache, *args)
-                    self._dcache = dcache
-                else:
-                    cache, toks = self._prefill(self._params, self._cache,
-                                                *args)
-                self._cache = cache
+
+                def step():
+                    params, dparams = self._step_params()
+                    if self._spec_enabled:
+                        cache, dcache, toks = self._prefill(
+                            params, dparams, self._cache, self._dcache,
+                            *args)
+                        self._dcache = dcache
+                    else:
+                        cache, toks = self._prefill(params, self._cache,
+                                                    *args)
+                    self._cache = cache
+                    return toks.cpu().numpy()
+                toks = self._on_mesh(sharded.PREFILL, args[:4], step)
                 self._step += 1
-                return toks.cpu().numpy()
+                return toks
             finally:
                 self._dispatch_started_at = None
 
@@ -722,15 +811,19 @@ class DecodeEngine:
         with self._dispatch_lock, torch.no_grad():
             self._dispatch_started_at = time.monotonic()
             try:
-                cache, nxt = self._decode(
-                    self._params, self._cache, self._t(self._tables),
-                    self._t(self._tokens), self._t(self._lengths),
-                    self._t(active, torch.bool),
-                    self._t(self._temps, torch.float32),
-                    self._t(self._topks), self._seed, self._step)
-                self._cache = cache
+                args = (self._t(self._tables), self._t(self._tokens),
+                        self._t(self._lengths), self._t(active, torch.bool),
+                        self._t(self._temps, torch.float32),
+                        self._t(self._topks), self._seed, self._step)
+
+                def step():
+                    cache, nxt = self._decode(self._step_params()[0],
+                                              self._cache, *args)
+                    self._cache = cache
+                    return nxt.cpu().numpy()
+                nxt = self._on_mesh(sharded.DECODE, args[:3], step)
                 self._step += 1
-                return nxt.cpu().numpy()
+                return nxt
             finally:
                 self._dispatch_started_at = None
 
@@ -741,14 +834,19 @@ class DecodeEngine:
         with self._dispatch_lock, torch.no_grad():
             self._dispatch_started_at = time.monotonic()
             try:
-                cache, dcache, commit, n_commit = self._spec(
-                    self._params, self._dparams, self._cache, self._dcache,
-                    self._t(self._tables), self._t(self._tokens),
-                    self._t(self._lengths), self._t(active, torch.bool))
-                self._cache = cache
-                self._dcache = dcache
+                args = (self._t(self._tables), self._t(self._tokens),
+                        self._t(self._lengths), self._t(active, torch.bool))
+
+                def step():
+                    params, dparams = self._step_params()
+                    cache, dcache, commit, n_commit = self._spec(
+                        params, dparams, self._cache, self._dcache, *args)
+                    self._cache = cache
+                    self._dcache = dcache
+                    return commit.cpu().numpy(), n_commit.cpu().numpy()
+                out = self._on_mesh(sharded.SPEC, args, step)
                 self._step += 1
-                return commit.cpu().numpy(), n_commit.cpu().numpy()
+                return out
             finally:
                 self._dispatch_started_at = None
 
@@ -758,7 +856,10 @@ class DecodeEngine:
         (prompt bucket, batch rung) pair + the decode step (+ the
         speculative step). Idempotent. Warmup rows use the scratch block
         table (all zeros) so no live block is touched. Returns the prompt
-        buckets warmed."""
+        buckets warmed. On a follower of a sharded engine it runs
+        nothing: the leader's warmup steps reach it as records."""
+        if self._is_follower():
+            return list(self.ladder)
         with self._cv:
             if self._active_n > 0:
                 raise RuntimeError(
@@ -803,6 +904,11 @@ class DecodeEngine:
         any model work. ``on_token`` is called from the decode loop with
         each sampled token id. ``eos_token="default"`` uses the engine's
         EOS; ``None`` disables the stop."""
+        if self._is_follower():
+            raise RuntimeError(
+                "generate() on a follower rank of a sharded DecodeEngine: "
+                "requests go to the mesh's leader (rank "
+                f"{self._link.leader_rank})")
         ids = np.asarray(prompt, np.int32).reshape(-1)
         if ids.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -1552,7 +1658,10 @@ class DecodeEngine:
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Stop admitting, finish queued + in-flight generations, stop the
-        loop. Reversible via ``start()``."""
+        loop. Reversible via ``start()``. On a follower of a sharded
+        engine: :meth:`join`."""
+        if self._is_follower():
+            return self.join(timeout_s)
         deadline = time.monotonic() + timeout_s
         with self._cv:
             self._draining = True
@@ -1573,8 +1682,13 @@ class DecodeEngine:
         return drained
 
     def close(self, timeout_s: float = 30.0) -> bool:
+        """Permanent :meth:`drain`; a sharded leader then ends the
+        followers' engine."""
         self._closed = True
-        return self.drain(timeout_s)
+        drained = self.drain(timeout_s)
+        if self._link is not None:
+            self._link.close()
+        return drained
 
     def stop(self):
         with self._cv:
@@ -1654,6 +1768,7 @@ class DecodeEngine:
                 "closed": self._closed,
                 "kernels": dispatch_snapshot(),
             }
+            sharded.report(snap, self.mesh, self.param_spec)
         with self._stats_lock:
             snap["speculative"]["proposed"] = self._stats["spec_proposed"]
             snap["speculative"]["accepted"] = self._stats["spec_accepted"]
@@ -1683,4 +1798,4 @@ class DecodeEngine:
         if s["spec_proposed"]:
             s["spec_acceptance"] = round(
                 s["spec_accepted"] / s["spec_proposed"], 4)
-        return s
+        return sharded.report(s, self.mesh, self.param_spec)

@@ -27,9 +27,18 @@ environment's census, the shapes CUDA-graph capture will replay
 through ``maybe_pad_tree``.
 
 A ``MultiLayerNetwork``, a ``ComputationGraph`` or a ``SameDiff`` graph
-(with ``outputs=[...]``, a placeholder dict a request) is served;
-``mesh=``/``param_spec=`` raise naming item 10b (sharded serving),
-before anything is allocated.
+(with ``outputs=[...]``, a placeholder dict a request) is served.
+
+**Sharded predict** (``mesh=``, ``param_spec=``): every rank of the mesh
+builds the engine over the same model. The adapter stores the params
+under ``param_spec`` (by default ``naive_param_spec`` over ``model``)
+and gathers them at each dispatch; a padded bucket whose rows divide the
+``data`` size is split over ``data`` and its outputs all-gathered, any
+other bucket runs whole on every rank. The mesh's first rank leads: each
+of its dispatches (``infer``, ``submit``, ``warmup``) goes to the other
+ranks as a record first, whose channel thread runs the same dispatch
+(``runtime/sharded.py``); ``close()`` on the leader ends the followers'
+engine. ``infer``/``submit`` on a follower raise.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from ..common.locks import ordered_condition, ordered_lock
 from ..common.metrics import linear_buckets, registry
 from ..common.tracing import (current_context, record_disposition, span,
                               tracer, use_context)
+from . import sharded
 
 log = logging.getLogger(__name__)
 
@@ -246,7 +256,27 @@ def _model_device(model) -> torch.device:
     return dev
 
 
-class _MultiLayerAdapter:
+class _Params:
+    """The params an adapter runs with: the model's own, or this rank's
+    shards under a spec (:meth:`shard`), gathered at each use."""
+
+    placed = None
+
+    def own(self):
+        return self.model._params
+
+    def shard(self, mesh, spec):
+        from ..common.mesh import shard_params
+        self.placed = shard_params(mesh, self.own(), spec)
+
+    def live(self):
+        if self.placed is None:
+            return self.own()
+        from ..common.mesh import gather_tree
+        return gather_tree(self.placed)
+
+
+class _MultiLayerAdapter(_Params):
     """MultiLayerNetwork: one input array -> one output NDArray."""
 
     def __init__(self, model):
@@ -256,14 +286,14 @@ class _MultiLayerAdapter:
         return [_unwrap(request)]
 
     def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [self.model._output_fn(False)(self.model._params, inputs[0])]
+        return [self.model._output_fn(False)(self.live(), inputs[0])]
 
     def package(self, outputs: List[torch.Tensor]):
         from ..ndarray.ndarray import NDArray
         return NDArray(outputs[0])
 
 
-class _GraphAdapter:
+class _GraphAdapter(_Params):
     """ComputationGraph: an array, a list (in ``conf.inputs`` order) or a
     name -> array dict -> a list of NDArrays ordered as
     ``conf.outputs``."""
@@ -284,14 +314,14 @@ class _GraphAdapter:
 
     def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
         ind = {n: x for n, x in zip(self.input_names, inputs)}
-        return list(self.model._output_fn(False)(self.model._params, ind))
+        return list(self.model._output_fn(False)(self.live(), ind))
 
     def package(self, outputs: List[torch.Tensor]):
         from ..ndarray.ndarray import NDArray
         return [NDArray(o) for o in outputs]
 
 
-class _SameDiffAdapter:
+class _SameDiffAdapter(_Params):
     """SameDiff: a placeholder dict -> {name: NDArray} for ``outputs``.
     The graph's own callable (``make_function``) moves the placeholders
     to its device and runs under ``no_grad`` / ``full_f32()``."""
@@ -321,18 +351,16 @@ class _SameDiffAdapter:
         if any(node.needs_key for node in sd._ops.values()):
             fn = sd.make_function(self.out_names, tuple(self.ph_names),
                                   with_rng=True)
-            return list(fn(sd._arrays, ph, sd._rng_call_key()))
+            return list(fn(self.live(), ph, sd._rng_call_key()))
         fn = sd.make_function(self.out_names, tuple(self.ph_names))
-        return list(fn(sd._arrays, ph))
+        return list(fn(self.live(), ph))
 
     def package(self, outputs: List[torch.Tensor]):
         from ..ndarray.ndarray import NDArray
         return {n: NDArray(o) for n, o in zip(self.out_names, outputs)}
 
-    def shard(self, mesh, spec):
-        raise NotImplementedError(
-            "sharded SameDiff serving is not ported yet; it waits for "
-            "ROADMAP.md queue 1 item 10b")
+    def own(self):
+        return self.model._arrays
 
 
 def _make_adapter(model, outputs):
@@ -443,15 +471,18 @@ class InferenceEngine:
                  outputs: Optional[Sequence[Any]] = None,
                  manifest_path: Optional[str] = None,
                  mesh=None, param_spec=None):
-        if mesh is not None or param_spec is not None:
-            raise NotImplementedError(
-                "InferenceEngine(mesh=, param_spec=): sharded serving is "
-                "not ported yet; it waits for ROADMAP.md queue 1 item 10b")
         self.model = model
         self._adapter = _make_adapter(model, outputs)
         self.device = _model_device(model)
-        self.mesh = None
-        self.param_spec = None
+        # sharded predict (module docstring); mesh=None: one process
+        self.mesh = mesh
+        self.param_spec = param_spec
+        self._data_size = 1
+        if mesh is not None:
+            from ..common.mesh import DATA, validate_mesh
+            validate_mesh(mesh, required=(DATA,))
+            self._data_size = int(mesh.shape[DATA])
+            self._adapter.shard(mesh, param_spec)
         self.max_batch = int(max_batch if max_batch is not None
                              else environment().inference_max_batch())
         self.ladder = bucket_ladder(self.max_batch, buckets)
@@ -525,6 +556,54 @@ class InferenceEngine:
             "dl4j_inference_isolated_retries_total",
             "Riders of a failed coalesced dispatch re-dispatched "
             "individually, by outcome", labels=("outcome",))
+        # last: a follower may replay the leader's dispatches from here on
+        self._link = sharded.StepLink.for_mesh(mesh, self._replay)
+
+    # -- the mesh ----------------------------------------------------------
+    def _is_follower(self) -> bool:
+        return self._link is not None and not self._link.is_leader
+
+    def _run(self, padded: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The adapter over a padded batch: as it is without a mesh, else
+        on this rank's part of the mesh, after the record on a leader."""
+        if self.mesh is None:
+            return self._adapter.run(padded)
+        if self._link is None:
+            return self._sharded_run(padded)
+        names = json.dumps(getattr(self._adapter, "ph_names", None) or [])
+        record = [torch.tensor(list(names.encode()), dtype=torch.uint8)]
+        return self._link.call(sharded.PREDICT, record + list(padded),
+                               lambda: self._sharded_run(padded))
+
+    def _sharded_run(self, padded: List[torch.Tensor]) -> List[torch.Tensor]:
+        """One dispatch on this rank: the rows over ``data`` where the
+        bucket divides, the outputs all-gathered; else the whole bucket."""
+        from ..common.mesh import DATA, P, local_slice
+        from ..parallel.collectives import all_gather_raw
+        split = self._data_size > 1 and \
+            padded[0].shape[0] % self._data_size == 0
+        if split:
+            padded = [local_slice(x, self.mesh, P(DATA)) for x in padded]
+        outs = self._adapter.run(padded)
+        if split:
+            outs = [all_gather_raw(o, DATA, self.mesh, dim=0) for o in outs]
+        return outs
+
+    def _replay(self, kind, t):
+        """(Follower) one of the leader's dispatches: its record holds the
+        placeholder names a SameDiff graph needs (UTF-8 JSON), then the
+        padded batch."""
+        if kind != sharded.PREDICT:
+            raise RuntimeError(f"unknown predict step record {kind}")
+        names = json.loads(bytes(t[0].cpu().tolist()).decode())
+        if names:
+            self._adapter.ph_names = names
+        self._sharded_run(t[1:])
+
+    def join(self, timeout_s: Optional[float] = None) -> bool:
+        """(Follower) wait until the leader closed this engine; True once
+        it has."""
+        return self._link is None or self._link.done.wait(timeout_s)
 
     def _on_device(self):
         """Make the model's card current on the calling thread (a new
@@ -551,7 +630,7 @@ class InferenceEngine:
                 t0 = time.perf_counter()
                 with span("inference/dispatch", bucket=b, rows=n,
                           **(span_attrs or {})):
-                    outs = self._adapter.run(padded)
+                    outs = self._run(padded)
                 lat = self._m_latency.get(b)
                 if lat is not None:
                     # tail observations carry the request's trace_id as an
@@ -560,7 +639,7 @@ class InferenceEngine:
                                 exemplar=ctx.trace_id if ctx else None)
                     self._m_padding[b].observe((b - n) / b)
             else:
-                outs = self._adapter.run(padded)
+                outs = self._run(padded)
         finally:
             self._dispatch_started_at = None
         with self._lock:
@@ -604,8 +683,16 @@ class InferenceEngine:
                    "dead (worker restart budget exhausted)")
                 + "; it no longer accepts requests")
 
+    def _refuse_on_follower(self):
+        if self._is_follower():
+            raise RuntimeError(
+                "a follower rank of a sharded InferenceEngine takes no "
+                "requests: they go to the mesh's leader (rank "
+                f"{self._link.leader_rank})")
+
     def infer(self, request):
         """Synchronous bucketed inference for one request."""
+        self._refuse_on_follower()
         with self._cv:
             self._refuse_if_closed()
             self._inflight += 1
@@ -725,7 +812,11 @@ class InferenceEngine:
         wait for it. The buckets run one after another: the JAX package
         compiles them on a pool of ``workers`` threads, but an eager
         dispatch compiles nothing to overlap, so the port takes
-        ``workers`` for the same signature and ignores it."""
+        ``workers`` for the same signature and ignores it. On a follower
+        of a sharded engine it runs nothing: the leader's warmup
+        dispatches reach it as records."""
+        if self._is_follower():
+            return []
         jobs: List[Tuple[int, Tuple]] = []  # (bucket, input-sig)
         if example is not None:
             sig = self._input_sig(self._adapter.inputs_of(example))
@@ -794,6 +885,7 @@ class InferenceEngine:
         is still queued when the budget expires, the micro-batcher
         resolves its Future with ``TimeoutError`` instead of padding it
         into a batch slot nobody is waiting for."""
+        self._refuse_on_follower()
         inputs = self._adapter.inputs_of(request)
         n = _leading_dim(inputs)
         if n is None:
@@ -923,7 +1015,10 @@ class InferenceEngine:
         micro-batcher, wait for in-flight infer() calls, and stop the
         batcher thread. Idempotent; reversible via start(). Late
         submit()/infer() calls raise ``EngineClosedError``. Returns True
-        when fully drained within ``timeout_s``."""
+        when fully drained within ``timeout_s``. On a follower of a
+        sharded engine: :meth:`join`."""
+        if self._is_follower():
+            return self.join(timeout_s)
         deadline = time.monotonic() + timeout_s
         with self._cv:
             self._draining = True
@@ -953,7 +1048,10 @@ class InferenceEngine:
         """Permanent drain: like drain(), but the engine can never be
         restarted. Idempotent. Returns True when fully drained."""
         self._closed = True
-        return self.drain(timeout_s)
+        drained = self.drain(timeout_s)
+        if self._link is not None:
+            self._link.close()     # a leader ends the followers' engine
+        return drained
 
     def __enter__(self):
         return self.start()
@@ -1137,4 +1235,4 @@ class InferenceEngine:
         s["padding_overhead"] = padded / max(real + padded, 1)
         s["compile_count"] = environment().compile_count()
         s["buckets"] = list(self.ladder)
-        return s
+        return sharded.report(s, self.mesh, self.param_spec)

@@ -181,6 +181,11 @@ class AdmissionController:
         est = backlog * self._ewma_service_s / max(self.max_concurrent, 1)
         return min(max(est, 0.05), 30.0)
 
+    def ewma_service_s(self) -> float:
+        """The service-time EWMA behind the retry-after estimate."""
+        with self._cv:
+            return self._ewma_service_s
+
     # -- lifecycle --------------------------------------------------------
     def close(self):
         """Stop admitting (graceful drain): new arrivals and current
@@ -189,6 +194,12 @@ class AdmissionController:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+        return self
+
+    def reopen(self):
+        """Admit again after :meth:`close`."""
+        with self._cv:
+            self._closed = False
         return self
 
     # -- admission --------------------------------------------------------

@@ -1,8 +1,17 @@
-"""Serving fleet: scale-out over replicas.
+"""Sharded serving fleet: scale-up over a mesh, scale-out over replicas.
 
-Counterpart of the JAX package's ``serving/fleet/``. Its scale-up half
-(a version sharded over a device mesh) waits for ``ROADMAP.md`` queue 1
-item 10b; ``deploy(mesh=...)`` raises until then.
+Counterpart of the JAX package's ``serving/fleet/``. The two halves of
+serving beyond one device:
+
+**Scale-up** (tensor parallelism) lives in the engines, not here:
+``registry.deploy(..., mesh=serving_mesh(), param_spec=...)`` shards a
+version's params over the mesh's ``model`` axis (batches over ``data``,
+a generative model's paged KV pool over its heads). The mesh's rank 0
+leads: it takes the requests and sends every step to the other ranks,
+which run it on their shards (``runtime/sharded.py``). See
+:mod:`deeplearning4j_tpu_torch.common.mesh` (``serving_mesh``,
+``param_shardings``) and the ``mesh``/``param_spec`` arguments of
+``InferenceEngine`` / ``DecodeEngine`` / ``ModelRegistry.deploy``.
 
 **Scale-out** (replica routing) is this package:
 :class:`~.router.FleetRouter` fronts N ``ModelServer`` replicas by URL

@@ -30,9 +30,9 @@ Each dispatch is accounted against the version's circuit breaker
 (``resilience.CircuitBreaker``), with the JAX package's env-gated
 auto-rollback.
 
-What waits for other slices, and is refused before anything is allocated
-or registered: ``mesh=`` / ``param_spec=`` (sharded deploys are
-``ROADMAP.md`` queue 1 item 10b).
+A sharded deploy (``mesh=``, ``param_spec=``) is made on every rank of
+the mesh with the same arguments; the mesh's first rank serves it, the
+others follow its steps (``runtime/sharded.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from ..common.environment import environment
 from ..common.locks import ordered_rlock
+from ..common.mesh import mesh_shape, spec_desc
 from ..common.metrics import registry as metrics_registry
 from ..common.tracing import span
 from ..quant.calibrate import QuantSpec, calibrate as quant_calibrate
@@ -74,7 +75,8 @@ class ModelVersion:
     """One deployed (name, version) pair and its serving engine."""
 
     __slots__ = ("name", "version", "engine", "state", "deployed_at",
-                 "precision", "param_bytes", "divergence")
+                 "precision", "param_bytes", "divergence", "mesh_shape",
+                 "param_spec")
 
     def __init__(self, name: str, version: str, engine):
         self.name = name
@@ -88,6 +90,10 @@ class ModelVersion:
         self.precision: Optional[str] = None
         self.param_bytes: Optional[int] = None
         self.divergence: Optional[Dict[str, float]] = None
+        #: sharded deploys only: {"data": d, "model": m} and the spec's
+        #: description ("auto(model)", "P(None, 'model')", ...)
+        self.mesh_shape: Optional[Dict[str, int]] = None
+        self.param_spec: Optional[str] = None
 
     def describe(self) -> Dict[str, Any]:
         d = {"version": self.version, "state": self.state,
@@ -97,6 +103,9 @@ class ModelVersion:
              "generative": isinstance(self.engine, DecodeEngine),
              "precision": self.precision,
              "param_bytes": self.param_bytes}
+        if self.mesh_shape is not None:
+            d["mesh_shape"] = dict(self.mesh_shape)
+            d["param_spec"] = self.param_spec
         if self.divergence is not None:
             d["quant_divergence"] = self.divergence
         return d
@@ -242,8 +251,19 @@ class ModelRegistry:
 
         A ``SameDiff`` graph deploys behind an ``InferenceEngine`` with
         ``outputs=`` (the variable names to serve); its requests are
-        placeholder dicts. ``mesh``/``param_spec`` are refused naming
-        ``ROADMAP.md`` queue 1 item 10b."""
+        placeholder dicts.
+
+        ``mesh`` deploys the version *sharded* over a mesh built with
+        :func:`~deeplearning4j_tpu_torch.common.mesh.serving_mesh`,
+        after quantization: a generative model's params take the
+        Megatron layout over ``model`` (``param_spec=None``) or are
+        stored under ``param_spec`` (a single ``P`` or a tree of them)
+        and gathered at use, its paged KV pool splits its heads over
+        ``model``; a predict model's params are stored per
+        ``param_spec`` (None: the last dim that divides over ``model``)
+        and gathered at use, its batches split over ``data``. Every rank
+        of the mesh deploys with the same arguments; the first serves,
+        the others follow (``runtime/sharded.py``)."""
         name, version = str(name), str(version)
         with self._lock:
             if self._draining:
@@ -255,13 +275,6 @@ class ModelRegistry:
                         "deployed (versions are immutable; bump the "
                         "version)")
             outgoing = self._current.get(name)
-        # sharded deploys wait for ROADMAP.md queue 1 item 10b: refused
-        # before anything is allocated
-        if mesh is not None or param_spec is not None:
-            raise NotImplementedError(
-                "sharded deploys (mesh=/param_spec=) are not ported yet; "
-                "they wait for ROADMAP.md queue 1 item 10b (sharded "
-                "serving)")
         generative = is_generative_model(model)
         if not generative:
             _make_adapter(model, outputs)  # an unservable model raises
@@ -306,14 +319,19 @@ class ModelRegistry:
                                   draft_model=decode_draft_model,
                                   spec_k=decode_spec_k,
                                   prefix_cache=decode_prefix_cache,
-                                  model_name=name, device=device)
+                                  model_name=name, device=device,
+                                  mesh=mesh, param_spec=param_spec)
         else:
             engine = InferenceEngine(model, max_batch=max_batch,
                                      buckets=buckets,
                                      max_delay_ms=max_delay_ms,
                                      outputs=outputs,
-                                     manifest_path=self.manifest_path(name))
+                                     manifest_path=self.manifest_path(name),
+                                     mesh=mesh, param_spec=param_spec)
         mv = ModelVersion(name, version, engine)
+        if mesh is not None:
+            mv.mesh_shape = mesh_shape(mesh)
+            mv.param_spec = spec_desc(param_spec)
         mv.precision = precision_of_model(model)
         mv.param_bytes = param_bytes_of(model)
         if warm:

@@ -223,6 +223,11 @@ class HealthRegistry:
         with self._lock:
             return dict(self._unhealthy)
 
+    def reset(self):
+        """Forget every unhealthy mark."""
+        with self._lock:
+            self._unhealthy.clear()
+
 
 _HEALTH: Optional[HealthRegistry] = None
 _HEALTH_LOCK = ordered_lock("resilience.health_singleton")

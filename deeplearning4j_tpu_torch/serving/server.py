@@ -144,6 +144,13 @@ class RequestRing:
     def records(self) -> List[dict]:
         return list(self._records)
 
+    def find(self, trace_id: str) -> Optional[dict]:
+        """The newest record of ``trace_id``, or None."""
+        for rec in reversed(self._records):
+            if rec.get("trace_id") == trace_id:
+                return rec
+        return None
+
     def __len__(self) -> int:
         return len(self._records)
 

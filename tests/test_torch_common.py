@@ -13,6 +13,7 @@ standard errors).
 """
 import importlib
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -458,3 +459,159 @@ def test_native_random_shapes_dtypes_bounds_and_moments():
     d = r.next_double(())
     assert d.shape == () and 0.0 <= float(d) < 1.0
     assert np.isfinite(r.next_gaussian((3, 2)).numpy()).all()
+
+
+# -- the typed setters and device reports (queue 3, fault 1) -------------------
+
+#: (setter, property it writes, reader, a value, a value that fails)
+SETTERS = [
+    ("set_decode_slots", "decode_slots", "decode_slots", 3, "three"),
+    ("set_decode_max_ctx", "decode_max_ctx", "decode_max_ctx", 96, "x"),
+    ("set_decode_max_tokens", "decode_max_tokens", "decode_max_tokens", 17,
+     None),
+    ("set_kv_block_size", "kv_block_size", "kv_block_size", 8, "8.5"),
+    ("set_prefix_cache", "prefix_cache", "prefix_cache_enabled", False,
+     None),
+    ("set_spec_draft_k", "spec_draft_k", "spec_draft_k", 2, []),
+    ("set_quant_max_divergence", "quant_max_divergence",
+     "quant_max_divergence", 0.5, "lots"),
+    ("set_training_remat", "training_remat", "training_remat", "layer",
+     None),
+    ("set_training_grad_accum", "training_grad_accum",
+     "training_grad_accum", 4, "x"),
+    ("set_training_zero1", "training_zero1", "training_zero1", True, None),
+    ("set_auto_rollback", "auto_rollback", "auto_rollback", True, None),
+    ("set_cache_dir", "cache_dir", "cache_dir", "~/dl4j-cache", None),
+    ("set_remote_cache", "remote_cache", "remote_cache", None, None),
+    ("set_cache_tier", "cache_tier", "cache_tier", "tiered", None),
+    ("set_flash_min_seq", "flash_min_seq", "flash_min_seq", 64, "x"),
+    ("set_paged_kernel", "paged_kernel", "paged_kernel", "off", None),
+    ("set_fused_dequant", "fused_dequant", "fused_dequant", None, None),
+    ("set_metrics_enabled", "metrics", "metrics_enabled", False, None),
+]
+
+
+@pytest.mark.parametrize("setter,prop,reader,value,bad", SETTERS,
+                         ids=[s[0] for s in SETTERS])
+def test_typed_setter_matches_jax(setter, prop, reader, value, bad,
+                                  monkeypatch):
+    """Each setter writes the JAX package's property with its conversion,
+    its reader returns what the JAX reader returns, and a value the
+    conversion refuses raises the same error on both sides."""
+    for e in _envs(tenv._PROPS[prop][0]):
+        monkeypatch.delenv(e, raising=False)
+    j, t = jenv.Environment(), tenv.Environment()
+    try:
+        assert getattr(t, setter)(value) is t
+        getattr(j, setter)(value)
+        assert t.property_override(prop) == j.property_override(prop)
+        assert getattr(t, reader)() == getattr(j, reader)()
+    finally:
+        if setter == "set_metrics_enabled":
+            t.set_metrics_enabled(True)
+            j.set_metrics_enabled(True)
+    if bad is not None:
+        with pytest.raises(Exception) as te:
+            getattr(t, setter)(bad)
+        with pytest.raises(Exception) as je:
+            getattr(j, setter)(bad)
+        assert te.type is je.type
+        assert t.property_override(prop) == j.property_override(prop)
+
+
+def test_device_reports_are_the_ports_own():
+    """``backend`` and ``memory_stats`` agree with JAX's on a CPU-only
+    host; ``num_devices`` counts torch's cards (1 for the CPU), not the
+    JAX package's virtual devices."""
+    j, t = jenv.Environment(), tenv.Environment()
+    assert t.backend() == j.backend() == "cpu"
+    assert t.memory_stats() == j.memory_stats() == {}
+    assert t.num_devices() == 1
+
+
+@pytest.mark.parametrize("setter,value", [
+    ("set_flash_min_seq", 1 << 30), ("set_paged_kernel", "off"),
+    ("set_fused_dequant", "off")])
+def test_tpu_switch_changes_no_kernel(setter, value):
+    """The three TPU switches are stored and read back, and change
+    nothing: no kernel module reads them (so no CUDA tensor's route
+    depends on them) and a CPU call's output and recorded route stay
+    the same."""
+    import inspect
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.quant import transforms as qt
+    # the package's functions shadow their modules' names
+    kfa = importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.flash_attention")
+    kpd = importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.paged_flash_decode")
+    prop = setter[len("set_"):]
+    reads = re.compile(rf"['\"]{prop}['\"]|\.{prop}\(")
+    for mod in (K, kfa, kpd, qt):
+        assert not reads.search(inspect.getsource(mod)), mod.__name__
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 8, 2, 16, generator=g)
+    pool = torch.randn(4, 4, 2, 16, generator=g)
+    tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    lengths = torch.tensor([5, 2], dtype=torch.int32)
+    w = qt.quantize_tensor(torch.randn(16, 8, generator=g))
+
+    def run():
+        outs = (kfa.flash_attention(q, q, q, causal=True),
+                kpd.paged_flash_decode(q[:, :1].contiguous(), pool, pool,
+                                       tables, lengths),
+                qt.dequant_matmul(q[0, :, 0], w))
+        return outs, K.dispatch_snapshot()
+    env = tenv.environment()
+    saved = env.property_override(prop)
+    before = run()
+    try:
+        getattr(env, setter)(value)
+        assert env.property_override(prop) == str(value)
+        after = run()
+    finally:
+        if saved is None:
+            env.clear_property(prop)
+        else:
+            env.set_property(prop, saved)
+    for a, b in zip(before[0], after[0]):
+        assert torch.equal(a, b)
+    assert before[1] == after[1]
+
+
+def test_serving_methods_match_jax():
+    """``RequestRing.find``, ``AdmissionController.ewma_service_s`` /
+    ``reopen`` and ``HealthRegistry.reset``, side by side."""
+    from deeplearning4j_tpu.serving import admission as jadm
+    from deeplearning4j_tpu.serving import resilience as jres
+    from deeplearning4j_tpu.serving import server as jsrv
+    from deeplearning4j_tpu_torch.serving import admission as tadm
+    from deeplearning4j_tpu_torch.serving import resilience as tres
+    from deeplearning4j_tpu_torch.serving import server as tsrv
+    for srv in (jsrv, tsrv):
+        ring = srv.RequestRing(3)
+        for i, tid in enumerate(["a", "b", "a", "c"]):
+            ring.add({"trace_id": tid, "i": i})
+        assert ring.find("a") == {"trace_id": "a", "i": 2}
+        assert ring.find("b") == {"trace_id": "b", "i": 1}
+        assert ring.find("zz") is None
+    ctl = [m.AdmissionController("m", max_concurrent=1, queue_depth=1,
+                                 default_timeout_s=None)
+           for m in (jadm, tadm)]
+    assert ctl[0].ewma_service_s() == ctl[1].ewma_service_s()
+    for c, m in zip(ctl, (jadm, tadm)):
+        with c.admit(timeout_s=1.0):
+            pass
+        assert c.close() is c and c.closed
+        with pytest.raises(m.ShedError):
+            c.admit(timeout_s=0.1)
+        assert c.reopen() is c and not c.closed
+        with c.admit(timeout_s=1.0):
+            pass
+    assert ctl[0].ewma_service_s() > 0 and ctl[1].ewma_service_s() > 0
+    for m in (jres, tres):
+        h = m.HealthRegistry()
+        h.set_unhealthy("lm:v1", "watchdog")
+        assert not h.healthy() and h.snapshot() == {"lm:v1": "watchdog"}
+        h.reset()
+        assert h.healthy() and h.snapshot() == {}

@@ -300,9 +300,19 @@ def test_engine_refuses_a_model_on_another_device(pair):
 
 
 def test_tensor_parallel_decode_waits_for_its_slice(pair):
+    """``mesh=`` is now taken (``test_torch_sharded_serving.py`` holds
+    it on two ranks); a mesh without the ``data`` axis is refused as the
+    reference refuses it, before anything runs. The name is kept from
+    the refusal of every ``mesh=``."""
+    from deeplearning4j_tpu_torch.common.mesh import Mesh, serving_mesh
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10b"):
-        DecodeEngine(tm, device="cpu", mesh=object(), **ENGINE_KW)
+    eng = DecodeEngine(tm, device="cpu", mesh=serving_mesh(device="cpu"),
+                       **ENGINE_KW)
+    assert eng.stats()["mesh_shape"] == {"data": 1, "model": 1}
+    eng.close(5)
+    with pytest.raises(ValueError, match="missing required"):
+        DecodeEngine(tm, device="cpu", mesh=Mesh([0], ("model",), "cpu"),
+                     **ENGINE_KW)
 
 
 def test_registry_compat_surface_matches_jax(pair):

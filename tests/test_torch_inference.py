@@ -534,8 +534,15 @@ def test_graph_submit_and_warmup_census(graphs):
 
 
 def test_sharded_engine_refused(nets):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tinf.InferenceEngine(nets[1], mesh=object())
+    """A serving mesh is now taken; what is refused is a mesh without
+    the ``data`` axis, as by the reference. The name is kept from the
+    refusal of every ``mesh=``."""
+    from deeplearning4j_tpu_torch.common.mesh import Mesh, serving_mesh
+    eng = tinf.InferenceEngine(nets[1], mesh=serving_mesh(device="cpu"))
+    assert eng.stats()["param_spec"] == "auto(model)"
+    eng.close(5)
+    with pytest.raises(ValueError, match="missing required"):
+        tinf.InferenceEngine(nets[1], mesh=Mesh([0], ("model",), "cpu"))
 
 
 # -- poison isolation, device faults, deadlines, drain -----------------------

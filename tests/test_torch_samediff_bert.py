@@ -258,8 +258,12 @@ def test_inference_engine_matches_jax(pair):
                        .numpy()), **F32)
         with pytest.raises(TypeError, match="placeholder dicts"):
             te.infer(_batch(0)["input_ids"])
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            te._adapter.shard(None, None)
+        # ported: the adapter stores its arrays under a spec and gathers
+        # them at use (a 1x1 mesh here; two ranks in
+        # test_torch_sharded_serving.py)
+        from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+        te._adapter.shard(serving_mesh(device="cpu"), None)
+        assert set(te._adapter.live()) == set(te._adapter.own())
     finally:
         je.close(0.0)
         te.close(0.0)

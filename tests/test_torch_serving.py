@@ -395,9 +395,15 @@ class TestPortOnlyDeploys:
             reg.get("mlp")
 
     def test_sharded_deploy_refused_naming_its_item(self, sides):
+        """A sharded deploy is now taken (its listing is held in
+        ``test_torch_sharded_serving.py``); what is still refused is a
+        mesh without the ``data`` axis, before anything is registered.
+        The name is kept from the refusal of every ``mesh=``."""
+        from deeplearning4j_tpu_torch.common.mesh import Mesh
         reg = self._reg()
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            reg.deploy("lm", "v1", sides["models"][1], mesh=object())
+        with pytest.raises(ValueError, match="missing required"):
+            reg.deploy("lm", "v1", sides["models"][1],
+                       mesh=Mesh([0], ("model",), "cpu"))
         assert reg.models() == {}
 
     def test_quantize_requires_a_gate_batch(self, sides):

@@ -408,6 +408,246 @@ def fault_tolerant(directory, conf_json, params_np, xs, ys, fail_at):
             ref._iteration)
 
 
+# -- sharded serving ------------------------------------------------------------
+
+def _lm(tree, cfg_kw, layers=None):
+    """A port CausalLM on the CPU over a numpy params tree (the first
+    ``layers`` layers: a truncated draft)."""
+    from deeplearning4j_tpu_torch.models import causal_lm as tcl
+    layers = len(tree["layers"]) if layers is None else layers
+    cfg = tcl.CausalLMConfig(**dict(cfg_kw, num_layers=layers,
+                                    dtype=torch.float32))
+    return tcl.CausalLM(cfg, params=bridge.params_from_numpy(
+        {"embeddings": tree["embeddings"],
+         "layers": tree["layers"][:layers]}, device="cpu"), device="cpu")
+
+
+def _tokens(engine, prompts, max_tokens):
+    futs = [engine.generate(p, max_tokens=max_tokens) for p in prompts]
+    return [f.result(timeout=120)["tokens"] for f in futs]
+
+
+def sharded_decode(tree, cfg_kw, prompts, max_tokens, engine_kw,
+                   draft_layers=0, quantize=False, param_spec=None,
+                   model_parallel=None):
+    """Greedy tokens of a sharded ``DecodeEngine`` on a serving mesh over
+    every rank, and (on the leader) of the same engine unsharded, with
+    each engine's KV pool bytes, the leader's all-reduces and snapshots;
+    a follower reports its refusal of ``generate`` and whether the
+    leader's ``close()`` ended its engine."""
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.quant import quantize_model
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    from deeplearning4j_tpu_torch.runtime.sharded import pool_bytes
+    model = _lm(tree, cfg_kw)
+    if quantize:
+        model = quantize_model(model, device="cpu")
+    kw = dict(engine_kw, device="cpu")
+    if draft_layers:
+        kw.update(draft_model=_lm(tree, cfg_kw, draft_layers), spec_k=2)
+    mesh = serving_mesh(model_parallel, device="cpu")
+    C.issued.clear()
+    eng = DecodeEngine(model, mesh=mesh, param_spec=param_spec, **kw)
+    out = {"pool_bytes": pool_bytes(eng._cache)}
+    if not eng._link.is_leader:
+        try:
+            eng.generate(prompts[0], max_tokens=1)
+        except RuntimeError as e:
+            out["refused"] = str(e)
+        out["joined"] = eng.join(60)
+        return out
+    out["tokens"] = _tokens(eng, prompts, max_tokens)
+    out["all_reduces"] = sum(n for (op, _), n in C.issued.items()
+                             if op == "all_reduce")
+    out["stats"], out["snapshot"] = eng.stats(), eng.debug_snapshot()
+    out["closed"] = eng.close(30)
+    ref = DecodeEngine(model, **kw)
+    out["ref_tokens"] = _tokens(ref, prompts, max_tokens)
+    out["ref_pool_bytes"] = pool_bytes(ref._cache)
+    out["ref_stats"] = ref.stats()
+    ref.close(30)
+    return out
+
+
+def _predict_model(kind, payload):
+    """(model, outputs, a request of a batch) of a tiny predict network."""
+    if kind == "samediff":
+        from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+        sd = SameDiff.create(device="cpu")
+        x = sd.placeholder("x", (None, payload["w"].shape[0]))
+        y = sd.nn.softmax(sd.nn.tanh(x @ sd.var("w", payload["w"])
+                                     + sd.var("b", payload["b"])))
+        return sd, [y.name], lambda a: {"x": a}
+    if kind == "graph":
+        from deeplearning4j_tpu_torch.nn.graph import (
+            ComputationGraph, ComputationGraphConfiguration)
+        net = ComputationGraph(ComputationGraphConfiguration.from_json(
+            payload["conf"]), device="cpu")
+        return bridge.load_graph(net, payload["params"]), None, \
+            lambda a: a
+    net = _mln(payload["conf"], payload["params"])
+    if kind == "mlp_int8":
+        from deeplearning4j_tpu_torch.quant import quantize_model
+        net = quantize_model(net, device="cpu")
+    return net, None, lambda a: a
+
+
+def _outputs_np(out):
+    if isinstance(out, dict):
+        return [_np(out[k].torch()) for k in sorted(out)]
+    if isinstance(out, list):
+        return [_np(o.torch()) for o in out]
+    return [_np(out.torch())]
+
+
+def sharded_predict(kind, payload, xs, model_parallel, param_spec=None):
+    """Rank 0's outputs of a sharded ``InferenceEngine`` (a serving mesh
+    over every rank, ``model_parallel`` on ``model``) for each batch of
+    ``xs``, its stats, and the unsharded engine's outputs."""
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    model, outputs, req = _predict_model(kind, payload)
+    mesh = serving_mesh(model_parallel, device="cpu")
+    eng = InferenceEngine(model, mesh=mesh, param_spec=param_spec,
+                          max_batch=8, outputs=outputs)
+    if not eng._link.is_leader:
+        return {"joined": eng.join(60)}
+    got = [_outputs_np(eng.infer(req(x))) for x in xs]
+    stats = eng.stats()
+    eng.close(30)
+    ref = InferenceEngine(model, max_batch=8, outputs=outputs)
+    want = [_outputs_np(ref.infer(req(x))) for x in xs]
+    ref.close(30)
+    return {"got": got, "want": want, "stats": stats}
+
+
+def sharded_poison(mlp, good, bad):
+    """A sharded MLP's ``submit`` of a request the model cannot run (the
+    wrong feature width) on the leader, then of a good one: the bad one
+    fails on both ranks and is quarantined, and the follower goes on to
+    serve the good one. Each rank also serves ``good`` on a mesh of its
+    own rank alone, which has no step link."""
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.runtime.inference import (
+        InferenceEngine, PoisonRequestError)
+    net = _mln(*mlp)
+    plain = InferenceEngine(net, max_batch=4)
+    want = _np(plain.infer(good).torch())
+    plain.close(30)
+    solo = InferenceEngine(net, max_batch=4, mesh=serving_mesh(
+        devices=[global_rank()], device="cpu"))
+    out = {"solo_link": solo._link is not None,
+           "solo_err": float(abs(_np(solo.infer(good).torch())
+                                 - want).max())}
+    solo.close(30)
+    eng = InferenceEngine(net, mesh=serving_mesh(device="cpu"), max_batch=4)
+    if global_rank() != 0:
+        out["joined"] = eng.join(60)
+        return out
+    try:
+        eng.submit(bad).result(timeout=60)
+        out["bad"] = "answered"
+    except PoisonRequestError as e:
+        out["bad"] = "quarantined: " + str(e)
+    out["good_err"] = float(abs(_np(eng.submit(good).result(timeout=60)
+                                    .torch()) - want).max())
+    out["closed"] = eng.close(30)
+    return out
+
+
+def sharded_concurrent(tree, cfg_kw, prompts, mlp, xs):
+    """A sharded DecodeEngine and a sharded InferenceEngine on one mesh,
+    driven at once on the leader: every prompt's generate and, from 8
+    threads (the switch interval shortened), every batch's infer. The
+    records of both engines share one channel, so every step keeps its
+    place on both ranks; the results are the unsharded engines'."""
+    import sys
+    import threading
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    mesh = serving_mesh(device="cpu")
+    kw = dict(slots=2, max_ctx=64, prompt_buckets=[16], device="cpu")
+    lm, net = _lm(tree, cfg_kw), _mln(*mlp)
+    dec = DecodeEngine(lm, mesh=mesh, **kw)
+    inf = InferenceEngine(net, mesh=mesh, max_batch=8)
+    if global_rank() != 0:
+        return {"joined": dec.join(60) and inf.join(60)}
+    got = {}
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        futs = [dec.generate(p, max_tokens=6) for p in prompts]
+
+        def predict(i):
+            got[i] = _np(inf.infer(xs[i]).torch())
+        threads = [threading.Thread(target=predict, args=(i,))
+                   for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        tokens = [f.result(timeout=60)["tokens"] for f in futs]
+        alive = any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(prev)
+    dec.close(30)
+    inf.close(30)
+    ref = DecodeEngine(lm, **kw)
+    want = [ref.generate(p, max_tokens=6).result(timeout=60)["tokens"]
+            for p in prompts]
+    ref.close(30)
+    plain = InferenceEngine(net, max_batch=8)
+    out = {"threads_alive": alive, "tokens": tokens, "ref_tokens": want,
+           "predict_max_err": max(
+               float(abs(got[i] - _np(plain.infer(x).torch())).max())
+               for i, x in enumerate(xs))}
+    plain.close(30)
+    return out
+
+
+def sharded_registry(tree, cfg_kw, prompt, mlp, x):
+    """A sharded CausalLM and a sharded MLP deployed on every rank beside
+    an unsharded MLP; the leader serves them over HTTP: ``/v1/models``,
+    a greedy ``generate`` and ``/debug/decode``."""
+    import json
+    import urllib.request
+    from deeplearning4j_tpu_torch.common.mesh import serving_mesh
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    mesh = serving_mesh(device="cpu")
+    reg = ModelRegistry(manifest_dir=None)
+    reg.deploy("lm", "v1", _lm(tree, cfg_kw), mesh=mesh, decode_slots=2,
+               decode_max_ctx=64, decode_prompt_buckets=[16])
+    reg.deploy("toy", "v1", _mln(*mlp), example=x, max_batch=4, mesh=mesh)
+    reg.deploy("plain", "v1", _mln(*mlp), example=x, max_batch=4)
+    out = {}
+    if global_rank() == 0:
+        srv = ModelServer(reg)
+        port = srv.start()
+        base = f"http://127.0.0.1:{port}"
+
+        def get(path, body=None):
+            r = urllib.request.Request(
+                base + path, data=None if body is None
+                else json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(r, timeout=60) as f:
+                return json.loads(f.read())
+        try:
+            out["models"] = get("/v1/models")
+            out["generated"] = get("/v1/models/lm/generate",
+                                   {"prompt": prompt, "max_tokens": 6})
+            out["predicted"] = get("/v1/models/toy/predict",
+                                   {"inputs": x.tolist()})
+            out["decode"] = get("/debug/decode")
+            out["toy_stats"] = reg.get("toy").engine.stats()
+            out["plain_stats"] = reg.get("plain").engine.stats()
+        finally:
+            srv.stop()
+    out["drained"] = reg.drain_all(30, save_manifests=False)
+    return out
+
+
 # -- the parent side ----------------------------------------------------------------
 
 class Ranks:
@@ -417,11 +657,12 @@ class Ranks:
     def __init__(self, world: int, timeout: float = 240.0):
         self.world, self.timeout, self.pool = world, timeout, None
 
-    def run(self, name, *args):
+    def run(self, name, *args, **kwargs):
         from deeplearning4j_tpu_torch.parallel.launch import RankPool
         if self.pool is None or self.pool.closed:
             self.pool = RankPool(self.world, "cpu", timeout=self.timeout)
-        return self.pool.run(f"torch_parallel_cases:{name}", *args)
+        return self.pool.run(f"torch_parallel_cases:{name}", *args,
+                             **kwargs)
 
     def close(self):
         if self.pool is not None:
