@@ -72,6 +72,34 @@ exits non-zero without printing a result:
               every ``__global__`` function of its source; a wrapper that
               launched in the profiled steps with a share of 0 fails the
               phase.
+   graphs   — the captured serving steps (``runtime/cuda_graphs.py``).
+              The bf16 model, its int8 twin and the model with the spec
+              phase's 2-layer draft (k = 4), each behind two engines: one
+              capturing its steps, one keeping the same step bodies eager
+              (``eager:reference``); each engine warmed twice with the
+              census counted from 0 (it must equal ``len(ladder) *
+              len(batch ladder) + 1``, +1 with the draft, and the second
+              warmup add none), then serving phase 4's 16 requests, all
+              queued before its loop reads the queue (so both engines
+              batch alike), the census and every launch count set to 0
+              just before: no new census event, the 13 greedy prompts'
+              tokens identical between the two engines, the 3 sampled
+              prompts' agreement printed, and the captured engine's
+              launches held exactly to the step counts (the paged read
+              12 a decode step, 12 + 2 x 5 a spec step; the dequant
+              kernel 24 a twin's prefill or decode step), counted on
+              replay (the kernels line's serving rows carry them as
+              ``launches_graphs``). Then the engine's own decode step over 8 slots at
+              the step phase's lengths, replayed and eager: host ms,
+              device ms and busy share (bf16 and int8). Then LeNet
+              (bf16) and the MLP's int8 twin through ``InferenceEngine``
+              warmed over 1..128: every rung bitwise against the eager
+              forward, no census event after warmup, 5 dequant launches
+              a twin dispatch; and LeNet served, one ``fit`` step, served
+              again: the answer must be the forward on the new params.
+              (The SameDiff QA graph's signatures, captured or eager with
+              their reasons, print in ``samediff_bert`` as
+              ``graphs_samediff``.)
 7. train    — BERT-base masked-LM training (vocab 30522, hidden 768, 12
               layers, bf16, random weights from a seed) at B=128, T=128:
               ``make_scanned_train_step(n_steps=10, use_flash=True,
@@ -421,8 +449,10 @@ Two diagnostics run alone: ``--profiler-check [BURST_S IDLE_S]``
 process ages) and ``--update-sensitivity`` (how far fit's first
 ResNet-50 update moves with the batch statistics' rounding).
 """
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -436,7 +466,7 @@ FP8_FLOPS_PER_S = 1979e12
 # profiler windows behind each kernel-against-library reading: the median
 # is reported, with the min and max (one window now and then reads half of
 # every other, as SDPA's first T=512 forward did in an earlier run)
-WINDOWS = 5
+WINDOWS = 3
 
 # Tolerances, each with its reason:
 # paged-flash decode vs plain, bf16 out: the plain read rounds the softmax
@@ -787,10 +817,12 @@ def device_ms_by_kernel(fn, iters, flush=None, counts=None):
     run in a ``TIMED_SPAN`` after ``LEAD_IN`` launches; the reading sums
     the device records of the runtime calls in the span, and holds only
     when every kernel launch there has its record. A window that lost a
-    record is recorded in ``PROFILER_RETAKES`` and taken again (with the
-    lead-in doubled where it kept some), up to ``PROFILE_TRIES`` windows
-    in all; then it raises. ``counts``, a dict, gets the span's device records and kernel
-    launches per call."""
+    record is recorded in ``PROFILER_RETAKES`` and taken again with the
+    lead-in doubled, up to ``PROFILE_TRIES`` windows in all; then it
+    raises. A launch is a kernel's or a CUDA graph's (whose kernels'
+    records carry its correlation id). ``counts``, a dict, gets the
+    span's device records, launch calls and device records by name per
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     pad = torch.zeros(1, device="cuda")
@@ -819,16 +851,20 @@ def device_ms_by_kernel(fn, iters, flush=None, counts=None):
                   and e.device_type == torch.autograd.DeviceType.CUDA
                   and e.name != TIMED_SPAN
                   and not getattr(e, "is_user_annotation", False)]
-        launched = {i for i, n in calls.items() if "LaunchKernel" in n}
+        launched = {i for i, n in calls.items()
+                    if "LaunchKernel" in n or "GraphLaunch" in n}
         lost = launched - {e.id for e in device}
         if device and not lost:
-            if counts is not None:
-                counts.update(device_records=len(device) / iters,
-                              launches=len(launched) / iters)
-            by_name = {}
+            by_name, records = {}, {}
             for e in device:
                 by_name[e.name] = by_name.get(e.name, 0.0) \
                     + e.device_time_total / 1e3 / iters
+                records[e.name] = records.get(e.name, 0) + 1
+            if counts is not None:
+                counts.update(device_records=len(device) / iters,
+                              launches=len(launched) / iters,
+                              records_by_name={k: n / iters for k, n
+                                               in records.items()})
             return by_name
         PROFILER_RETAKES.append({
             "fn": fn.__qualname__, "attempt": attempt,
@@ -837,8 +873,9 @@ def device_ms_by_kernel(fn, iters, flush=None, counts=None):
         print(f"profiler window {attempt} over {fn.__qualname__} lost "
               f"device records: {PROFILER_RETAKES[-1]}", file=sys.stderr,
               flush=True)
-        if device:       # the first launches lost; an empty window is not
-            LEAD_IN[0] = min(2 * LEAD_IN[0], LEAD_IN_MAX)
+        # the first launches lost (all of them where the tracer drops
+        # more than the lead-in and the span together)
+        LEAD_IN[0] = min(2 * LEAD_IN[0], LEAD_IN_MAX)
     raise RuntimeError(f"the profiler lost device records over "
                        f"{fn.__qualname__} in {PROFILE_TRIES} windows")
 
@@ -1983,6 +2020,347 @@ def phase_step(model, twin):
         del cache
 
 
+# the graphs phase: the draft's layers and k (as the spec phase), and the
+# parity lengths the decode step is timed at (as the step phase)
+GRAPH_DRAFT_LAYERS, GRAPH_K = 2, 4
+GRAPH_STEP_LENGTHS = (0, 1, 15, 16, 100, 517, 900, 1000)
+# LeNet (bf16) and the MLP's int8 twin through InferenceEngine, at every
+# rung of the predict ladder
+GRAPH_DEQUANT_PER_DISPATCH = MLP_HIDDEN_LAYERS + 1
+
+
+def serve_held(engine, prompts, sampling, max_tokens=64):
+    """Every request queued before the engine's loop reads its queue (its
+    scheduler lock held while they go in), so that admission and batching
+    follow the queue alone and two engines batch alike: the results and
+    the wall seconds."""
+    import torch
+    t0 = time.perf_counter()
+    with engine._cv:
+        futs = [engine.generate(p, max_tokens=max_tokens, **kw)
+                for p, kw in zip(prompts, sampling)]
+    res = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def graph_engine_run(model, prompts, sampling, eager=False, **kw):
+    """One engine over the serve phase's 16 prompts: warmed (twice, the
+    census counted from 0), then serving them (the census and every
+    launch count set to 0 just before). ``eager`` keeps every step eager
+    (the same bodies on the same buffers, no graphs)."""
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    env = environment()
+    eng = DecodeEngine(model, slots=SLOTS, max_ctx=MAX_CTX,
+                       kv_block_size=BS, device="cuda", seed=0, **kw)
+    if eager:
+        eng._eager_reason = "reference"
+    rec = {"formula": len(eng.ladder) * len(eng.batch_ladder) + 1
+           + int(eng._spec_enabled)}
+    try:
+        env.reset_compile_count()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        rec["warmup_s"] = time.perf_counter() - t0
+        rec["census_warmup"] = env.compile_count()
+        eng.warmup()
+        rec["census_rewarm"] = env.compile_count() - rec["census_warmup"]
+        s0 = eng.stats()
+        env.reset_compile_count()
+        paged_flash_decode.launches = 0
+        _fused_dequant_matmul.launches = 0
+        res, wall = serve_held(eng, prompts, sampling)
+        rec["census_traffic"] = env.compile_count()
+        rec["launches"] = {"paged_flash_decode": paged_flash_decode.launches,
+                           "dequant_matmul": _fused_dequant_matmul.launches}
+        s1 = eng.stats()
+    finally:
+        eng.close(60)
+        env.reset_compile_count()
+    toks = sum(len(r["tokens"]) for r in res)
+    rec.update(tokens=[r["tokens"] for r in res], wall_s=wall,
+               tokens_per_s=toks / wall,
+               **{k: s1[k] - s0[k] for k in ("decode_steps", "spec_steps",
+                                             "prefill_dispatches")},
+               caches=sorted({g["cache"] for g in s1["graphs"]}),
+               graphs=len(s1["graphs"]),
+               replay_launches={g["tag"]: g["launches"]
+                                for g in s1["graphs"]
+                                if not g["tag"].startswith("prefill")})
+    return rec
+
+
+def graph_step_times(model):
+    """The engine's decode step over 8 slots at the parity lengths
+    (``GRAPH_STEP_LENGTHS``), replayed and eager, timed through the
+    engine's own step (host arrays in, one copy to the card, the step,
+    one copy back): host ms over 10 steps, device ms a step from
+    ``torch.profiler`` over 5 more, the busy share their ratio. The
+    kernels' counts over the 10 steps give their launches a step, and
+    the trace their device records a step: ``trace_mismatches`` lists
+    where a replayed step's records differ from the eager step's or the
+    paged kernel's records from its count."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.kernels import paged_flash_decode
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    kernels = {"paged_flash_decode": (paged_flash_decode,
+                                      re.compile(r"\bpaged_\w*kernel")),
+               "dequant_matmul": (_fused_dequant_matmul, re.compile(
+                   r"\b(dq_|dequant_matmul)\w*kernel"))}
+    out = {}
+    rs = np.random.RandomState(13)
+    N = SLOTS * MB + 1
+    tables = (rs.permutation(N - 1) + 1).astype(np.int32).reshape(SLOTS, MB)
+    tokens = rs.randint(0, model.config.vocab_size, SLOTS).astype(np.int32)
+    active = np.ones(SLOTS, bool)
+    for label in ("replayed", "eager"):
+        eng = DecodeEngine(model, slots=SLOTS, max_ctx=MAX_CTX,
+                           kv_block_size=BS, device="cuda")
+        if label == "eager":
+            eng._eager_reason = "reference"
+        try:
+            eng._tables[:] = tables
+            eng._tokens[:] = tokens
+            eng._lengths[:] = GRAPH_STEP_LENGTHS
+
+            def step():
+                eng._run_decode(active)
+            for _ in range(3):
+                step()
+            n0 = {k: w.launches for k, (w, _) in kernels.items()}
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step()
+            step_ms = (time.perf_counter() - t0) * 1e3 / 10
+            counted = {k: (w.launches - n0[k]) / 10
+                       for k, (w, _) in kernels.items()}
+            counts = {}
+            by_name = device_ms_by_kernel(step, 5, counts=counts)
+            device_ms = sum(by_name.values())
+            traced = {k: sum(n for name, n in
+                             counts["records_by_name"].items()
+                             if pat.search(name))
+                      for k, (_, pat) in kernels.items()}
+            out[label] = {"step_ms": step_ms, "device_ms": device_ms,
+                          "busy_share": device_ms / step_ms,
+                          "device_records_per_step":
+                              counts["device_records"],
+                          "launch_calls_per_step": counts["launches"],
+                          "launches_counted_per_step": counted,
+                          "kernel_records_per_step": traced}
+        finally:
+            eng.close(60)
+    rep, eag = out["replayed"], out["eager"]
+    bad = [k for k in ("device_records_per_step", "launches_counted_per_step",
+                       "kernel_records_per_step") if rep[k] != eag[k]]
+    bad += [f"{label} paged records" for label, r in out.items()
+            if r["kernel_records_per_step"]["paged_flash_decode"]
+            != r["launches_counted_per_step"]["paged_flash_decode"]]
+    out["trace_mismatches"] = bad
+    return out
+
+
+def graph_predict(name, net, pool):
+    """``net`` through an ``InferenceEngine`` warmed over the predict
+    ladder: every rung's answer bitwise against the eager forward on the
+    same rows, the census after warmup (must be 0), the dequant launches
+    a dispatch, and the signatures' caches."""
+    import torch
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.nn.fit_fastpath import full_f32
+    from deeplearning4j_tpu_torch.quant.transforms import \
+        _fused_dequant_matmul
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    env = environment()
+    eng = InferenceEngine(net, max_batch=PREDICT_MAX_BATCH)
+    rec = {"rungs": list(PREDICT_LADDER)}
+    try:
+        env.reset_compile_count()
+        t0 = time.perf_counter()
+        eng.warmup(pool[:1].cpu().numpy())
+        rec["warmup_s"] = time.perf_counter() - t0
+        rec["census_warmup"] = env.compile_count()
+        env.reset_compile_count()
+        same, launches, host_ms = [], [], []
+        for n in PREDICT_LADDER:
+            x = pool[:n]
+            n0 = _fused_dequant_matmul.launches
+            t0 = time.perf_counter()
+            got = eng.infer(x).torch()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(_fused_dequant_matmul.launches - n0)
+            with torch.no_grad(), full_f32():
+                want = net._forward(net._params, x, False)
+            same.append(bool(torch.equal(got, want)))
+        rec.update(census_traffic=env.compile_count(), bitwise=same,
+                   dequant_launches=launches, infer_host_ms=host_ms,
+                   caches=sorted({g["cache"]
+                                  for g in eng.stats()["graphs"]}))
+    finally:
+        eng.close()
+        env.reset_compile_count()
+    emit({"phase": "graphs_predict", "model": name, **rec})
+    return rec
+
+
+def graph_fit_check():
+    """LeNet (bf16) warmed through an ``InferenceEngine``, then one
+    ``fit`` step: the next predict must be the forward on the new params
+    (bitwise), not the captured old ones."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn.fit_fastpath import full_f32
+    from deeplearning4j_tpu_torch.runtime.inference import InferenceEngine
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    net = LeNet(dtype="bfloat16").init_model(device="cuda")
+    (batch,) = zoo_batches(np.random.RandomState(7), 1, 32, (1, 28, 28), 10)
+    x = batch.features.torch()[:8] if hasattr(batch.features, "torch") \
+        else batch.features[:8]
+    eng = InferenceEngine(net, max_batch=8)
+    try:
+        eng.warmup(x[:1].cpu().numpy())
+        before = eng.infer(x).torch()
+        net.fit(batch)
+        after = eng.infer(x).torch()
+        with torch.no_grad(), full_f32():
+            want = net._forward(net._params, x, False)
+        caps = {g["signature"]: g["captures"]
+                for g in eng.stats()["graphs"]}
+    finally:
+        eng.close()
+    return {"changed_by_fit": not torch.equal(before, after),
+            "bitwise_after_fit": bool(torch.equal(after, want)),
+            "captures_of_rung_8": max(c for s, c in caps.items()
+                                      if "(8," in s)}
+
+
+def phase_graphs(model, twin, prompts, sampling):
+    """The captured serving steps (``runtime/cuda_graphs.py``; module
+    docstring, ``graphs``)."""
+    import torch
+    from deeplearning4j_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig)
+    from deeplearning4j_tpu_torch.quant import quantize_model
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    draft = CausalLM(CausalLMConfig(num_layers=GRAPH_DRAFT_LAYERS),
+                     params={"embeddings": model.params["embeddings"],
+                             "layers":
+                                 model.params["layers"][:GRAPH_DRAFT_LAYERS]},
+                     device="cuda")
+    greedy = [i for i, kw in enumerate(sampling) if not kw]
+    sampled = [i for i, kw in enumerate(sampling) if kw]
+    fails, runs = [], {}
+    # the spec engine serves the greedy prompts alone: a sampled rider
+    # keeps every step of its batch on the plain decode step
+    for name, m, kw, picks in (
+            ("bf16", model, {}, range(len(prompts))),
+            ("int8", twin, {}, range(len(prompts))),
+            ("spec", model, {"draft_model": draft, "spec_k": GRAPH_K},
+             greedy)):
+        ps = [prompts[i] for i in picks]
+        ss = [sampling[i] for i in picks]
+        cap = graph_engine_run(m, ps, ss, **kw)
+        ref = graph_engine_run(m, ps, ss, eager=True, **kw)
+        at = {i: j for j, i in enumerate(picks)}
+        same = sum(cap["tokens"][at[i]] == ref["tokens"][at[i]]
+                   for i in greedy)
+        agree = [float(np.mean([a == b for a, b in zip(
+            cap["tokens"][at[i]], ref["tokens"][at[i]])]))
+            for i in sampled if i in at]
+        # decode_steps counts the spec steps too; a spec step's draft
+        # reads k + 1 times a draft layer besides the verify's 12
+        paged = L_FULL * cap["decode_steps"] \
+            + GRAPH_DRAFT_LAYERS * (GRAPH_K + 1) * cap["spec_steps"]
+        dequant = 2 * L_FULL * (cap["decode_steps"]
+                                + cap["prefill_dispatches"]) \
+            if name == "int8" else 0
+        rec = {"census_formula": cap["formula"],
+               "census_warmup": cap["census_warmup"],
+               "census_rewarm": cap["census_rewarm"],
+               "census_traffic": cap["census_traffic"],
+               "greedy_identical": f"{same}/{len(greedy)}",
+               "sampled_token_agreement": agree,
+               "launches": cap["launches"],
+               "launches_expected": {"paged_flash_decode": paged,
+                                     "dequant_matmul": dequant},
+               "replay_launches": cap["replay_launches"],
+               "caches": cap["caches"], "reference_caches": ref["caches"],
+               **{k: cap[k] for k in ("decode_steps", "spec_steps",
+                                      "prefill_dispatches", "warmup_s")},
+               "tokens_per_s": cap["tokens_per_s"],
+               "reference_tokens_per_s": ref["tokens_per_s"],
+               "reference_warmup_s": ref["warmup_s"]}
+        runs[name] = rec
+        emit({"phase": "graphs_decode", "model": name, **rec})
+        if not (cap["census_warmup"] == cap["formula"]
+                and cap["graphs"] == cap["formula"]
+                and cap["census_rewarm"] == 0
+                and cap["census_traffic"] == 0):
+            fails.append(f"{name} census")
+        if same != len(greedy):
+            fails.append(f"{name} greedy tokens {same}/{len(greedy)}")
+        if name == "spec" and cap["spec_steps"] < 1:
+            fails.append("no spec step ran")
+        if cap["caches"] != ["captured"] or \
+                ref["caches"] != ["eager:reference"]:
+            fails.append(f"{name} caches {cap['caches']} {ref['caches']}")
+        if cap["launches"] != rec["launches_expected"]:
+            fails.append(f"{name} launches {cap['launches']} against "
+                         f"{rec['launches_expected']}")
+        torch.cuda.empty_cache()
+    steps = {}
+    for name, m in (("bf16", model), ("int8", twin)):
+        steps[name] = graph_step_times(m)
+        emit({"phase": "graphs_step", "model": name,
+              "lengths": list(GRAPH_STEP_LENGTHS), **steps[name]})
+        want = {"paged_flash_decode": L_FULL,
+                "dequant_matmul": 2 * L_FULL if name == "int8" else 0}
+        if steps[name]["trace_mismatches"] or any(
+                steps[name][label]["launches_counted_per_step"] != want
+                for label in ("replayed", "eager")):
+            fails.append(f"{name} step trace: {steps[name]}")
+    torch.cuda.empty_cache()
+    lenet = LeNet(dtype="bfloat16").init_model(device="cuda")
+    mlp_twin = quantize_model(mlp_network(), device="cuda")
+    rs = np.random.RandomState(3)
+    predict = {
+        "lenet": graph_predict("lenet", lenet, torch.from_numpy(
+            rs.randn(PREDICT_MAX_BATCH, 1, 28, 28).astype(np.float32))
+            .cuda()),
+        "mlp_int8": graph_predict("mlp_int8", mlp_twin, torch.from_numpy(
+            rs.randn(PREDICT_MAX_BATCH, MLP_IN).astype(np.float32)).cuda())}
+    for name, rec in predict.items():
+        if not all(rec["bitwise"]) or rec["census_traffic"] != 0 or \
+                rec["census_warmup"] != len(PREDICT_LADDER) or \
+                rec["caches"] != ["captured"]:
+            fails.append(f"predict {name}: {rec}")
+    want = GRAPH_DEQUANT_PER_DISPATCH
+    if predict["mlp_int8"]["dequant_launches"] != [want] * len(
+            PREDICT_LADDER):
+        fails.append(f"mlp_int8 dequant launches "
+                     f"{predict['mlp_int8']['dequant_launches']}")
+    fit = graph_fit_check()
+    emit({"phase": "graphs_fit", **fit})
+    if not (fit["changed_by_fit"] and fit["bitwise_after_fit"]
+            and fit["captures_of_rung_8"] >= 2):
+        fails.append(f"predict after fit: {fit}")
+    del lenet, mlp_twin, draft
+    torch.cuda.empty_cache()
+    if fails:
+        raise RuntimeError(f"graphs phase failed: {fails}")
+    return runs, steps, predict
+
+
 def paged_record(Q, seed, H=12):
     """The paged read at ``Q`` query rows and ``H`` heads of 64: kernel,
     plain version and SDPA over the pre-gathered view, device times
@@ -2543,10 +2921,8 @@ def phase_lenet():
     of an epoch is ``score()``'s mean over the 32 batches after it, and
     must fall from the first epoch to the last; the last batch's
     training loss is printed beside it."""
-    import contextlib
     import numpy as np
     import torch
-    from deeplearning4j_tpu_torch.nn import multilayer
     from deeplearning4j_tpu_torch.quant.transforms import \
         _fused_dequant_matmul
     from deeplearning4j_tpu_torch.zoo import LeNet
@@ -2591,13 +2967,10 @@ def phase_lenet():
     try:
         got = f32.output(x).numpy()
         # the same forward with the port's TF32 guard taken away, to show
-        # what a leak reads
-        guard = multilayer.full_f32
-        multilayer.full_f32 = contextlib.nullcontext
-        try:
-            leak = f32.output(x).numpy()
-        finally:
-            multilayer.full_f32 = guard
+        # what a leak reads (run eagerly: output() replays the graph it
+        # captured under the guard)
+        with torch.no_grad():
+            leak = f32._forward(f32._params, x, False).cpu().numpy()
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
@@ -4134,6 +4507,12 @@ def phase_samediff_bert():
             / max(d, 1),
             "census_events_after_warmup": census,
             "max_abs_err_vs_output": err, "tol": SD_PREDICT_ATOL}
+        # the graph's signatures: captured, or eager with the reason
+        graphs = s1["graphs"]
+        emit({"phase": "graphs_samediff", "signatures": len(graphs),
+              "captured": sum(g["cache"] == "captured" for g in graphs),
+              "eager": [{k: g[k] for k in ("signature", "cache", "error")}
+                        for g in graphs if g["cache"] != "captured"]})
         reg.drain_all(save_manifests=False)
     finally:
         srv.stop()
@@ -6073,6 +6452,7 @@ def shard_world1():
     kw = dict(slots=SLOTS, max_ctx=MAX_CTX, kv_block_size=BS)
     ref = DecodeEngine(model, device="cuda", **kw)
     try:
+        ref.warmup()        # as the registry warms the deployed engine
         want, _ = _run_greedy(ref, greedy, SHARD_TOKENS, together=False)
         s0 = ref.stats()
         toks, wall = _run_greedy(ref, greedy, SHARD_TOKENS)
@@ -6102,7 +6482,9 @@ def shard_world1():
         eng = mv.engine
         s0 = eng.stats()
         toks, wall = _run_greedy(eng, greedy, SHARD_TOKENS)
-        rate = _rate(toks, wall, _delta(s0, eng.stats()))
+        s1 = eng.stats()
+        rate = _rate(toks, wall, _delta(s0, s1))
+        caches = sorted({g["cache"] for g in s1["graphs"]})
     finally:
         srv.stop()
         reg.drain_all(60, save_manifests=False)
@@ -6112,6 +6494,7 @@ def shard_world1():
             "mesh_shape": listed.get("mesh_shape"),
             "param_spec": listed.get("param_spec"),
             "deploy_with_warmup_s": deploy_s,
+            "graph_caches": caches,
             "sharded": rate, "unsharded": ref_rate,
             "collectives": {f"{op}/{b}": n for (op, b), n in
                             C.issued.items()}}
@@ -6210,7 +6593,8 @@ def shard_predict(lead):
             "argmax_identical": all((g.argmax(-1) == w.argmax(-1)).all()
                                     for g, w in zip(got, want)),
             "mesh_shape": stats["mesh_shape"],
-            "param_spec": stats["param_spec"]}
+            "param_spec": stats["param_spec"],
+            "graph_caches": sorted({g["cache"] for g in stats["graphs"]})}
     return out
 
 
@@ -6265,7 +6649,9 @@ def shard_tp2():
             rec.update(_rate(toks, wall, s), tokens_list=toks,
                        all_reduces=_all_reduces() - a0,
                        mesh_shape=s["mesh_shape"],
-                       param_spec=s["param_spec"])
+                       param_spec=s["param_spec"],
+                       graph_caches=sorted({g["cache"]
+                                            for g in s["graphs"]}))
             steps = s["prefill_dispatches"] + s["decode_steps"]
             rec["all_reduces_per_step"] = rec["all_reduces"] / steps \
                 if name != "spec" else None
@@ -6275,6 +6661,8 @@ def shard_tp2():
             except RuntimeError as e:
                 rec["refused"] = str(e)
             rec["joined"] = eng.join(600)
+            rec["graph_caches"] = sorted({g["cache"]
+                                          for g in eng.stats()["graphs"]})
         out["runs"][name] = rec
     out["launches"] = {"paged_flash_decode": paged_flash_decode.launches,
                        "dequant_matmul": _fused_dequant_matmul.launches}
@@ -6284,6 +6672,7 @@ def shard_tp2():
             rec = out["runs"][name]
             rec["pool_bytes_unsharded"] = sharded.pool_bytes(eng._cache)
             try:
+                eng.warmup()    # its steps captured before the timed run
                 toks, wall = _run_greedy(eng, picks, SHARD_TOKENS)
                 rec["unsharded"] = _rate(toks, wall, eng.stats())
             finally:
@@ -6358,6 +6747,16 @@ def phase_sharded_serve():
     if w1["mesh_shape"] != {"data": 1, "model": 1} or \
             w1["param_spec"] != "auto(model)" or w1["transport"] != "nccl":
         fails.append("world-1 listing")
+    # a one-rank mesh issues no collective: its steps are captured; the
+    # gloo legs' steps stay eager, and say why
+    if w1["graph_caches"] != ["captured"]:
+        fails.append(f"world-1 graphs {w1['graph_caches']}")
+    for r in (r0, r1):
+        for name, rec in list(r["runs"].items()) + list(
+                r["predict"].items()):
+            if rec.get("graph_caches", ["eager:gloo"]) != ["eager:gloo"]:
+                fails.append(f"rank {r['rank']} {name} graphs "
+                             f"{rec['graph_caches']}")
     if not r0["forced"]["max_abs_logit_diff"] <= SHARD_LOGIT_ATOL:
         fails.append("teacher-forced logits")
     if not r0["forced"]["bias_twice_max_abs_logit_diff"] > SHARD_LOGIT_ATOL:
@@ -6398,6 +6797,14 @@ def phase_sharded_serve():
     return launches
 
 
+def free_card():
+    """Hand the allocator's cached blocks back to the card between
+    phases (a closed engine has let go of its graphs, and a dropped
+    network of its own)."""
+    import torch
+    torch.cuda.empty_cache()
+
+
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
@@ -6435,14 +6842,18 @@ def main():
                                "main path")
     http_launches = phase_serve_http(model, prompts, sampling, greedy)
     fp8_shapes = phase_fp8(model, prompts)
-    torch.cuda.empty_cache()
+    free_card()
     phase_checks(model, twin)
     phase_step(model, twin)
+    graph_runs = phase_graphs(model, twin, prompts, sampling)[0]
+    graph_launches = {k: sum(r["launches"][k] for r in graph_runs.values())
+                      for k in ("paged_flash_decode", "dequant_matmul")}
+    free_card()
     train_launches, params, opt, batch, step_ms = phase_train()
     launches.update(train_launches)
     phase_train_step(params, opt, batch, step_ms)
     del params, opt
-    torch.cuda.empty_cache()
+    free_card()
     phase_bert_forward()
     phase_causal(model)
     phase_lenet()
@@ -6450,7 +6861,7 @@ def main():
     predict_launches, predict_twin, mlp_f32, mlp_pool = phase_predict_http()
     phase_fleet(mlp_f32, mlp_pool)
     del mlp_f32, mlp_pool
-    torch.cuda.empty_cache()
+    free_card()
     resnet, images, resnet_rec = phase_resnet50()
     phase_transfer(resnet, images, resnet_rec)
     resnet_launches, resnet_twin = phase_resnet50_int8(resnet, images)
@@ -6458,24 +6869,25 @@ def main():
         raise RuntimeError("kernel dequant_matmul was never launched on "
                            "resnet50_int8's main path")
     del resnet, images
-    torch.cuda.empty_cache()
+    free_card()
     qa_graph, qa_batches = phase_samediff_bert()
     phase_precision(qa_graph, qa_batches)
     del qa_graph, qa_batches
-    torch.cuda.empty_cache()
+    free_card()
     phase_seq2seq()
     phase_text_lstm()
     phase_word2vec()
-    torch.cuda.empty_cache()
+    free_card()
     phase_yolo2()
     phase_zoo_cnn()
     phase_ops_card()
-    torch.cuda.empty_cache()
+    free_card()
     phase_opbench()
-    torch.cuda.empty_cache()
+    free_card()
     emit({"phase": "host_profile", **HOST_PROFILES})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:
+        row["launches_graphs"] = graph_launches[row["name"]]
         row["launches_serve_http"] = http_launches["requests"][row["name"]]
         row["launches_serve_http_deploys"] = \
             http_launches["deploys"][row["name"]]
@@ -6492,7 +6904,7 @@ def main():
     # reading of this process (their rank processes share the card), the
     # card's memory freed
     del twin, mlp_twin, predict_twin, resnet_twin
-    torch.cuda.empty_cache()
+    free_card()
     parallel_launches = phase_parallel()
     shard_launches = phase_sharded_serve()
     for row in shard_rows:

@@ -29,6 +29,7 @@ int32), as ``jnp.asarray`` does with 64-bit types off.
 from __future__ import annotations
 
 import enum
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -574,22 +575,37 @@ class SameDiff:
         """The graph as fn(var_dict, placeholder_dict[, key]) -> list of
         output tensors: placeholders moved to the graph's device, run
         under ``torch.no_grad()`` and ``full_f32()``, each new input
-        signature counted by the dispatch census (tag ``sd:...``)."""
+        signature counted by the dispatch census (tag ``sd:...``) and
+        replayed as one CUDA graph (``captured_dispatch``; with a random
+        op's ``key`` it runs eagerly)."""
         outputs = tuple(outputs)
         placeholders = tuple(placeholders)
         cache_key = (outputs, placeholders, with_rng, self._graph_epoch())
         fn = self._fn_cache.get(cache_key)
         if fn is None:
-            from ..runtime.inference import counted_dispatch
+            from ..runtime.inference import captured_dispatch
+
+            # a weak reference: the graph holds its functions, and a
+            # cycle would keep a dropped graph's CUDA graphs until a
+            # collection
+            graph = weakref.ref(self)
 
             def raw(variables, ph, key=None):
-                ph = {k: self._tensor(v) for k, v in ph.items()}
+                sd = graph()
+                ph = {k: sd._tensor(v) for k, v in ph.items()}
                 with torch.no_grad(), full_f32():
-                    return self._trace(variables, ph, outputs, key)
+                    return sd._trace(variables, ph, outputs, key)
 
-            fn = counted_dispatch(raw, tag=f"sd:{id(self)}:{cache_key}")
+            fn = captured_dispatch(raw, f"sd:{id(self)}:{cache_key}",
+                                   self.device)
             self._fn_cache[cache_key] = fn
         return fn
+
+    def _release_graphs(self) -> None:
+        """Let go of the captured forwards' graphs and the arrays they
+        hold, once the arrays were replaced."""
+        from ..runtime.inference import release_captured
+        release_captured(self._fn_cache.values())
 
     def _rng_call_key(self) -> int:
         self._rng_calls = getattr(self, "_rng_calls", 0) + 1
@@ -680,6 +696,7 @@ class SameDiff:
 
     def set_array(self, name: str, value):
         self._arrays[name] = self._tensor(value)
+        self._release_graphs()
 
     def get_variable(self, name: str) -> SDVariable:
         return self._vars[name]

@@ -254,6 +254,7 @@ def fit(sd, iterator=None, num_epochs: int = 1, placeholders_fn=None,
             # repoint the graph's arrays before listeners (which may call
             # sd.output / save) run
             sd._arrays.update(params)
+            sd._release_graphs()
             sd._updater_state = state
             with span("train/device"):
                 loss_val = float(loss)  # host sync: device time lands here
@@ -273,5 +274,6 @@ def fit(sd, iterator=None, num_epochs: int = 1, placeholders_fn=None,
             if hasattr(lst, "epoch_done"):
                 lst.epoch_done(sd, epoch)
     sd._arrays.update(params)
+    sd._release_graphs()
     sd._updater_state = state
     return History(curves, num_epochs, iteration, (time.time() - t0) * 1000)

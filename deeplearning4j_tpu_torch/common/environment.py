@@ -508,18 +508,19 @@ class Environment:
 
     # -- dispatch census (runtime/inference.py counted_dispatch) ------------
     # One event = one new (tag, padded input signature) pair reaching an
-    # inference entry. The JAX package counts XLA compiles here; the port
-    # runs eagerly and compiles nothing per shape, so it counts the first
-    # dispatch of each shape instead: the set of shapes that captured CUDA
-    # graphs will replay (ROADMAP.md queue 1 item 12). The ladder
+    # inference entry or a decode step. The JAX package counts XLA
+    # compiles here; the port counts the signatures it captures as CUDA
+    # graphs (runtime/cuda_graphs.py), or runs eagerly. The ladder
     # invariant holds unchanged: K distinct request batch sizes give at
     # most ceil(log2(max_batch)) + 1 events per network.
 
     def record_compile(self, key, cache: str = "eager") -> bool:
         """Register a first-seen dispatch signature; returns False if
         ``key`` was already seen. New keys notify the listeners and bump
-        ``dl4j_compiles_total{kind,cache}`` (``cache="eager"``: nothing
-        was compiled or loaded, the signature ran eagerly)."""
+        ``dl4j_compiles_total{kind,cache}`` (``cache="captured"``: one
+        CUDA graph replays it; ``"eager"``: the signature runs eagerly,
+        on the CPU or with no graph; ``"eager:<reason>"``: its capture
+        was refused, or its collectives cross ranks)."""
         with self._compile_lock:
             if key in self._compile_keys:
                 return False

@@ -16,11 +16,14 @@ runs for CPU tensors:
   (``csrc/dequant_matmul.cu``), the MLP matmuls of an int8 twin.
 
 There the path was decided once per traced executable; here every eager
-call decides, so the counters tick once per call.
+call decides, so the counters tick once per call. A captured CUDA graph
+(``runtime/cuda_graphs.py``) decides once, at capture, and each replay
+repeats the decision's records and the launch counts (``_counts``).
 """
 from typing import Dict, Optional
 
 from ..common.metrics import registry
+from ._counts import deferred
 from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_attention_with_lse,
                               flash_attention_with_lse_plain)
@@ -42,6 +45,8 @@ def kernel_dispatch(kernel: str, path: str, reason: str = "") -> str:
     ``dl4j_kernel_dispatch_total{kernel,path}`` and updates the
     last-dispatch snapshot. ``reason`` says why the kernel was not taken
     (empty for the kernel path). Returns ``path``."""
+    if deferred(kernel_dispatch, kernel, path, reason):
+        return path       # a capture: each replay records it
     _last_dispatch[kernel] = {"kernel": kernel, "path": path,
                               "reason": reason or None}
     registry().counter(
@@ -76,6 +81,8 @@ def record_attention(path: str, reason: str = "",
     """Record one attention path decision: ticks
     ``dl4j_attn_dispatch_total{path}`` and
     ``dl4j_kernel_dispatch_total{kernel,path}``. Returns ``path``."""
+    if deferred(record_attention, path, reason, kernel):
+        return path       # a capture: each replay records it
     registry().counter(
         "dl4j_attn_dispatch_total",
         "Attention path decisions, one per call",

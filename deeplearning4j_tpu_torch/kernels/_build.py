@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -37,6 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _counters: Dict[tuple, object] = {}
+#: counter buffers a larger one replaced: a CUDA graph captured with one
+#: still launches on it, and holds its address, not the tensor
+_retired: List[object] = []
 
 
 def nvcc() -> str:
@@ -131,12 +134,27 @@ def counters(device, n: int):
     counts its blocks in, and the last one resets its counter to 0, so the
     buffer is all zeros between launches and one buffer per stream serves
     every launch on that stream. Made with ``torch.zeros`` once, and again
-    only when a launch needs more entries."""
+    only when a launch needs more entries; the smaller buffer is kept
+    (``_retired``), never freed, since a graph captured before may still
+    replay on it.
+
+    A CUDA graph bakes in the buffer of the stream it was captured on.
+    Each set of graphs (``runtime/cuda_graphs.py``) captures on a stream
+    of its own, after running the step once on it, so graphs that may
+    replay at the same time never share a buffer, and none is first made
+    inside a capture: this raises if one would be."""
     import torch
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (torch.device(device).index, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"kernel counters of {n} entries first needed inside a "
+                "CUDA-graph capture: run the step once on the capture "
+                "stream before capturing it")
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._counts import count_launch
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,7 +154,7 @@ def _flash_fwd(q, k, v, mask, causal, scale):
                 _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_fwd")
-    _flash_fwd.launches += 1
+    count_launch(_flash_fwd)
     return o, lse
 
 
@@ -173,7 +174,7 @@ def _flash_bwd_dq(q, k, v, g, o, lse, g_lse, mask, causal, scale):
                 int(causal), _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd_dq")
-    _flash_bwd_dq.launches += 1
+    count_launch(_flash_bwd_dq)
     return dq, delta
 
 
@@ -191,7 +192,7 @@ def _flash_bwd_dkv(q, k, v, g, lse, delta, mask, causal, scale):
                 int(causal), _DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd_dkv")
-    _flash_bwd_dkv.launches += 1
+    count_launch(_flash_bwd_dkv)
     return dk, dv
 
 

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._counts import count_launch
 
 #: the finfo.min mask of the gather path (causal_lm.py's _BIG_NEG)
 _BIG_NEG = torch.finfo(torch.float32).min
@@ -218,7 +219,7 @@ def paged_flash_decode(q, k_pages, v_pages, tables, lengths,
     D = q.shape[3]
     scale = D ** -0.5 if scale is None else float(scale)
     out = _launch(q, k_pages, v_pages, tables, lengths, scale)
-    paged_flash_decode.launches += 1
+    count_launch(paged_flash_decode)
     return out
 
 

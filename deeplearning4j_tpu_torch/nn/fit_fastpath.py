@@ -133,6 +133,26 @@ def _micro_batches(tree, k):
 
 
 class FitFastPathMixin:
+    # -- the params ------------------------------------------------------
+    @property
+    def _params(self):
+        """The param tree. Setting it lets go of the inference forward's
+        captured graphs (``runtime/inference.py::captured_dispatch``),
+        which hold the old tensors: they and the graphs' pool are freed
+        now, not at the next predict, which captures again."""
+        try:
+            return self.__dict__["_params"]
+        except KeyError:
+            raise AttributeError("_params") from None
+
+    @_params.setter
+    def _params(self, value):
+        self.__dict__["_params"] = value
+        fns = self.__dict__.get("_out_fns")
+        if fns:
+            from ..runtime.inference import release_captured
+            release_captured(fns.values())
+
     # -- memory levers ---------------------------------------------------
     def _remat_mode(self) -> str:
         """conf.remat, falling back to the Environment default

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -444,28 +445,36 @@ class ComputationGraph(FitFastPathMixin):
         return {n: self._stage(x) for n, x in zip(self.conf.inputs, inputs)}
 
     def _output_fn(self, training=False):
-        """The census-counted inference forward (``counted_dispatch``)
-        that ``output()`` and ``InferenceEngine`` share, one per
-        ``training`` flag: (params, {input name: tensor}) -> the output
-        vertices' activations in ``conf.outputs`` order."""
+        """The census-counted forward that ``output()`` and
+        ``InferenceEngine`` share, one per ``training`` flag: (params,
+        {input name: tensor}) -> the output vertices' activations in
+        ``conf.outputs`` order. Inference replays one CUDA graph a padded
+        signature (``captured_dispatch``), the training-mode forward runs
+        eagerly (``counted_dispatch``)."""
         fns = self.__dict__.setdefault("_out_fns", {})
         fn = fns.get(training)
         if fn is None:
-            from ...runtime.inference import counted_dispatch
+            from ...runtime.inference import (captured_dispatch,
+                                              counted_dispatch)
             # a quantized twin's tag stays apart from its original's
             tag = f"cg:{id(self)}:{int(training)}"
             prec = getattr(self, "_precision", None)
             if prec:
                 tag += f":{prec}"
 
+            # a weak reference, as MultiLayerNetwork's
+            net = weakref.ref(self)
+
             def forward(params, ind):
+                n = net()
                 with torch.no_grad(), full_f32():
-                    acts = self._forward(
-                        self._full_params(params),
-                        {k: self._stage(x) for k, x in ind.items()},
+                    acts = n._forward(
+                        n._full_params(params),
+                        {k: n._stage(x) for k, x in ind.items()},
                         training)
-                return [acts[o] for o in self.conf.outputs]
-            fn = counted_dispatch(forward, tag=tag)
+                return [acts[o] for o in n.conf.outputs]
+            fn = (counted_dispatch(forward, tag=tag) if training
+                  else captured_dispatch(forward, tag, self.device))
             fns[training] = fn
         return fn
 

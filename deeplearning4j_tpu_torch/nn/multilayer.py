@@ -22,6 +22,7 @@ raises ``NotImplementedError`` naming its item.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Dict, List
 
 import torch
@@ -227,13 +228,17 @@ class MultiLayerNetwork(FitFastPathMixin):
         return NDArray(out)
 
     def _output_fn(self, training=False):
-        """The census-counted inference forward (``counted_dispatch``)
-        that ``output()`` and ``InferenceEngine`` share, one per
-        ``training`` flag. Its input is staged on the network's device."""
+        """The census-counted forward that ``output()`` and
+        ``InferenceEngine`` share, one per ``training`` flag: inference
+        replays one CUDA graph a padded signature (``captured_dispatch``,
+        re-captured after ``fit`` or ``set_params`` replace the params),
+        the training-mode forward runs eagerly (``counted_dispatch``). Its
+        input is staged on the network's device."""
         fns = self.__dict__.setdefault("_out_fns", {})
         fn = fns.get(training)
         if fn is None:
-            from ..runtime.inference import counted_dispatch
+            from ..runtime.inference import (captured_dispatch,
+                                             counted_dispatch)
             # a quantized twin carries _precision: its census tag stays
             # apart from its full-precision original's (the first tag
             # segment is the metric's kind label)
@@ -242,11 +247,18 @@ class MultiLayerNetwork(FitFastPathMixin):
             if prec:
                 tag += f":{prec}"
 
+            # a weak reference: the network holds its forwards, and a
+            # cycle would keep a dropped network's graphs until a
+            # collection
+            net = weakref.ref(self)
+
             def forward(params, x):
+                n = net()
                 with torch.no_grad(), full_f32():
-                    return self._forward(self._full_params(params),
-                                         self._stage(x), training)
-            fn = counted_dispatch(forward, tag=tag)
+                    return n._forward(n._full_params(params), n._stage(x),
+                                      training)
+            fn = (counted_dispatch(forward, tag=tag) if training
+                  else captured_dispatch(forward, tag, self.device))
             fns[training] = fn
         return fn
 

@@ -159,8 +159,9 @@ def dot_product_attention(queries, keys, values, mask=None, scale=True,
     d = queries.shape[-1]
     logits = torch.matmul(queries, keys.transpose(-1, -2))
     if scale:
-        logits = logits / torch.sqrt(torch.tensor(d, dtype=logits.dtype,
-                                                  device=logits.device))
+        # sqrt(d) in the logits' dtype, as a host scalar: no copy to the
+        # card, so a CUDA graph can hold the step
+        logits = logits / torch.sqrt(torch.tensor(d, dtype=logits.dtype))
     if mask is not None:
         big_neg = torch.finfo(logits.dtype).min
         m = mask if mask.dtype == torch.bool else mask != 0

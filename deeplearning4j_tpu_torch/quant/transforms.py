@@ -315,9 +315,10 @@ def _fused_dequant_matmul(x2, q, scale):
                          "device")
     if not x2.is_cuda:
         return dequant_matmul_plain(x2, q, scale)
+    from ..kernels._counts import count_launch
     _check_kernel_args(x2, q, scale)
     out = _launch(x2, q, scale)
-    _fused_dequant_matmul.launches += 1
+    count_launch(_fused_dequant_matmul)
     return out
 
 

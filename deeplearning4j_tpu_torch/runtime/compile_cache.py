@@ -9,9 +9,10 @@ pull-on-boot copy through a fleet-shared directory
 
 The executable store (``AOTCompileCache``, the local/remote/tiered stores,
 ``aot_entry``, ``inventory``) waits for ``ROADMAP.md`` queue 1 item 11:
-the port runs its steps eagerly, so it has no executables to store yet,
-and :func:`push_to_remote` / :func:`pull_from_remote` move manifests
-only (``executables`` is always 0).
+the port's compiled steps are CUDA graphs (``runtime/cuda_graphs.py``),
+which cannot be written to disk, and :func:`push_to_remote` /
+:func:`pull_from_remote` move manifests only (``executables`` is always
+0).
 """
 from __future__ import annotations
 
@@ -117,9 +118,10 @@ COMPILE_SECONDS_BUCKETS = tuple(1e-3 * 2.0 ** i for i in range(20))
 
 
 def observe_compile(kind: str, cache_label: str, seconds: float):
-    """Record one step's materialization (build + first dispatch) in
-    ``dl4j_compile_seconds{kind,cache}``. The port's engines warm eagerly,
-    with nothing stored, and report ``cache="bypass"``."""
+    """Record one step's materialization (its first run and its CUDA-graph
+    capture) in ``dl4j_compile_seconds{kind,cache}``: ``cache`` is
+    ``captured``, ``eager`` or ``eager:<reason>``
+    (``runtime/cuda_graphs.py``)."""
     try:
         from ..common.metrics import registry
         registry().histogram(

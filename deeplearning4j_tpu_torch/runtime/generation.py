@@ -35,7 +35,18 @@ PyTorch on the model's device.
   kernel as the Q=1 step) and commits the longest matching prefix plus
   one target token.
 - **sampling** — greedy, temperature and top-k per slot, Gumbel-max with
-  noise from a ``torch.Generator`` seeded from ``(seed, step)``.
+  noise hashed from ``(seed, step)`` (:func:`step_uniforms`).
+- **captured steps** — every prefill (prompt bucket, batch rung), the
+  decode step and the verify step is one signature: on a CUDA engine it
+  is captured once as a CUDA graph and replayed after that
+  (``runtime/cuda_graphs.py``), on a CPU engine the same body runs
+  eagerly on the same static buffers. A step's inputs are views of one
+  packed buffer, filled from one pinned staging buffer by one copy; its
+  output comes back in one copy. Each signature records one census event
+  under the JAX package's tags (``prefill``, ``decode``, ``spec``, with
+  the twin's precision suffix), ``len(ladder) * len(batch ladder) + 1``
+  (+1 with speculation) after ``warmup()`` and none after that;
+  ``stats()["graphs"]`` lists them.
 
 The KV pools are written in place by the model's step functions (the JAX
 package donates them to its jitted steps instead).
@@ -64,9 +75,9 @@ Observability (the JAX package's names): ``dl4j_decode_requests_total``,
 ``dl4j_kv_prefix_{hits,misses,evictions}_total``,
 ``dl4j_kv_prefix_blocks{model}``, ``dl4j_decode_ttft_seconds{model}``
 (exemplared with trace ids), ``dl4j_decode_itl_seconds{model}`` and the
-goodput split ``dl4j_tokens_total{model,slo=ok|violated}``; each step
-``warmup()`` runs lands on ``dl4j_compile_seconds{kind,cache="bypass"}``
-(nothing is stored: the port's steps run eagerly). Each
+goodput split ``dl4j_tokens_total{model,slo=ok|violated}``; each
+signature's capture lands on ``dl4j_compile_seconds{kind,cache}``
+(``captured``; ``eager`` on the CPU; ``eager:<reason>``). Each
 request's trace gains ``generation/prefill`` and ``generation/decode``
 spans, and its result carries a ``phases`` dict
 (``queue_s``/``prefill_s``/``decode_s``).
@@ -74,8 +85,10 @@ spans, and its result carries a ``phases`` dict
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -87,8 +100,7 @@ from ..common.environment import environment
 from ..common.locks import ordered_condition, ordered_lock, ordered_rlock
 from ..common.metrics import exponential_buckets, registry
 from ..common.tracing import current_context, record_disposition, tracer
-from . import sharded
-from .compile_cache import observe_compile
+from . import cuda_graphs, sharded
 from .inference import EngineClosedError, bucket_for, bucket_ladder
 
 log = logging.getLogger(__name__)
@@ -114,21 +126,43 @@ def _cdiv(a: int, b: int) -> int:
 # sampling
 # ---------------------------------------------------------------------------
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The noise source of one engine step: a generator on ``device``
-    seeded from ``(seed, step)`` (JAX folds ``step`` into a PRNG key)."""
-    g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-    return g
+_M32 = 0xFFFFFFFF
 
 
-def sample_tokens(logits, temperature, top_k, generator: torch.Generator):
+def _mix32(x):
+    """A 32-bit integer finaliser (two multiply-xorshift rounds) on int64
+    tensors holding values below 2**32; every product stays below 2**59,
+    so the arithmetic is exact on every device."""
+    x = ((x >> 16) ^ x) * 0x45D9F3B & _M32
+    x = ((x >> 16) ^ x) * 0x45D9F3B & _M32
+    return (x >> 16) ^ x
+
+
+def step_uniforms(seed, step, shape, device) -> torch.Tensor:
+    """Uniform draws in (0, 1), float32 ``shape`` [rows, V], for one
+    engine step: a counter-based hash of (seed, step, row, column) in
+    plain integer ops. ``seed`` and ``step`` are ints or 0-d tensors (a
+    captured step reads them from its static inputs), so the draws are a
+    function of (seed, step) alone: the same in an eager step and in a
+    CUDA-graph replay, and on every device (the JAX package folds
+    ``step`` into a PRNG key instead)."""
+    seed = torch.as_tensor(seed, device=device).long() & _M32
+    step = torch.as_tensor(step, device=device).long() & _M32
+    key = _mix32(seed ^ _mix32((step + 0x9E3779B9) & _M32))
+    idx = torch.arange(math.prod(shape), device=device,
+                       dtype=torch.int64).view(shape)
+    h = _mix32((_mix32(idx ^ key) + key) & _M32)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_tokens(logits, temperature, top_k, seed, step):
     """Next-token sampling over ``logits`` [S, V] (f32).
 
     ``temperature`` [S]: <= 0 means greedy argmax for that slot.
     ``top_k`` [S]: <= 0 disables the top-k filter for that slot.
     Gumbel-max sampling, so greedy/temperature/top-k share one batched
-    computation with fixed shapes.
+    computation with fixed shapes; the noise is
+    :func:`step_uniforms` of (``seed``, ``step``).
     """
     V = logits.shape[-1]
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -137,8 +171,7 @@ def sample_tokens(logits, temperature, top_k, generator: torch.Generator):
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
     thr = torch.gather(sorted_desc, 1, (k - 1)[:, None])
     masked = torch.where(scaled >= thr, scaled, -torch.inf)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+    u = step_uniforms(seed, step, tuple(logits.shape), logits.device)
     gumbel = -torch.log(-torch.log(u))
     sampled = torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
@@ -392,7 +425,7 @@ class DecodeEngine:
       ``on_token`` streams tokens as they are sampled.
     - ``warmup()`` runs one prefill per (prompt bucket, batch rung) pair
       plus the decode step (plus the speculative step) before traffic:
-      it builds the kernels and warms the device's libraries.
+      it builds the kernels and captures every step's graph.
     - ``drain()/close()/start()`` manage the loop thread's lifecycle.
 
     ``slots`` bounds concurrent sequences (``DL4J_TPU_DECODE_SLOTS``);
@@ -651,33 +684,22 @@ class DecodeEngine:
                                    self.param_spec)
                 if self._spec_enabled else None)
 
-    def _on_mesh(self, kind, tensors, fn):
-        """``fn()``: on a sharded leader after the step's record, on the
-        mesh's channel thread."""
-        if self._link is None:
-            return fn()
-        return self._link.call(kind, tensors, fn)
-
     def _replay(self, kind, t):
         """(Follower) one of the leader's steps on this rank's shard: the
-        model calls, no sampling."""
+        record holds the step's shape and its packed inputs, and the same
+        step (graph or eager body) runs on them; its output stays on the
+        card."""
+        name = {sharded.PREFILL: "prefill", sharded.DECODE: "decode",
+                sharded.SPEC: "spec"}.get(kind)
+        if name is None:
+            raise RuntimeError(f"unknown decode step record {kind}")
         with self._dispatch_lock, torch.no_grad():
-            params, dparams = self._step_params()
-            if kind == sharded.PREFILL:
-                ids, tables, lengths, starts = t
-                self.model.paged_prefill(params, self._cache, ids, tables,
-                                         lengths, starts)
-                if self._spec_enabled:
-                    self.draft.paged_prefill(dparams, self._dcache, ids,
-                                             tables, lengths, starts)
-            elif kind == sharded.DECODE:
-                tables, tokens, lengths = t
-                self.model.paged_decode(params, self._cache, tables,
-                                        tokens[:, None], lengths)
-            elif kind == sharded.SPEC:
-                self._spec(params, dparams, self._cache, self._dcache, *t)
-            else:
-                raise RuntimeError(f"unknown decode step record {kind}")
+            step = self._graph_step(name, tuple(int(d) for d in
+                                                t[0].tolist()))
+            with self._graphs.lock:
+                step.inputs.load(t[1])
+                self._graphs.run(step, lambda: self._bodies[name](
+                    step.inputs.views), eager=self._eager_reason)
             self._step += 1
 
     def _is_follower(self) -> bool:
@@ -690,86 +712,168 @@ class DecodeEngine:
 
     # -- steps ---------------------------------------------------------------
     def _build_steps(self):
+        """The step bodies and the graphs that replay them
+        (``runtime/cuda_graphs.py``): one signature for each (prompt
+        bucket, batch rung) prefill, one decode and one verify step,
+        each captured once on a CUDA engine and replayed after that (run
+        eagerly on a CPU engine, and on a mesh whose steps cross ranks).
+        A body reads its inputs from static views of one packed buffer
+        and returns the one tensor the host copies back. The KV pools are
+        written in place, so a body returns no cache. A body reaches the
+        engine through a weak reference: the engine holds its bodies, and
+        a cycle would keep a dropped engine's pools until a collection."""
         model = self.model
         draft = self.draft if self._spec_enabled else None
         k = self.spec_k
         dev = self.device
+        engine = weakref.ref(self)
 
-        def prefill_fn(params, cache, ids, tables, lengths, starts, temps,
-                       top_ks, seed, step):
-            # starts [B]: rows already committed by attached prefix-cache
-            # blocks — the call prefills only the tail (0 = cold)
-            cache, logits = model.paged_prefill(params, cache, ids,
-                                                tables, lengths, starts)
-            toks = sample_tokens(logits, temps, top_ks,
-                                 step_generator(seed, step, dev))
-            return cache, toks
+        def prefill_body(v):
+            def body():
+                # starts: rows already committed by attached prefix-cache
+                # blocks — the call prefills only the tail (0 = cold)
+                eng = engine()
+                params, dparams = eng._step_params()
+                _, logits = model.paged_prefill(
+                    params, eng._cache, v["ids"], v["tables"],
+                    v["lengths"], v["starts"])
+                if draft is not None:
+                    # the draft cache must hold the same committed rows as
+                    # the target's, so the draft prefills in the same step
+                    draft.paged_prefill(dparams, eng._dcache, v["ids"],
+                                        v["tables"], v["lengths"],
+                                        v["starts"])
+                return sample_tokens(logits, v["temps"], v["top_ks"],
+                                     v["seed"], v["step"])
+            return body
 
-        def prefill_draft_fn(params, dparams, cache, dcache, ids, tables,
-                             lengths, starts, temps, top_ks, seed, step):
-            # the draft cache must hold the same committed rows as the
-            # target's, so the draft prefills in the same step
-            cache, logits = model.paged_prefill(params, cache, ids,
-                                                tables, lengths, starts)
-            dcache, _ = draft.paged_prefill(dparams, dcache, ids, tables,
-                                            lengths, starts)
-            toks = sample_tokens(logits, temps, top_ks,
-                                 step_generator(seed, step, dev))
-            return cache, dcache, toks
+        def decode_body(v):
+            def body():
+                tokens = v["tokens"]
+                eng = engine()
+                _, logits = model.paged_decode(
+                    eng._step_params()[0], eng._cache, v["tables"],
+                    tokens[:, None], v["lengths"])
+                nxt = sample_tokens(logits[:, 0], v["temps"], v["top_ks"],
+                                    v["seed"], v["step"])
+                return torch.where(v["active"] != 0, nxt, tokens)
+            return body
 
-        def decode_fn(params, cache, tables, tokens, lengths, active,
-                      temps, top_ks, seed, step):
-            cache, logits = model.paged_decode(params, cache, tables,
-                                               tokens[:, None], lengths)
-            nxt = sample_tokens(logits[:, 0], temps, top_ks,
-                                step_generator(seed, step, dev))
-            return cache, torch.where(active, nxt, tokens)
-
-        def spec_fn(params, dparams, cache, dcache, tables, tokens,
-                    lengths, active):
-            # greedy-only speculative step (Leviathan et al., 2023):
-            # draft proposes k tokens one at a time (k+1 steps — the last
-            # is write-only so the draft cache covers every row the
-            # target may commit), the target verifies all k+1 positions
-            # in ONE paged_decode pass, and the longest drafted prefix
-            # matching the target's own greedy choices is committed plus
-            # one free target token. Rejected rows are overwritten by the
-            # next step's writes before any mask admits them.
-            S = tokens.shape[0]
-            prev = tokens
-            drafted = []
-            for j in range(k + 1):
-                dcache, dlogits = draft.paged_decode(
-                    dparams, dcache, tables, prev[:, None], lengths + j)
-                if j < k:
-                    prev = torch.argmax(dlogits[:, 0, :],
-                                        dim=-1).to(torch.int32)
-                    drafted.append(prev)
-            d = torch.stack(drafted, dim=1)                      # [S, k]
-            verify_in = torch.cat([tokens[:, None], d], dim=1)
-            cache, vlogits = model.paged_decode(params, cache, tables,
+        def spec_body(v):
+            # greedy-only speculative step (Leviathan et al., 2023): draft
+            # proposes k tokens one at a time (k+1 steps — the last is
+            # write-only so the draft cache covers every row the target
+            # may commit), the target verifies all k+1 positions in ONE
+            # paged_decode pass, and the longest drafted prefix matching
+            # the target's own greedy choices is committed plus one free
+            # target token. Rejected rows are overwritten by the next
+            # step's writes before any mask admits them. Returns [S, k+2]:
+            # the k+1 committed tokens, then how many of them count.
+            def body():
+                eng = engine()
+                params, dparams = eng._step_params()
+                tables, tokens, lengths = (v["tables"], v["tokens"],
+                                           v["lengths"])
+                S = tokens.shape[0]
+                prev = tokens
+                drafted = []
+                for j in range(k + 1):
+                    _, dlogits = draft.paged_decode(
+                        dparams, eng._dcache, tables, prev[:, None],
+                        lengths + j)
+                    if j < k:
+                        prev = torch.argmax(dlogits[:, 0, :],
+                                            dim=-1).to(torch.int32)
+                        drafted.append(prev)
+                d = torch.stack(drafted, dim=1)                  # [S, k]
+                verify_in = torch.cat([tokens[:, None], d], dim=1)
+                _, vlogits = model.paged_decode(params, eng._cache, tables,
                                                 verify_in, lengths)
-            g = torch.argmax(vlogits, dim=-1).to(torch.int32)   # [S, k+1]
-            match = (d == g[:, :k]).to(torch.int32)
-            n_acc = torch.sum(torch.cumprod(match, dim=1), dim=1)  # [S]
-            idx = torch.arange(k + 1, device=dev)[None, :]
-            g_at = torch.gather(g, 1, n_acc[:, None].long())
-            pad_d = torch.cat(
-                [d, torch.zeros((S, 1), dtype=torch.int32, device=dev)],
-                dim=1)
-            commit = torch.where(idx < n_acc[:, None], pad_d,
-                                 torch.where(idx == n_acc[:, None], g_at, 0))
-            n_commit = torch.where(active, n_acc + 1, 0).to(torch.int32)
-            return cache, dcache, commit, n_commit
+                g = torch.argmax(vlogits, dim=-1).to(torch.int32)  # [S, k+1]
+                match = (d == g[:, :k]).to(torch.int32)
+                n_acc = torch.sum(torch.cumprod(match, dim=1), dim=1)
+                idx = torch.arange(k + 1, device=dev)[None, :]
+                g_at = torch.gather(g, 1, n_acc[:, None].long())
+                pad_d = torch.cat(
+                    [d, torch.zeros((S, 1), dtype=torch.int32, device=dev)],
+                    dim=1)
+                commit = torch.where(idx < n_acc[:, None], pad_d,
+                                     torch.where(idx == n_acc[:, None],
+                                                 g_at, 0))
+                n_commit = torch.where(v["active"] != 0, n_acc + 1,
+                                       0).to(torch.int32)
+                return torch.cat([commit, n_commit[:, None]], dim=1)
+            return body
 
-        self._prefill = prefill_draft_fn if self._spec_enabled \
-            else prefill_fn
-        self._spec = spec_fn if self._spec_enabled else None
-        self._decode = decode_fn
+        self._bodies = {"prefill": prefill_body, "decode": decode_body,
+                        "spec": spec_body}
+        # a quantized twin carries _precision: its census tags stay apart
+        # from the full-precision model's (the first tag segment is the
+        # metric's kind label)
+        prec = getattr(model, "_precision", None)
+        suffix = f":{prec}" if prec else ""
+        self._tags = {kind: kind + suffix for kind in self._bodies}
+        self._graphs = cuda_graphs.StepGraphs(dev)
+        self._steps: Dict[tuple, cuda_graphs.Step] = {}
+        #: why every step runs eagerly (``eager:<reason>``): the backend
+        #: of a mesh whose steps issue collectives between ranks; None
+        #: captures
+        self._eager_reason = cuda_graphs.mesh_reason(self.mesh)
 
-    def _t(self, a, dtype=torch.int32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
+    def _fields(self, kind, shape):
+        """(name, shape, dtype) of a step's packed inputs; ``shape`` is
+        (batch rung, prompt bucket) for a prefill, (slots,) otherwise."""
+        i32, f32 = torch.int32, torch.float32
+        rows, MB = shape[0], self.max_blocks
+        if kind == "prefill":
+            return (("ids", (rows, shape[1]), i32),
+                    ("tables", (rows, MB), i32),
+                    ("lengths", (rows,), i32), ("starts", (rows,), i32),
+                    ("temps", (rows,), f32), ("top_ks", (rows,), i32),
+                    ("seed", (), i32), ("step", (), i32))
+        fields = (("tables", (rows, MB), i32), ("tokens", (rows,), i32),
+                  ("lengths", (rows,), i32), ("active", (rows,), i32))
+        if kind == "decode":
+            fields += (("temps", (rows,), f32), ("top_ks", (rows,), i32),
+                       ("seed", (), i32), ("step", (), i32))
+        return fields
+
+    def _graph_step(self, kind, shape):
+        """The step of one signature: its packed inputs and graph."""
+        step = self._steps.get((kind, shape))
+        if step is not None:
+            return step
+        fields = self._fields(kind, shape)
+        sig = tuple((n, sh, str(dt).replace("torch.", ""))
+                    for n, sh, dt in fields)
+        if kind == "prefill" and self._spec_enabled:
+            sig += (("draft", self.spec_k),)
+        desc = (f"batch={shape[0]} bucket={shape[1]}" if kind == "prefill"
+                else f"slots={shape[0]}")
+        step = self._steps[(kind, shape)] = self._graphs.step(
+            self._tags[kind], sig,
+            lambda: cuda_graphs.PackedInputs(self.device, fields), desc)
+        return step
+
+    def _launch(self, kind, shape, values, record_kind):
+        """One step: fill its static inputs from the host ``values`` (one
+        copy to the card), send its record on a sharded leader, run its
+        graph, and copy its output to the host (the step's one
+        device-to-host copy: the host needs the tokens for its stop
+        checks)."""
+        step = self._graph_step(kind, shape)
+
+        def run():
+            with self._graphs.lock:
+                out = self._graphs.run(step, lambda: self._bodies[kind](
+                    step.inputs.views), eager=self._eager_reason)
+                return out.cpu().numpy()
+        with self._graphs.lock:
+            buf = step.inputs.fill(values)
+        if self._link is None:
+            return run()
+        return self._link.call(
+            record_kind, (torch.tensor(shape, dtype=torch.int32), buf), run)
 
     def _run_prefill(self, ids, tables, lengths, starts, temps, top_ks):
         """One batched prefill: ``ids`` [B, Tb] padded prompt *tails*,
@@ -783,23 +887,12 @@ class DecodeEngine:
         with self._dispatch_lock, torch.no_grad():
             self._dispatch_started_at = time.monotonic()
             try:
-                args = (self._t(ids), self._t(tables), self._t(lengths),
-                        self._t(starts), self._t(temps, torch.float32),
-                        self._t(top_ks), self._seed, self._step)
-
-                def step():
-                    params, dparams = self._step_params()
-                    if self._spec_enabled:
-                        cache, dcache, toks = self._prefill(
-                            params, dparams, self._cache, self._dcache,
-                            *args)
-                        self._dcache = dcache
-                    else:
-                        cache, toks = self._prefill(params, self._cache,
-                                                    *args)
-                    self._cache = cache
-                    return toks.cpu().numpy()
-                toks = self._on_mesh(sharded.PREFILL, args[:4], step)
+                toks = self._launch(
+                    "prefill", tuple(ids.shape),
+                    {"ids": ids, "tables": tables, "lengths": lengths,
+                     "starts": starts, "temps": temps, "top_ks": top_ks,
+                     "seed": self._seed, "step": self._step},
+                    sharded.PREFILL)
                 self._step += 1
                 return toks
             finally:
@@ -811,17 +904,13 @@ class DecodeEngine:
         with self._dispatch_lock, torch.no_grad():
             self._dispatch_started_at = time.monotonic()
             try:
-                args = (self._t(self._tables), self._t(self._tokens),
-                        self._t(self._lengths), self._t(active, torch.bool),
-                        self._t(self._temps, torch.float32),
-                        self._t(self._topks), self._seed, self._step)
-
-                def step():
-                    cache, nxt = self._decode(self._step_params()[0],
-                                              self._cache, *args)
-                    self._cache = cache
-                    return nxt.cpu().numpy()
-                nxt = self._on_mesh(sharded.DECODE, args[:3], step)
+                nxt = self._launch(
+                    "decode", (self.slots,),
+                    {"tables": self._tables, "tokens": self._tokens,
+                     "lengths": self._lengths, "active": active,
+                     "temps": self._temps, "top_ks": self._topks,
+                     "seed": self._seed, "step": self._step},
+                    sharded.DECODE)
                 self._step += 1
                 return nxt
             finally:
@@ -834,19 +923,13 @@ class DecodeEngine:
         with self._dispatch_lock, torch.no_grad():
             self._dispatch_started_at = time.monotonic()
             try:
-                args = (self._t(self._tables), self._t(self._tokens),
-                        self._t(self._lengths), self._t(active, torch.bool))
-
-                def step():
-                    params, dparams = self._step_params()
-                    cache, dcache, commit, n_commit = self._spec(
-                        params, dparams, self._cache, self._dcache, *args)
-                    self._cache = cache
-                    self._dcache = dcache
-                    return commit.cpu().numpy(), n_commit.cpu().numpy()
-                out = self._on_mesh(sharded.SPEC, args, step)
+                out = self._launch(
+                    "spec", (self.slots,),
+                    {"tables": self._tables, "tokens": self._tokens,
+                     "lengths": self._lengths, "active": active},
+                    sharded.SPEC)
                 self._step += 1
-                return out
+                return out[:, :-1], out[:, -1]
             finally:
                 self._dispatch_started_at = None
 
@@ -866,27 +949,22 @@ class DecodeEngine:
                     "warmup() while sequences are active would overwrite "
                     "live KV rows; warm before taking traffic")
         warmed = []
-
-        def timed(kind, fn, *args):
-            t0 = time.perf_counter()
-            fn(*args)
-            observe_compile(kind, "bypass", time.perf_counter() - t0)
         for b in self.ladder:
             for bb in self.batch_ladder:
                 key = ("prefill", bb, b)
                 if key not in self._warmed:
-                    timed("prefill", self._run_prefill,
-                          np.zeros((bb, b), np.int32),
-                          np.zeros((bb, self.max_blocks), np.int32),
-                          np.ones(bb, np.int32), np.zeros(bb, np.int32),
-                          np.zeros(bb, np.float32), np.zeros(bb, np.int32))
+                    self._run_prefill(
+                        np.zeros((bb, b), np.int32),
+                        np.zeros((bb, self.max_blocks), np.int32),
+                        np.ones(bb, np.int32), np.zeros(bb, np.int32),
+                        np.zeros(bb, np.float32), np.zeros(bb, np.int32))
                     self._warmed.add(key)
             warmed.append(b)
         if "decode" not in self._warmed:
-            timed("decode", self._run_decode, np.zeros(self.slots, bool))
+            self._run_decode(np.zeros(self.slots, bool))
             self._warmed.add("decode")
         if self._spec_enabled and "spec" not in self._warmed:
-            timed("spec", self._run_spec, np.zeros(self.slots, bool))
+            self._run_spec(np.zeros(self.slots, bool))
             self._warmed.add("spec")
         return warmed
 
@@ -1683,11 +1761,14 @@ class DecodeEngine:
 
     def close(self, timeout_s: float = 30.0) -> bool:
         """Permanent :meth:`drain`; a sharded leader then ends the
-        followers' engine."""
+        followers' engine. The captured steps' graphs and their memory
+        pool go (``StepGraphs.release``)."""
         self._closed = True
         drained = self.drain(timeout_s)
         if self._link is not None:
             self._link.close()
+        with self._dispatch_lock:
+            self._graphs.release()
         return drained
 
     def stop(self):
@@ -1795,6 +1876,7 @@ class DecodeEngine:
         s["kv_blocks"] = self.kv_blocks
         s["prefill_batch"] = self.prefill_batch
         s["spec_k"] = self.spec_k if self._spec_enabled else 0
+        s["graphs"] = self._graphs.report()
         if s["spec_proposed"]:
             s["spec_acceptance"] = round(
                 s["spec_accepted"] / s["spec_proposed"], 4)

@@ -18,13 +18,12 @@ plus ``batchLimit``/``queueLimit`` request coalescing).
   ``max_batch`` window into ONE padded dispatch and resolves each future
   with its unpadded slice, brought to the host.
 
-The JAX package buckets to bound XLA compiles. The port runs eagerly, so
-the ladder bounds the set of dispatch shapes instead: ``counted_dispatch``
-records each first-seen (tag, padded input signature) in the
-environment's census, the shapes CUDA-graph capture will replay
-(``ROADMAP.md`` queue 1 item 12). The same bucketing rides the direct
-``MultiLayerNetwork.output()`` and ``ComputationGraph.output()`` paths
-through ``maybe_pad_tree``.
+The JAX package buckets to bound XLA compiles; the port's ladder bounds
+the CUDA graphs it captures: ``captured_dispatch`` records each
+first-seen (tag, padded input signature) in the environment's census and
+replays one graph of it from then on (``runtime/cuda_graphs.py``). The
+same bucketing rides the direct ``MultiLayerNetwork.output()`` and
+``ComputationGraph.output()`` paths through ``maybe_pad_tree``.
 
 A ``MultiLayerNetwork``, a ``ComputationGraph`` or a ``SameDiff`` graph
 (with ``outputs=[...]``, a placeholder dict a request) is served.
@@ -38,7 +37,9 @@ other bucket runs whole on every rank. The mesh's first rank leads: each
 of its dispatches (``infer``, ``submit``, ``warmup``) goes to the other
 ranks as a record first, whose channel thread runs the same dispatch
 (``runtime/sharded.py``); ``close()`` on the leader ends the followers'
-engine. ``infer``/``submit`` on a follower raise.
+engine. ``infer``/``submit`` on a follower raise. A dispatch over a mesh
+of more than one rank runs eagerly, its collectives crossing ranks
+(``eager:<backend>`` in ``stats()["graphs"]``).
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ from ..common.locks import ordered_condition, ordered_lock
 from ..common.metrics import linear_buckets, registry
 from ..common.tracing import (current_context, record_disposition, span,
                               tracer, use_context)
-from . import sharded
+from . import cuda_graphs, sharded
 
 log = logging.getLogger(__name__)
 
@@ -205,7 +206,9 @@ def counted_dispatch(fn: Callable, tag: str) -> Callable:
     """``fn`` wrapped with the dispatch census: each new input signature
     records one event (``Environment.record_compile``) and then runs
     ``fn`` eagerly, as every later call does. The port's counterpart of
-    the JAX package's ``counted_jit``, which counts XLA compiles.
+    the JAX package's ``counted_jit``, which counts XLA compiles; its
+    capturing form, which replays one CUDA graph a signature, is
+    :func:`captured_dispatch` (``runtime/cuda_graphs.py``).
 
     The signature is computed from ``args[1:]``: by convention the first
     argument is the parameter tree, whose shapes change only on re-init.
@@ -221,6 +224,70 @@ def counted_dispatch(fn: Callable, tag: str) -> Callable:
         return fn(*args)
 
     return wrapped
+
+
+def _param_key(params) -> tuple:
+    """What a captured forward over ``params`` holds: each leaf (by
+    identity; a quantized leaf with its ``q`` and ``scale``) with the
+    address of its storage, then the ``matmul_precision`` in force."""
+    out: list = []
+    for leaf in _tree_leaves(params):
+        out.append(leaf)
+        for t in (leaf, getattr(leaf, "q", None),
+                  getattr(leaf, "scale", None)):
+            if isinstance(t, torch.Tensor):
+                out.append(t.data_ptr())
+    out.append(environment().matmul_precision())
+    return tuple(out)
+
+
+def captured_dispatch(fn: Callable, tag: str, device) -> Callable:
+    """:func:`counted_dispatch`'s capturing form, with its census (one
+    event per ``(tag, signature)``): each input signature gets static
+    buffers on ``device`` and one CUDA graph of ``fn(params, *buffers)``,
+    replayed by every later call (``runtime/cuda_graphs.py``; on the CPU
+    the same body runs eagerly on the same buffers). A graph is keyed on
+    the identity of the param tensors and the precision in force
+    (:func:`_param_key`), so a call after ``fit``,
+    ``set_params``, a reload or a precision change captures again. A
+    signature with a host value among its inputs (a Python scalar) runs
+    eagerly, as ``eager:host_value``, and so does a call given an
+    ``eager`` reason (``eager:<reason>``). Outputs come back as copies.
+    ``wrapped.graphs`` is the :class:`~.cuda_graphs.StepGraphs`."""
+    graphs = cuda_graphs.StepGraphs(device)
+
+    def wrapped(*args, eager: Optional[str] = None):
+        params, data = args[0], args[1:]
+        sig = _signature(data)
+        leaves = _tree_leaves(data)
+        with graphs.lock:
+            if not all(isinstance(x, torch.Tensor) for x in leaves):
+                step = graphs.step(tag, sig, lambda: None)
+                return graphs.run(step, lambda: lambda: fn(*args),
+                                  eager="host_value")
+            step = graphs.step(tag, sig, lambda: _tree_map(
+                lambda x: torch.empty_like(x, device=graphs.device), data))
+            for buf, x in zip(_tree_leaves(step.inputs), leaves):
+                buf.copy_(x)
+            out = graphs.run(
+                step, lambda: lambda: fn(params, *step.inputs),
+                _param_key(params), eager=eager)
+            return _tree_map(lambda t: t.clone() if isinstance(
+                t, torch.Tensor) else t, out)
+
+    wrapped.graphs = graphs
+    return wrapped
+
+
+def release_captured(fns) -> None:
+    """Let go of the graphs (and the params they hold) of every
+    :func:`captured_dispatch` among ``fns``: a model whose params were
+    replaced calls it, so the old params and the graphs' pool are freed
+    then, not at its next predict."""
+    for fn in fns:
+        graphs = getattr(fn, "graphs", None)
+        if graphs is not None:
+            graphs.release()
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +352,13 @@ class _MultiLayerAdapter(_Params):
     def inputs_of(self, request) -> List[torch.Tensor]:
         return [_unwrap(request)]
 
-    def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [self.model._output_fn(False)(self.live(), inputs[0])]
+    def run(self, inputs: List[torch.Tensor],
+            eager: Optional[str] = None) -> List[torch.Tensor]:
+        return [self.model._output_fn(False)(self.live(), inputs[0],
+                                             eager=eager)]
+
+    def graphs(self):
+        return self.model._output_fn(False).graphs
 
     def package(self, outputs: List[torch.Tensor]):
         from ..ndarray.ndarray import NDArray
@@ -312,9 +384,14 @@ class _GraphAdapter(_Params):
                              f"got {len(request)}")
         return [_unwrap(x) for x in request]
 
-    def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def run(self, inputs: List[torch.Tensor],
+            eager: Optional[str] = None) -> List[torch.Tensor]:
         ind = {n: x for n, x in zip(self.input_names, inputs)}
-        return list(self.model._output_fn(False)(self.live(), ind))
+        return list(self.model._output_fn(False)(self.live(), ind,
+                                                 eager=eager))
+
+    def graphs(self):
+        return self.model._output_fn(False).graphs
 
     def package(self, outputs: List[torch.Tensor]):
         from ..ndarray.ndarray import NDArray
@@ -334,6 +411,7 @@ class _SameDiffAdapter(_Params):
         self.out_names = [o.name if hasattr(o, "name") else o
                           for o in outputs]
         self.ph_names: Optional[List[str]] = None
+        self._fn = None
 
     def inputs_of(self, request) -> List[torch.Tensor]:
         if not isinstance(request, dict):
@@ -345,15 +423,21 @@ class _SameDiffAdapter(_Params):
                              f"{self.ph_names} of the first request")
         return [_unwrap(request[n]) for n in self.ph_names]
 
-    def run(self, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def run(self, inputs: List[torch.Tensor],
+            eager: Optional[str] = None) -> List[torch.Tensor]:
         sd = self.model
         ph = {n: x for n, x in zip(self.ph_names, inputs)}
         if any(node.needs_key for node in sd._ops.values()):
-            fn = sd.make_function(self.out_names, tuple(self.ph_names),
-                                  with_rng=True)
-            return list(fn(self.live(), ph, sd._rng_call_key()))
-        fn = sd.make_function(self.out_names, tuple(self.ph_names))
-        return list(fn(self.live(), ph))
+            fn = self._fn = sd.make_function(
+                self.out_names, tuple(self.ph_names), with_rng=True)
+            return list(fn(self.live(), ph, sd._rng_call_key(),
+                           eager=eager))
+        fn = self._fn = sd.make_function(self.out_names,
+                                         tuple(self.ph_names))
+        return list(fn(self.live(), ph, eager=eager))
+
+    def graphs(self):
+        return getattr(self._fn, "graphs", None)
 
     def package(self, outputs: List[torch.Tensor]):
         from ..ndarray.ndarray import NDArray
@@ -584,7 +668,8 @@ class InferenceEngine:
             padded[0].shape[0] % self._data_size == 0
         if split:
             padded = [local_slice(x, self.mesh, P(DATA)) for x in padded]
-        outs = self._adapter.run(padded)
+        outs = self._adapter.run(padded,
+                                 eager=cuda_graphs.mesh_reason(self.mesh))
         if split:
             outs = [all_gather_raw(o, DATA, self.mesh, dim=0) for o in outs]
         return outs
@@ -1046,11 +1131,17 @@ class InferenceEngine:
 
     def close(self, timeout_s: float = 30.0) -> bool:
         """Permanent drain: like drain(), but the engine can never be
-        restarted. Idempotent. Returns True when fully drained."""
+        restarted. Idempotent. Returns True when fully drained. The
+        model's captured forward lets go of its graphs (a later predict
+        captures again): a SameDiff graph, which references itself, would
+        otherwise keep them until a collection."""
         self._closed = True
         drained = self.drain(timeout_s)
         if self._link is not None:
             self._link.close()     # a leader ends the followers' engine
+        graphs = self._adapter.graphs()
+        if graphs is not None:
+            graphs.release()
         return drained
 
     def __enter__(self):
@@ -1235,4 +1326,6 @@ class InferenceEngine:
         s["padding_overhead"] = padded / max(real + padded, 1)
         s["compile_count"] = environment().compile_count()
         s["buckets"] = list(self.ladder)
+        graphs = self._adapter.graphs()
+        s["graphs"] = graphs.report() if graphs is not None else []
         return sharded.report(s, self.mesh, self.param_spec)

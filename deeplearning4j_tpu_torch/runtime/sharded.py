@@ -14,10 +14,10 @@ weights, and the steps are written out as an SPMD program by hand:
   engine there (a prefill, a decode, a verify, a predict dispatch,
   warmup's too) runs on the process's one **channel thread** for the
   mesh, which first sends the step's record to every other rank: the
-  engine's id, the step's kind and its tensors (the padded batch, block
-  tables, lengths, tokens). Each follower's channel thread receives the
-  records in that order and runs the same model call on its shard
-  through the engine the id names. So every collective of every sharded
+  engine's id, the step's kind and its tensors (a decode step's shape
+  and packed inputs, a predict dispatch's padded batch). Each follower's
+  channel thread receives the records in that order and runs the same
+  step on its shard through the engine the id names. So every collective of every sharded
   engine is issued from one thread a process, in one order on every
   rank, however many engines, callers and loop threads there are.
 - An idle leader with live engines sends a heartbeat every

@@ -22,8 +22,7 @@ from deeplearning4j_tpu_torch.common.tracing import (TraceContext,
                                                     use_context)
 from deeplearning4j_tpu_torch.models import causal_lm as tcl
 from deeplearning4j_tpu_torch.runtime.generation import (DecodeEngine,
-                                                         sample_tokens,
-                                                         step_generator)
+                                                         sample_tokens)
 from test_torch_causal_lm import model_pair
 
 V = 97
@@ -161,15 +160,14 @@ def test_sample_tokens_distribution():
     logits = base.repeat(n, 1)
     temp = torch.full((n,), 0.7)
     got = sample_tokens(logits, temp, torch.full((n,), k, dtype=torch.int32),
-                        step_generator(5, 0, "cpu"))
+                        5, 0)
     top = torch.topk(base, k).indices
     assert set(got.tolist()) <= set(top.tolist())
     want = torch.softmax(base[top] / 0.7, dim=0)
     freq = torch.stack([(got == t).float().mean() for t in top])
     assert (freq - want).abs().max().item() < 0.04
     greedy = sample_tokens(logits[:4], torch.zeros(4),
-                           torch.zeros(4, dtype=torch.int32),
-                           step_generator(5, 1, "cpu"))
+                           torch.zeros(4, dtype=torch.int32), 5, 1)
     assert greedy.tolist() == [int(base.argmax())] * 4
 
 
@@ -363,14 +361,16 @@ def test_block_pool_used_count_matches_jax(pair):
 
 
 def test_warmup_observes_each_step_on_the_compile_histogram(pair):
-    """The port warms eagerly with nothing stored: each warmed step lands
-    on ``dl4j_compile_seconds{kind,cache="bypass"}``."""
+    """Each warmed step signature lands once on
+    ``dl4j_compile_seconds{kind,cache}``: ``cache="eager"`` on a CPU
+    engine, whose steps run eagerly on their static buffers (a CUDA
+    engine's captures land as ``cache="captured"``)."""
     _, tm = pair
     hist = registry().histogram(
         "dl4j_compile_seconds",
         "Wall time to materialize + first-run an executable, by cache "
         "outcome", labels=("kind", "cache"))
-    before = {k: hist.labels(kind=k, cache="bypass").count()
+    before = {k: hist.labels(kind=k, cache="eager").count()
               for k in ("prefill", "decode")}
     eng = DecodeEngine(tm, device="cpu", **ENGINE_KW)
     try:
@@ -378,7 +378,7 @@ def test_warmup_observes_each_step_on_the_compile_histogram(pair):
     finally:
         eng.close(10)
     n_prefill = len(eng.ladder) * len(eng.batch_ladder)
-    assert hist.labels(kind="prefill", cache="bypass").count() \
+    assert hist.labels(kind="prefill", cache="eager").count() \
         == before["prefill"] + n_prefill
-    assert hist.labels(kind="decode", cache="bypass").count() \
+    assert hist.labels(kind="decode", cache="eager").count() \
         == before["decode"] + 1
