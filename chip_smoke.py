@@ -524,6 +524,12 @@ FLASH_BWD_SOURCE = "flash_attention_bwd.cu"
 
 L_FULL, SLOTS, MAX_CTX, BS = 12, 8, 1024, 16
 MB = MAX_CTX // BS
+# warm_restart: each replica's engines (a short ladder: 2 prompt buckets
+# x 2 batch rungs + the decode step) and the greedy prompts of the serve
+# phase that fit them, WARM_TOKENS tokens each
+WARM_ENGINE = {"slots": 4, "max_ctx": 256, "prompt_buckets": [64, 256],
+               "prefill_batch": 2, "kv_block_size": BS}
+WARM_TOKENS = 16
 # BERT-base training: the bench headline's batch (bench.py bench_bert)
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 128, 128, 10
 # flash shapes held against the plain version: the train shape and
@@ -1028,6 +1034,10 @@ def l2_flusher():
     return lambda: torch.bitwise_not(buf, out=buf)
 
 
+#: the card's name and power limit, as phase_device read them
+SMI = [None]
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -1038,6 +1048,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    SMI[0] = smi
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
@@ -1432,6 +1443,182 @@ def phase_int8(model, prompts):
           "precision": twin._precision, "wall_s_with_warmup": round(wall, 3),
           "dequant_launches_in_phase": _fused_dequant_matmul.launches - n0})
     return twin
+
+
+def replica_serve(model, twin):
+    """What a replica of the warm_restart phase serves: for the model and
+    its int8 twin, a DecodeEngine on ``WARM_ENGINE``, its warmup census
+    (the count after ``warmup()`` from 0) beside the ladder's
+    ``len(ladder) * len(batch_ladder) + 1``, and its greedy tokens for
+    the serve phase's greedy prompts that fit ``WARM_ENGINE``'s context.
+    ``first_token_wall`` is the wall time of the first token served."""
+    from deeplearning4j_tpu_torch.common.environment import environment
+    from deeplearning4j_tpu_torch.runtime.generation import DecodeEngine
+    prompts, sampling = serve_prompts(model.config.vocab_size)
+    greedy = [p for p, kw in zip(prompts, sampling) if not kw
+              and len(p) + WARM_TOKENS <= WARM_ENGINE["max_ctx"]]
+    out = {"tokens": {}, "census": {}, "ladder_census": {},
+           "prompts": len(greedy)}
+    for name, m in (("bf16", model), ("int8", twin)):
+        eng = DecodeEngine(m, device="cuda", **WARM_ENGINE)
+        try:
+            environment().reset_compile_count()
+            eng.warmup()
+            out["census"][name] = environment().compile_count()
+            out["ladder_census"][name] = \
+                len(eng.ladder) * len(eng.batch_ladder) + 1
+            t_submit = time.time()
+            futs = [eng.generate(p, max_tokens=WARM_TOKENS) for p in greedy]
+            res = [f.result(timeout=600) for f in futs]
+        finally:
+            eng.close(60)
+        out.setdefault("first_token_wall",
+                       t_submit + min(r["ttft_s"] for r in res))
+        out["tokens"][name] = [list(map(int, r["tokens"])) for r in res]
+    return out
+
+
+def warm_replica_main():
+    """``chip_smoke.py --warm-replica``: one replica of the warm_restart
+    phase, run from a copy of the package. Pulls the shared store
+    (``restore_on_boot``), builds the CausalLM and its int8 twin from
+    seed 0, serves them (``replica_serve``) and prints one JSON line: the
+    pull, ``_build.stats()``, the kernels' launches and what it served."""
+    import torch
+    import deeplearning4j_tpu_torch
+    from deeplearning4j_tpu_torch.kernels import _build, paged_flash_decode
+    from deeplearning4j_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig)
+    from deeplearning4j_tpu_torch.quant.transforms import (
+        _fused_dequant_matmul, quantize_model)
+    from deeplearning4j_tpu_torch.serving.lifecycle import restore_on_boot
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pulled = restore_on_boot()
+    model = CausalLM(CausalLMConfig(), seed=0, device="cuda")
+    twin = quantize_model(model, device="cuda")
+    served = replica_serve(model, twin)
+    print(json.dumps({"package": deeplearning4j_tpu_torch.__file__,
+                      "pulled": pulled, "build": _build.stats(),
+                      "launches": {
+                          "paged_flash_decode": paged_flash_decode.launches,
+                          "dequant_matmul": _fused_dequant_matmul.launches},
+                      **served}), flush=True)
+
+
+def run_replica(copy_dir, env, timeout=400):
+    """Start ``chip_smoke.py --warm-replica`` from ``copy_dir`` with
+    ``env``; returns (its JSON line, seconds from its start to its first
+    token, its wall seconds)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(copy_dir, "chip_smoke.py"),
+         "--warm-replica"], cwd=copy_dir, env=env, capture_output=True,
+        text=True, timeout=timeout)
+    wall = time.time() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"replica exited {proc.returncode}: "
+                           f"{proc.stderr[-4000:]}")
+    rec = json.loads(lines[-1])
+    return rec, rec["first_token_wall"] - t0, wall
+
+
+def phase_warm_restart(model, twin):
+    """Warm restart at full width: bake the serving path's kernel
+    libraries (``runtime/warm_image.py``) for the CausalLM and its int8
+    twin into an image; boot a fresh replica from a copy of the package
+    without ``kernels/build/``, an empty local store, the image as its
+    remote store and a ``CUDA_HOME`` whose ``nvcc`` always fails; it must
+    build nothing, hit the store for both serving libraries, record this
+    process's warmup census and serve the same greedy tokens. A cold
+    replica (the same copy, ``nvcc`` reachable, no store) is timed beside
+    it, for the record only."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.runtime.warm_image import bake
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dl4j-warm-restart-")
+    try:
+        image = os.path.join(tmp, "image")
+        t0 = time.perf_counter()
+        summaries = [bake(m, output=image, name=name, generative=True)
+                     for name, m in (("lm", model), ("lm_int8", twin))]
+        bake_s = time.perf_counter() - t0
+        image_bytes = sum(os.path.getsize(os.path.join(d, n))
+                          for d, _, names in os.walk(image) for n in names)
+        baked = sorted({k for s in summaries for k in s["kernels"]})
+        if not {"paged_flash_decode", "dequant_matmul"} <= set(baked):
+            raise RuntimeError(f"the bake holds {baked}: the serving "
+                               "libraries are missing")
+        t0 = time.perf_counter()
+        ref = replica_serve(model, twin)
+        ref_s = time.perf_counter() - t0
+        # the replica's copy: the package without its build directory
+        copy = os.path.join(tmp, "replica")
+        os.makedirs(copy)
+        shutil.copy(os.path.join(here, "chip_smoke.py"), copy)
+        shutil.copytree(
+            os.path.join(here, "deeplearning4j_tpu_torch"),
+            os.path.join(copy, "deeplearning4j_tpu_torch"),
+            ignore=lambda d, names: [n for n in names if n == "__pycache__"
+                                     or (n == "build" and
+                                         os.path.basename(d) == "kernels")])
+        no_nvcc = os.path.join(tmp, "no-cuda")
+        os.makedirs(os.path.join(no_nvcc, "bin"))
+        with open(os.path.join(no_nvcc, "bin", "nvcc"), "w") as f:
+            f.write("#!/bin/sh\necho 'no compiler on this replica' >&2\n"
+                    "exit 1\n")
+        os.chmod(os.path.join(no_nvcc, "bin", "nvcc"), 0o755)
+        base = {k: v for k, v in os.environ.items()
+                if k not in ("PYTHONPATH", "DL4J_TPU_CACHE_TIER")}
+        warm, warm_ttft, warm_wall = run_replica(copy, {
+            **base, "CUDA_HOME": no_nvcc,
+            "DL4J_TPU_CACHE_DIR": os.path.join(tmp, "warm-cache"),
+            "DL4J_TPU_REMOTE_CACHE": image})
+        shutil.rmtree(os.path.join(copy, "deeplearning4j_tpu_torch",
+                                   "kernels", "build"), ignore_errors=True)
+        cold, cold_ttft, cold_wall = run_replica(copy, {
+            **base, "DL4J_TPU_CACHE_DIR": os.path.join(tmp, "cold-cache"),
+            "DL4J_TPU_REMOTE_CACHE": ""})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = warm["build"]
+    rec = {"phase": "warm_restart", "nvidia_smi": SMI[0],
+           "bake_s": bake_s, "bake_mb": image_bytes / 1e6, "ref_s": ref_s,
+           "bake_kernels": baked,
+           "bake_entries": [s["entries"] for s in summaries],
+           "pulled": warm["pulled"], "warm_build": b,
+           "warm_launches": warm["launches"],
+           "census": {"parent": ref["census"], "warm": warm["census"],
+                      "ladder": ref["ladder_census"]},
+           "prompts": ref["prompts"],
+           "tokens_same": {k: warm["tokens"][k] == ref["tokens"][k]
+                           for k in ref["tokens"]},
+           "warm_s_to_first_token": warm_ttft, "warm_wall_s": warm_wall,
+           "cold_s_to_first_token": cold_ttft, "cold_wall_s": cold_wall,
+           "cold_build": cold["build"],
+           "build_s_avoided": cold["build"]["compile_seconds"]}
+    emit(rec)
+    fails = []
+    if not warm["package"].startswith(copy):
+        fails.append(f"the replica imported {warm['package']}")
+    if b["compiler_runs"] or b["store_misses"] or b["store_hits"] < 2:
+        fails.append(f"the warm replica's builds: {b}")
+    if any(b["sources"].get(k) != "hit"
+           for k in ("paged_flash_decode", "dequant_matmul")):
+        fails.append(f"the serving libraries' sources: {b['sources']}")
+    if not all(rec["tokens_same"].values()):
+        fails.append(f"greedy tokens differ: {rec['tokens_same']}")
+    if not (warm["census"] == ref["census"] == ref["ladder_census"]):
+        fails.append(f"census: {rec['census']}")
+    if min(warm["launches"].values()) < 1:
+        fails.append(f"kernels not launched in the replica: "
+                     f"{warm['launches']}")
+    if cold["build"]["compiler_runs"] < 1:
+        fails.append(f"the cold replica built nothing: {cold['build']}")
+    if fails:
+        raise RuntimeError("warm_restart: " + "; ".join(fails))
+    return rec
 
 
 def phase_spec(model, prompts, greedy):
@@ -2932,6 +3119,24 @@ def phase_lenet():
     def mean_score():
         return float(np.mean([net.score(b) for b in batches]))
 
+    # warm_compile before the first fit: every kernel library present or
+    # from the store ("hit"), one train event, the params untouched
+    from deeplearning4j_tpu_torch.common.environment import environment
+    before = [t.clone() for p in net._params for t in p.values()]
+    events = []
+    environment().add_compile_listener(events.append)
+    try:
+        t0 = time.perf_counter()
+        warm_label = net.warm_compile(batches[:1])
+        warm_compile_s = time.perf_counter() - t0
+    finally:
+        environment().remove_compile_listener(events.append)
+    warm_kinds = [str(k[0]).split(":")[0] for k in events]
+    untouched = all(torch.equal(a, b) for a, b in zip(
+        before, [t for p in net._params for t in p.values()]))
+    if warm_label != "hit" or warm_kinds != ["train"] or not untouched:
+        raise RuntimeError(f"warm_compile: {warm_label!r}, events "
+                           f"{warm_kinds}, params untouched {untouched}")
     n0 = _fused_dequant_matmul.launches
     t0 = time.perf_counter()
     net.fit(batches, num_epochs=1)
@@ -2978,6 +3183,7 @@ def phase_lenet():
     rec = {"phase": "lenet", "B": LENET_B, "batches": LENET_BATCHES,
            "epochs_timed": LENET_EPOCHS, "dtype": "bfloat16",
            "params": net.num_params(), "warm_epoch_s": round(t_warm, 3),
+           "warm_compile": warm_label, "warm_compile_s": warm_compile_s,
            "wall_s": wall, "step_ms": step_ms,
            "samples_per_s": steps * LENET_B / wall,
            "loss_first_epoch": first, "loss_last_epoch": last,
@@ -6808,12 +7014,23 @@ def free_card():
 def main():
     if sys.argv[1:] == ["--http-clients"]:
         return http_clients_main()
+    if sys.argv[1:] == ["--warm-replica"]:
+        return warm_replica_main()
     if sys.argv[1:] == ["--update-sensitivity"]:
         return update_sensitivity_main()
     if sys.argv[1:2] == ["--profiler-check"]:
         return profiler_check_main(*map(float, sys.argv[2:4]))
     t_start = time.perf_counter()
     phase_device()
+    # this run's artifact store (kernel libraries, serving manifests): a
+    # directory of its own, removed at exit
+    if "DL4J_TPU_CACHE_DIR" not in os.environ:
+        import atexit
+        import shutil
+        import tempfile
+        store = tempfile.mkdtemp(prefix="dl4j-cache-")
+        os.environ["DL4J_TPU_CACHE_DIR"] = store
+        atexit.register(shutil.rmtree, store, True)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -6840,6 +7057,8 @@ def main():
         if n < 1:
             raise RuntimeError(f"kernel {name} was never launched on the "
                                "main path")
+    phase_warm_restart(model, twin)
+    free_card()
     http_launches = phase_serve_http(model, prompts, sampling, greedy)
     fp8_shapes = phase_fp8(model, prompts)
     free_card()

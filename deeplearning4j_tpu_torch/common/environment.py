@@ -281,11 +281,10 @@ class Environment:
         (``DL4J_TPU_WARMUP_THREADS``)."""
         return _int(self.property("warmup_threads"), 0, 0)
 
-    # -- compile cache and parallelism (ROADMAP.md queue 1 items 10-11) ---
+    # -- artifact store and parallelism -----------------------------------
     def cache_max_bytes(self) -> int:
-        """LRU size cap of the executable store
-        (``DL4J_TPU_CACHE_MAX_BYTES``); read by the compile cache, which
-        queue 1 item 11 ports."""
+        """LRU size cap of the local artifact store's kernel libraries
+        (``DL4J_TPU_CACHE_MAX_BYTES``; ``runtime/compile_cache.py``)."""
         try:
             return int(self.property("cache_max_bytes"))
         except (TypeError, ValueError):
@@ -293,7 +292,8 @@ class Environment:
 
     def cache_tier(self) -> str:
         """Store-tier policy (``DL4J_TPU_CACHE_TIER``): "auto", "local",
-        "remote" or "tiered"; applied by the compile cache (item 11)."""
+        "remote" or "tiered"; ``compile_cache.cache()`` builds its store
+        by it."""
         v = str(self.property("cache_tier") or "auto").lower()
         return v if v in ("auto", "local", "remote", "tiered") else "auto"
 
@@ -414,19 +414,25 @@ class Environment:
         return self.set_property("auto_rollback", "1" if v else "0")
 
     def set_cache_dir(self, d: Optional[str]):
-        """Programmatic override; "" or None disables the cache volume.
-        Stored now; the compile cache that applies it beyond the serving
-        manifests is ``ROADMAP.md`` queue 1 item 11a."""
+        """Programmatic override; "" or None disables the cache volume:
+        the local artifact store of kernel libraries
+        (``<dir>/aot``) and the serving manifests (``<dir>/manifests``).
+        ``compile_cache.cache()`` re-resolves on its next call."""
         return self.set_property("cache_dir", d or "")
 
     def set_remote_cache(self, d: Optional[str]):
-        """Programmatic override; "" or None disables the shared store.
-        Stored now; the store tiers that read it are item 11a."""
+        """Programmatic override; "" or None disables the fleet-shared
+        store (a bucket mount or a warm image) that
+        ``compile_cache.cache()`` tiers behind the local one, and that
+        ``push_to_remote`` / ``pull_from_remote`` move libraries and
+        manifests through."""
         return self.set_property("remote_cache", d or "")
 
     def set_cache_tier(self, tier: Optional[str]):
-        """Programmatic override; None restores "auto". Stored now; the
-        store tiers that apply it are item 11a."""
+        """Programmatic override; None restores "auto". Picks the store
+        ``compile_cache.cache()`` builds: "local" (no remote), "remote"
+        (the shared store alone) or "auto"/"tiered" (local then remote,
+        write-populating both)."""
         return self.set_property("cache_tier", tier or "auto")
 
     def set_flash_min_seq(self, n: int):
@@ -641,8 +647,8 @@ class Environment:
     # -- executable/manifest volume (runtime/compile_cache.py) -------------
     def cache_dir(self) -> Optional[str]:
         """Root of the persistent cache volume, expanded; None when it is
-        disabled (``DL4J_TPU_CACHE_DIR=""``). The port keeps only serving
-        manifests there."""
+        disabled (``DL4J_TPU_CACHE_DIR=""``): kernel libraries under
+        ``aot/`` and serving manifests under ``manifests/``."""
         d = self.property("cache_dir")
         return os.path.expanduser(d) if d else None
 

@@ -20,14 +20,14 @@ request logging) is the reference's.
   endpoint family (gated by ``DL4J_TPU_DEBUG_ENDPOINTS``):
 
       GET  /debug/trace/<trace_id>       buffered span events + tree
+      GET  /debug/compile_cache          artifact-store inventory
+                                         (kernel libraries, tiers)
       GET  /debug/memory                 per-device memory stats
                                          (``torch.cuda.memory_stats``)
       POST /debug/profile?seconds=       blocking torch.profiler capture
 
   (``/debug/requests`` lives on ``serving.ModelServer``, the only server
-  that owns per-request records.) The JAX package's
-  ``/debug/compile_cache`` lists its executable store, which waits for
-  ``ROADMAP.md`` queue 1 item 11; here it answers 404.
+  that owns per-request records.)
 """
 from __future__ import annotations
 
@@ -162,6 +162,10 @@ def handle_debug_get(handler: "JsonRequestHandler", path: str) -> bool:
         events = tracer().events_for(trace_id)
         handler.send_json({"trace_id": trace_id, "count": len(events),
                            "tree": span_tree(events), "events": events})
+        return True
+    if path == "/debug/compile_cache":
+        from ..runtime import compile_cache
+        handler.send_json(compile_cache.inventory())
         return True
     if path == "/debug/memory":
         handler.send_json(device_memory_stats())

@@ -12,6 +12,15 @@ loads a stale build.
 :func:`counters` keeps the zeroed int32 buffers that kernels finishing a
 reduction in their last-arriving block count in.
 
+Every build goes through the artifact store
+(``runtime/compile_cache.py``): a library already in ``kernels/build/``
+is used as it is; otherwise a store hit writes its bytes there and runs
+no compiler; otherwise ``nvcc`` runs and the library is put into the
+store. So a replica pointed at a warm image (``runtime/warm_image.py``)
+serves with no CUDA toolkit installed. A corrupt entry is dropped with
+one warning and rebuilt; with no entry and no ``nvcc`` the build raises.
+:func:`stats` counts compiler runs, store hits and store misses.
+
 Nothing here runs at import: the CPU tests import every kernel module on
 a machine with no ``nvcc`` and no card.
 """
@@ -71,25 +80,121 @@ def ptxas_report(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
+def store_key(name: str) -> str:
+    """The artifact-store key of kernel ``name``'s library: a sha256 over
+    its file name (a digest of the source, the headers and the flags) and
+    the CUDA version torch was built for. Computable with no ``nvcc``."""
+    import torch
+    h = hashlib.sha256(library_path(name).name.encode())
+    h.update(b"\x00")
+    h.update(str(torch.version.cuda).encode())
+    return h.hexdigest()
+
+
+def _nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (its release and build)."""
+    try:
+        out = subprocess.run([nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return ""
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
+
+
+def _write(path: Path, data) -> None:
+    """``data`` into ``path`` through a temporary file and ``os.replace``:
+    a reader never sees half a file."""
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    if isinstance(data, bytes):
+        tmp.write_bytes(data)
+    else:
+        tmp.write_text(data)
+    os.replace(tmp, path)
+
+
+#: what this process's builds did: compiler runs, store hits and misses,
+#: the seconds ``nvcc`` took, and each library's latest source
+_stats_lock = threading.Lock()
+_stats = {"compiler_runs": 0, "store_hits": 0, "store_misses": 0,
+          "compile_seconds": 0.0}
+_sources: Dict[str, str] = {}
+
+
+def stats() -> dict:
+    """This process's build counts (``compiler_runs``, ``store_hits``,
+    ``store_misses``, ``compile_seconds``) and ``sources``: where each
+    library it asked for came from — ``"present"`` (already in
+    ``kernels/build/``), ``"hit"`` (the store) or ``"miss"`` (``nvcc``)."""
+    with _stats_lock:
+        return {**_stats, "sources": dict(_sources)}
+
+
+def reset_stats() -> None:
+    with _stats_lock:
+        _stats.update(compiler_runs=0, store_hits=0, store_misses=0,
+                      compile_seconds=0.0)
+        _sources.clear()
+
+
+def _from_store(cc, name: str, out: Path) -> bool:
+    """Write kernel ``name``'s library from the store into ``out``; False
+    on a miss (a corrupt entry is a miss: the store drops it and warns
+    once)."""
+    t0 = time.perf_counter()
+    entry = cc.get(store_key(name))
+    if entry is None:
+        with _stats_lock:
+            _stats["store_misses"] += 1
+        return False
+    payload, meta = entry
+    _write(out.with_suffix(".ptxas.txt"), meta.get("ptxas", ""))
+    _write(out, payload)
+    from ..runtime.compile_cache import observe_compile
+    observe_compile("kernel", "hit", time.perf_counter() - t0)
+    with _stats_lock:
+        _stats["store_hits"] += 1
+    return True
+
+
+def _to_store(cc, name: str, out: Path, log: str, nvcc_version: str):
+    cc.put(store_key(name), out.read_bytes(),
+           {"tag_kind": "kernel", "kernel": name, "nvcc": nvcc_version,
+            "ptxas": log, "created": time.time()})
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile every named library that is not built yet, one ``nvcc``
-    each, all started together. Returns the seconds each build took
-    (0.0 for one already built). Raises with the compiler's output when
-    a build fails."""
+    """Make every named library present in ``kernels/build/``: used as it
+    is when there, else written from the artifact store, else compiled by
+    ``nvcc`` (one each, all started together) and put into the store.
+    Returns the seconds each library took (0.0 for one already present).
+    Raises with the compiler's output when a build fails."""
+    from ..runtime.compile_cache import cache, observe_compile
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = cache()
     procs, seconds = {}, {}
     t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
             seconds[name] = 0.0
+            with _stats_lock:
+                _sources[name] = "present"
+            continue
+        if cc is not None and _from_store(cc, name, out):
+            seconds[name] = time.perf_counter() - t0
+            with _stats_lock:
+                _sources[name] = "hit"
             continue
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    failed = []
+        with _stats_lock:
+            _stats["compiler_runs"] += 1
+            _sources[name] = "miss"
+    failed, built = [], []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
@@ -97,11 +202,55 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
                           f"{log}")
             continue
-        out.with_suffix(".ptxas.txt").write_text(log)
+        _write(out.with_suffix(".ptxas.txt"), log)
         os.replace(tmp, out)  # atomic: a reader never sees half a file
+        observe_compile("kernel", "miss", seconds[name])
+        built.append((name, out, log))
+    if procs:
+        with _stats_lock:
+            _stats["compile_seconds"] += time.perf_counter() - t0
+    if built and cc is not None:
+        version = _nvcc_version()
+        for name, out, log in built:
+            _to_store(cc, name, out, log, version)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return seconds
+
+
+def warm(device) -> str:
+    """Pull or build every kernel library through the store ahead of
+    first use (``warm_compile``). Returns ``"hit"`` when each was already
+    present or came from the store, ``"miss"`` when ``nvcc`` ran, and
+    ``"bypass"`` with no store configured or for a ``device`` that is not
+    CUDA, where no kernel runs and nothing is built."""
+    import torch
+    from ..runtime.compile_cache import cache
+    if torch.device(device).type != "cuda" or cache() is None:
+        return "bypass"
+    build(KERNELS)
+    with _stats_lock:
+        fresh = [_sources[name] for name in KERNELS]
+    return "miss" if "miss" in fresh else "hit"
+
+
+def publish(names: Iterable[str]) -> List[str]:
+    """Put each named library that is present in ``kernels/build/`` into
+    the store, where it is not there yet (``warm_image.bake``). Returns
+    the names the store holds afterwards."""
+    from ..runtime.compile_cache import cache
+    cc = cache()
+    if cc is None:
+        return []
+    held = []
+    for name in names:
+        key, out = store_key(name), library_path(name)
+        if not cc.store.contains(key):
+            if not out.exists():
+                continue
+            _to_store(cc, name, out, ptxas_report(name), _nvcc_version())
+        held.append(name)
+    return held
 
 
 def load(name: str) -> ctypes.CDLL:

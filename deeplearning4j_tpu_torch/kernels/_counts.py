@@ -10,6 +10,9 @@ would count goes into that capture's :class:`LaunchRecord` instead, and
 every replay of the graph adds the record: a count still counts the
 launches the card ran.
 
+Each wrapper also names its library (``wrapper.library``), which
+:func:`libraries_used` collects for ``runtime/warm_image.py``.
+
 Nothing here imports torch: the kernel modules import it at load.
 """
 from __future__ import annotations
@@ -19,6 +22,8 @@ from contextlib import contextmanager
 from typing import Callable, Dict, List, Tuple
 
 _local = threading.local()
+#: the sets of the open :func:`libraries_used` blocks
+_uses: List[set] = []
 
 
 class LaunchRecord:
@@ -50,6 +55,8 @@ def count_launch(wrapper: Callable) -> None:
     """One launch of ``wrapper``'s kernel: on its count, or on the record
     of the capture this thread runs (the launch happens at each
     replay)."""
+    for names in _uses:
+        names.add(wrapper.library)
     rec = _record()
     if rec is None:
         wrapper.launches += 1
@@ -77,3 +84,16 @@ def recording(rec: LaunchRecord):
         yield rec
     finally:
         _local.record = prev
+
+
+@contextmanager
+def libraries_used():
+    """The set of kernel libraries (``wrapper.library``, a
+    ``kernels/_build.py`` name) that any thread launches or captures in
+    the block: what a warm image must hold for the work run there."""
+    names: set = set()
+    _uses.append(names)
+    try:
+        yield names
+    finally:
+        _uses.remove(names)

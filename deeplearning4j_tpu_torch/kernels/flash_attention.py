@@ -201,6 +201,8 @@ def _flash_bwd_dkv(q, k, v, g, lse, delta, mask, causal, scale):
 _flash_fwd.launches = 0
 _flash_bwd_dq.launches = 0
 _flash_bwd_dkv.launches = 0
+_flash_fwd.library = "flash_attention_fwd"
+_flash_bwd_dq.library = _flash_bwd_dkv.library = "flash_attention_bwd"
 
 
 def _aligned(t):

@@ -226,3 +226,4 @@ def paged_flash_decode(q, k_pages, v_pages, tables, lengths,
 #: kernel launches since the count was last set to 0 (plain calls on CPU
 #: tensors do not count)
 paged_flash_decode.launches = 0
+paged_flash_decode.library = "paged_flash_decode"

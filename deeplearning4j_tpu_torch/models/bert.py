@@ -21,6 +21,10 @@ einsum/softmax branch of the JAX package.
 
 Params and the Adam state are updated IN PLACE by the train steps,
 where the JAX package donates them to its jitted step.
+Every step goes through the dispatch census
+(``runtime.inference.counted_dispatch``) with the JAX package's tags
+(``bert_train``, ``bert_qa``, ``bert_pipeline``): one
+``dl4j_compiles_total`` event per new signature, as its ``counted_jit``.
 
 **On a mesh** (``mesh=``, a ``common.mesh.Mesh``): ``place_params`` /
 ``place_opt_state`` keep each rank's shard per :func:`param_specs`
@@ -484,6 +488,14 @@ def _make_loss_fn(config, mesh, seq_parallel, remat, use_flash):
     return remat_loss_fn
 
 
+def _counted(step, kind):
+    """``step`` under the census with the JAX package's tag (one
+    ``dl4j_compiles_total`` event per new signature of its opt_state,
+    batch and iteration)."""
+    from ..runtime.inference import counted_dispatch
+    return counted_dispatch(step, tag=f"{kind}:{id(step)}")
+
+
 def make_train_step(config: BertConfig, mesh=None,
                     learning_rate: float = 1e-4, seq_parallel: bool = False,
                     remat: bool = True, use_flash: bool = False):
@@ -492,6 +504,12 @@ def make_train_step(config: BertConfig, mesh=None,
     Adam, with params and state updated in place. On a mesh: params and
     state placed (``place_params``, ``init_opt_state`` of them), the
     batch global; this rank's shards are updated."""
+    return _counted(_train_step(config, mesh, learning_rate, seq_parallel,
+                                remat, use_flash), "bert_train")
+
+
+def _train_step(config, mesh, learning_rate, seq_parallel, remat,
+                use_flash):
     _check_mesh(mesh)
     if mesh is not None:
         return _make_sharded_step(config, mesh, learning_rate, seq_parallel,
@@ -517,8 +535,8 @@ def make_scanned_train_step(config: BertConfig, n_steps: int, mesh=None,
     there (no host sync per step), so the caller's one synchronisation
     covers all ``n_steps`` and the trajectory shows that training
     stepped."""
-    step = make_train_step(config, mesh, learning_rate, seq_parallel,
-                           remat, use_flash)
+    step = _train_step(config, mesh, learning_rate, seq_parallel, remat,
+                       use_flash)
 
     def scanned(params, opt_state, batch, start_iteration):
         losses = []
@@ -528,7 +546,7 @@ def make_scanned_train_step(config: BertConfig, n_steps: int, mesh=None,
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
 
-    return scanned
+    return _counted(scanned, "bert_train")
 
 
 def _make_sharded_step(config, mesh, learning_rate, seq_parallel, use_flash,
@@ -622,8 +640,9 @@ def make_qa_train_step(config: BertConfig, mesh=None,
     and the batch global."""
     _check_mesh(mesh)
     if mesh is not None:
-        return _make_sharded_step(config, mesh, learning_rate, False, False,
-                                  _qa_sums)
+        return _counted(_make_sharded_step(config, mesh, learning_rate,
+                                           False, False, _qa_sums),
+                        "bert_qa")
 
     def loss_fn(all_params, batch):
         return qa_loss(all_params["bert"], all_params["qa"], batch, config)
@@ -634,7 +653,7 @@ def make_qa_train_step(config: BertConfig, mesh=None,
                           iteration)
         return all_params, opt_state, loss
 
-    return step
+    return _counted(step, "bert_qa")
 
 
 # -- pipeline parallelism (dp x pp, with tp inside the stages) ---------------
@@ -785,6 +804,8 @@ def make_pipeline_train_step(config: BertConfig, mesh: Mesh,
                           iteration)
         return params, opt_state, loss
 
+    from ..runtime.inference import counted_dispatch
+    step = counted_dispatch(step, tag=f"bert_pipeline:{id(loss_fn)}")
     step.loss_fn = loss_fn  # exposed for gradient-level parity tests
     return step
 

@@ -15,7 +15,14 @@ Counterpart of ``deeplearning4j_tpu/nn/fit_fastpath.py``:
   once per ``fit``; with no listener overriding ``iteration_done``, an
   epoch runs its steps back to back with the loss left on the device
   (``path="scan"`` in the telemetry, the JAX package's scanned epoch).
-  Capturing the epoch as a CUDA graph is ``ROADMAP.md`` queue 1 #12.
+  Capturing the epoch as a CUDA graph is ``ROADMAP.md`` queue 1 #12b.
+- **The census**: the step and the epoch go through
+  ``runtime.inference.counted_dispatch`` with the JAX package's tags
+  (``train:<id>:k<k>:<remat>``, ``epoch:...``), so a ``fit`` records one
+  ``dl4j_compiles_total`` event per new signature, as the JAX package's
+  ``counted_jit`` does, and a repeat call none. ``warm_compile`` records
+  the step's event without running it, and pulls or builds every kernel
+  library through the artifact store (``kernels/_build.py``).
 - **Activation checkpointing** (``conf.remat``): ``"layer"`` wraps each
   layer apply in ``torch.utils.checkpoint``, ``"dots_saveable"`` in a
   selective checkpoint that keeps matmul and convolution outputs.
@@ -260,6 +267,7 @@ class FitFastPathMixin:
         self._mesh = mesh
         self.device = mesh.device
         self._params = sharded_params
+        self.__dict__.pop("_census_seen", None)  # the steps are rebuilt
         trainable = self._trainable(self._params)
         state = self.conf.updater.init(trainable)
         if state is not None:
@@ -312,6 +320,39 @@ class FitFastPathMixin:
     def _step_keys(self, n):
         return [rng.split(self._rng) for _ in range(n)]
 
+    def _counted_step(self, kind: str, fn):
+        """``fn`` under the census with the JAX package's tag for this
+        network's ``kind`` step (``train`` or ``epoch``) and build knobs.
+        The signatures seen are kept on the network per tag, as the JAX
+        package's cached jit keeps them across fits."""
+        from ..runtime.inference import counted_dispatch
+        k = self._grad_accum()
+        tag = f"{kind}:{id(self)}:k{k}:{self._remat_mode()}"
+        seen = self.__dict__.setdefault("_census_seen", {})
+        return counted_dispatch(fn, tag, seen.setdefault(tag, set()))
+
+    def warm_compile(self, data, labels=None):
+        """Ready the first ``fit`` ahead of time without stepping: record
+        the train step's census event for the first batch (the signature
+        ``fit``'s per-step path would record), then pull or build every
+        kernel library through the artifact store
+        (``kernels/_build.warm``). Nothing runs, so the params and the
+        updater state stay bit for bit as they were. Returns ``"hit"``
+        (every library present or from the store), ``"miss"`` (``nvcc``
+        ran) or ``"bypass"`` (no store configured, or a network on the
+        CPU, where nothing is built)."""
+        from ..kernels import _build
+        self._check_init()
+        data = self._coerce_fit_data(data, labels)
+        batches = self._materialize_batches(data)
+        if not batches:
+            raise ValueError("warm_compile needs at least one batch")
+        x, y = batches[0]
+        self._counted_step("train", self._train_step_fn()).note(
+            self._trainable(self._params), self._states(self._params),
+            self._updater_state, self._iteration, x, y, 0)
+        return _build.warm(self.device)
+
     @staticmethod
     def _listener_overrides(lst, name):
         """True if the listener meaningfully implements ``name`` (a
@@ -338,7 +379,7 @@ class FitFastPathMixin:
         self._check_init()
         data = self._coerce_fit_data(data, labels)
         batches = self._materialize_batches(data)
-        train_step = self._train_step_fn()
+        step_fn = self._train_step_fn()
 
         trainable = self._trainable(self._params)
         states = self._states(self._params)
@@ -373,11 +414,14 @@ class FitFastPathMixin:
             n = len(batches)
             bs = _batch_rows(batches[0][0])
             self._last_batch_size = bs
+            epoch = self._counted_step("epoch", None)
             for _ in range(num_epochs):
                 keys = self._step_keys(n)
+                epoch.note(trainable, states, ustate, self._iteration,
+                           batches, keys)
                 with span("train/epoch_scan", batches=n, batch_size=bs):
                     for (x, y), key in zip(batches, keys):
-                        trainable, states, ustate, loss = train_step(
+                        trainable, states, ustate, loss = step_fn(
                             trainable, states, ustate, self._iteration, x,
                             y, key)
                         self._iteration += 1
@@ -395,6 +439,7 @@ class FitFastPathMixin:
                     for lst in epoch_listeners:
                         lst.on_epoch_end(self._epoch, self)
         else:
+            train_step = self._counted_step("train", step_fn)
             for _ in range(num_epochs):
                 if batches is None and hasattr(data, "reset"):
                     data.reset()

@@ -16,8 +16,9 @@ write and read ``nn/serde.py``'s zip. ``distribute(mesh)`` keeps each
 rank's shards of the params (``nn/sharding.py``'s rules); ``fit`` then
 takes the global batch on every rank and runs the sharded step, and
 ``output`` / ``score`` / ``params`` see the gathered params.
-``warm_compile`` (``ROADMAP.md`` queue 1 item 12) is not ported and
-raises ``NotImplementedError`` naming its item.
+``warm_compile`` (``nn/fit_fastpath.py``) records the first train step's
+census event and readies the kernel libraries through the artifact
+store without stepping.
 """
 from __future__ import annotations
 
@@ -45,13 +46,6 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} asked for but torch.cuda.is_available()"
             " is False; pass device='cpu' to run on the CPU")
     return dev
-
-
-def unported(what, item, owner="MultiLayerNetwork"):
-    """The error an entry point not ported yet raises, naming its
-    ``ROADMAP.md`` queue 1 item."""
-    return NotImplementedError(f"{owner}.{what} is not ported yet; it waits"
-                               f" for ROADMAP.md queue 1 item {item}")
 
 
 class MultiLayerNetwork(FitFastPathMixin):
@@ -117,9 +111,6 @@ class MultiLayerNetwork(FitFastPathMixin):
         return InferenceEngine(
             self, max_batch=environment().inference_max_batch()).warmup(
                 example, batch_sizes=batch_sizes)
-
-    def warm_compile(self, data, labels=None):
-        raise unported("warm_compile", 12)
 
     def save(self, path, save_updater: bool = False):
         """The zip of ``nn/serde.py``, which the JAX package reads too."""

@@ -54,7 +54,10 @@ def _make_flat_loss(net, x, y):
     flat0 = torch.cat([trainable[i][k].reshape(-1).float()
                        for i, k, _, _ in spec]) if spec else \
         torch.zeros((0,), device=net.device)
-    return vg, flat0, unflatten
+    # the census: one event per solver entry, as the JAX package's
+    # counted_jit records for its jitted loss
+    from ..runtime.inference import counted_dispatch
+    return counted_dispatch(vg, tag=f"solver:{id(net)}"), flat0, unflatten
 
 
 def backtrack_line_search(vg: Callable, x0, f0, g0, direction,

@@ -70,6 +70,11 @@ def fit_accumulated(net, batches: List, accumulation_steps: int = None,
     stateful layers' running stats per micro-batch."""
     net._check_init()
     accumulation_steps = accumulation_steps or len(batches)
+    # the census of the JAX package's two counted_jit entries
+    from ..runtime.inference import counted_dispatch
+    grad_fn = counted_dispatch(net._micro_grads, tag=f"accum_grad:{id(net)}")
+    apply_fn = counted_dispatch(net._apply_update,
+                                tag=f"accum_apply:{id(net)}")
 
     losses: list = []
     acc = GradientsAccumulator(threshold=threshold)
@@ -80,9 +85,8 @@ def fit_accumulated(net, batches: List, accumulation_steps: int = None,
 
     def flush():
         nonlocal trainable, ustate, micro_losses
-        trainable, ustate = net._apply_update(trainable, ustate,
-                                              net._iteration,
-                                              acc.get_average())
+        trainable, ustate = apply_fn(trainable, ustate, net._iteration,
+                                     acc.get_average())
         net._params = net._merge_states(trainable, states)
         net._updater_state = ustate
         net._iteration += 1
@@ -95,8 +99,8 @@ def fit_accumulated(net, batches: List, accumulation_steps: int = None,
         if not isinstance(ds, DataSet):
             ds = DataSet(*ds)
         x, y = net._stage(ds.features), net._stage(ds.labels)
-        loss, states, grads = net._micro_grads(trainable, states, x, y,
-                                               rng.split(net._rng))
+        loss, states, grads = grad_fn(trainable, states, x, y,
+                                      rng.split(net._rng))
         acc.store_update(grads)
         micro_losses.append(float(loss))
         if acc.count >= accumulation_steps:

@@ -138,7 +138,12 @@ class ParallelWrapper:
         net = self.net
         net._check_init()
         if self._step is None:
-            self._step = sharded_train_step(net, self.mesh, self.zero1)
+            # the census: one event per new signature, the JAX package's
+            # counted_jit tag
+            from ..runtime.inference import counted_dispatch
+            self._step = counted_dispatch(
+                sharded_train_step(net, self.mesh, self.zero1),
+                tag=f"parallel:{id(net)}:z{int(self.zero1)}")
         trainable = net._trainable(net._params)
         states = net._states(net._params)
         ustate = net._updater_state
@@ -220,6 +225,14 @@ class ParallelInference:
         self.mesh = mesh if mesh is not None \
             else make_mesh(MeshConfig(), device=net.device)
         self.batch_limit = batch_limit
+        from ..runtime.inference import counted_dispatch
+        self._fn = counted_dispatch(self._forward,
+                                    tag=f"parallel_infer:{id(self)}")
+
+    def _forward(self, params, x):
+        with torch.no_grad(), full_f32():
+            return self.net._forward(params, shard_batch_value(self.mesh, x),
+                                     training=False)
 
     def output(self, x) -> NDArray:
         net = self.net
@@ -228,10 +241,7 @@ class ParallelInference:
         pad = (-n) % dp_size(self.mesh)
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        params = tree_map(gather, net._params)
-        with torch.no_grad(), full_f32():
-            out = net._forward(params, shard_batch_value(self.mesh, x),
-                               training=False)
+        out = self._fn(tree_map(gather, net._params), x)
         if dp_size(self.mesh) > 1:
             out = C.all_gather_raw(out.contiguous(), (DATA, FSDP),
                                    self.mesh)

@@ -324,6 +324,7 @@ def _fused_dequant_matmul(x2, q, scale):
 
 #: kernel launches since the count was last set to 0
 _fused_dequant_matmul.launches = 0
+_fused_dequant_matmul.library = "dequant_matmul"
 
 
 # -- the fp8 branch (an XLA dot_general in the JAX package) -----------------

@@ -202,7 +202,8 @@ def _signature(data) -> Tuple:
                   for leaf in _tree_leaves(data)))
 
 
-def counted_dispatch(fn: Callable, tag: str) -> Callable:
+def counted_dispatch(fn: Callable, tag: str,
+                     seen: Optional[set] = None) -> Callable:
     """``fn`` wrapped with the dispatch census: each new input signature
     records one event (``Environment.record_compile``) and then runs
     ``fn`` eagerly, as every later call does. The port's counterpart of
@@ -213,16 +214,25 @@ def counted_dispatch(fn: Callable, tag: str) -> Callable:
     The signature is computed from ``args[1:]``: by convention the first
     argument is the parameter tree, whose shapes change only on re-init.
     Python-scalar leaves count by type, tensors by shape and dtype (not
-    by device)."""
-    seen: set = set()
+    by device). ``seen``, the signatures already counted, may be shared
+    by the wrappers of one step built afresh on each call (the fit
+    loop's), as the JAX package's one cached jit holds them.
+    ``wrapped.note(*args)`` counts ``args``' signature without running
+    ``fn`` (``warm_compile``)."""
+    seen = set() if seen is None else seen
+
+    def note(*args) -> bool:
+        sig = _signature(args[1:])
+        if sig in seen:
+            return False
+        seen.add(sig)
+        return environment().record_compile((tag,) + sig)
 
     def wrapped(*args):
-        sig = _signature(args[1:])
-        if sig not in seen:
-            seen.add(sig)
-            environment().record_compile((tag,) + sig)
+        note(*args)
         return fn(*args)
 
+    wrapped.note = note
     return wrapped
 
 

@@ -95,9 +95,10 @@ joining replica pointed at the shared manifest directory
 (``DL4J_TPU_SERVING_MANIFEST_DIR``) runs the fleet's observed bucket
 ladder during ``deploy()``; its ``/readyz`` stays false until the ladder
 is warm, so ``add_replica()`` can be called *before* warmup finishes and
-the router will not route to it until it is actually ready. (The JAX
-package's joiner also pulls executables from a shared artifact store;
-the port's counterpart waits for ``ROADMAP.md`` queue 1 item 11.)
+the router will not route to it until it is actually ready. With a
+shared artifact store (``DL4J_TPU_REMOTE_CACHE``, a fleet bucket or a
+baked warm image) the joiner's ``lifecycle.restore_on_boot`` also pulls
+the kernel libraries, so it serves without running ``nvcc``.
 
 Poll scheduling is jittered: each replica is polled on its own
 deterministic phase within ``DL4J_TPU_FLEET_POLL_S`` (see

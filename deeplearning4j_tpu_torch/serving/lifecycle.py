@@ -30,11 +30,13 @@ any previously installed one); ``drain()`` can also be called directly —
 e.g. from a preStop hook or a test.
 
 With a fleet-shared artifact store configured (``DL4J_TPU_REMOTE_CACHE``)
-``drain()`` additionally pushes the manifests to the shared store
+the contract extends across replicas: ``drain()`` additionally pushes the
+local kernel libraries + manifests to the shared store
 (``compile_cache.push_to_remote``), and :func:`restore_on_boot` pulls
-them down on the way up — call it before deploying models. (The JAX
-package also moves executables that way; the port's executable store
-waits for ``ROADMAP.md`` queue 1 item 11.)
+them down on the way up — call it before deploying models, i.e. before
+``/readyz`` can flip, so the load balancer never routes traffic to a
+replica that would run ``nvcc`` instead of serving. A warm image
+(``runtime/warm_image.py``) is such a shared store, baked ahead of time.
 """
 from __future__ import annotations
 
@@ -60,10 +62,13 @@ log = logging.getLogger(__name__)
 
 
 def restore_on_boot() -> dict:
-    """Pull the fleet's warmup manifests from the shared artifact store
-    into the local cache (no-op without ``DL4J_TPU_REMOTE_CACHE``). Call
-    before ``registry.deploy`` / ``ModelServer`` start. Returns
-    ``{"executables": 0, "manifests": m}``."""
+    """Pull the fleet's kernel libraries + warmup manifests from the
+    shared artifact store into the local cache (no-op without
+    ``DL4J_TPU_REMOTE_CACHE``). Call before ``registry.deploy`` /
+    ``ModelServer`` start so every kernel library loads from a store hit
+    and ``/readyz`` only ever flips on a replica that will not compile
+    under live traffic. Returns ``{"executables": n, "manifests": m}``
+    (``executables``: the libraries pulled)."""
     try:
         return compile_cache.pull_from_remote()
     except Exception:
@@ -209,8 +214,9 @@ class GracefulLifecycle:
             self.dump_flight_recorder()
             ok = self.registry.drain_all(timeout_s=self.drain_timeout_s,
                                          save_manifests=True)
-            # publish this replica's manifests to the shared artifact
-            # store (no-op without DL4J_TPU_REMOTE_CACHE)
+            # publish this replica's kernel libraries and manifests to
+            # the shared artifact store (no-op without
+            # DL4J_TPU_REMOTE_CACHE)
             try:
                 compile_cache.push_to_remote()
             except Exception:

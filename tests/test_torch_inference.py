@@ -712,8 +712,13 @@ def test_warm_buckets_returns_the_jax_list(nets):
         [1, 2, 4, 8]
     assert tnet.warm_buckets(_x(1), batch_sizes=[3, 5]) == \
         jnet.warm_buckets(_x(1), batch_sizes=[3, 5]) == [4, 8]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tnet.warm_compile(_x(2))
+    # warm_compile is ported: on the CPU both sides build nothing and say
+    # "bypass", and neither steps its network
+    x, y = _x(2), np.eye(N_OUT, dtype=np.float32)[[0, 2]]
+    jout, tout = _np(jnet.output(x)), _np(tnet.output(x))
+    assert tnet.warm_compile(x, y) == jnet.warm_compile(x, y) == "bypass"
+    np.testing.assert_array_equal(_np(tnet.output(x)), tout)
+    np.testing.assert_array_equal(_np(jnet.output(x)), jout)
 
 
 # -- full_f32 with concurrent holders -----------------------------------------

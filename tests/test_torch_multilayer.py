@@ -59,6 +59,7 @@ import deeplearning4j_tpu_torch.nn.conf.layers as TL
 import deeplearning4j_tpu_torch.zoo as tzoo
 from deeplearning4j_tpu_torch import bridge
 from deeplearning4j_tpu_torch.common.dtype import DataType
+from deeplearning4j_tpu_torch.common.environment import environment as tenv
 from deeplearning4j_tpu_torch.datasets import iterators as tit
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet as TDataSet
 from deeplearning4j_tpu_torch.nn import activations as tact
@@ -235,8 +236,16 @@ class TestConfig:
         # warm_buckets is ported (item 7): with no example and no
         # manifest it has nothing to replay, as the JAX package's
         assert net.warm_buckets(None) == []
-        with pytest.raises(NotImplementedError, match="item 12"):
-            net.warm_compile(None)
+        # warm_compile is ported: on the CPU it builds nothing
+        # ("bypass"), records the first train step's census event and
+        # leaves the params as they were
+        xw = np.ones((2, 1, 28, 28), np.float32)
+        yw = np.eye(10, dtype=np.float32)[[1, 7]]
+        out0 = net.output(xw).numpy()
+        n0 = tenv().compile_count()
+        assert net.warm_compile(TDataSet(xw, yw)) == "bypass"
+        assert tenv().compile_count() == n0 + 1
+        assert np.array_equal(net.output(xw).numpy(), out0)
         # distribute is ported (item 10a): on a one-rank mesh it places
         # every leaf whole and the network keeps its outputs
         from deeplearning4j_tpu_torch.common.mesh import (MeshConfig,
