@@ -192,7 +192,26 @@ exits non-zero without printing a result:
               with TF32 switched on in the process (``LENET_F32_ATOL``),
               and, for scale, the same forward with the port's TF32 guard
               taken away.
-   mlp_int8 — bench.py's quantized MLP (dense 512->2048 gelu, 3 x
+   graphs_train — the captured ``fit`` steps (``nn/fit_fastpath.py``
+              over ``runtime/cuda_graphs.py``), cuDNN deterministic.
+              LeNet (bf16, Adam, B=128), the same LeNet with dropout on
+              its dense layer and TextGenerationLSTM (B=32), each as two
+              networks from one seed: one replaying its captured steps,
+              one running the same bodies eagerly (``eager:reference``).
+              Both take the same fits over 8 staged batches: census
+              ``["epoch"]`` on the first, none on a repeat, ``["train"]``
+              on the per-step path (a listener); every signature of the
+              replaying network ``captured``. LeNet and TextGenerationLSTM:
+              host ms a step over 2 epochs, device ms, launch calls and
+              device records a step (one epoch under the profiler) and
+              the busy share, both ways; the device records a step must
+              be equal. Both LeNets must end with the same params,
+              updater state and losses bit for bit. Then ResNet-50
+              (config 2, B=128) for 4 steps captured and twice eager:
+              the captured params within twice the two eager runs'
+              largest difference, each run's peak memory. Last, the
+              memory the dropped networks held must be back.
+   mlp_int8 —bench.py's quantized MLP (dense 512->2048 gelu, 3 x
               2048->2048 gelu, softmax 2048->64) at B=128 through
               ``output()`` three ways: f32, bf16 over the same params and
               the int8 twin (``quantize_model``), samples/s the median of
@@ -2548,6 +2567,258 @@ def phase_graphs(model, twin, prompts, sampling):
     return runs, steps, predict
 
 
+GRAPHS_TRAIN_BATCHES, GRAPHS_TRAIN_EPOCHS = 8, 2
+# ResNet-50 (config 2) steps, captured and in each of two eager runs
+GRAPHS_RESNET_STEPS = 4
+
+
+def fit_pair(make):
+    """Two networks from ``make()``: one replaying its captured steps,
+    one running the same step bodies eagerly (``eager:reference``)."""
+    replayed, eager = make(), make()
+    eager._eager_reason = "reference"
+    return {"replayed": replayed, "eager": eager}
+
+
+def train_state(net):
+    """The params, running stats and updater state of ``net``, in order."""
+    return net._state_leaves()
+
+
+def bits_equal(a, b):
+    """Whether two networks hold the same params, updater state and last
+    loss, bit for bit."""
+    import torch
+    la, lb = train_state(a), train_state(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb)) \
+        and a.score_value == b.score_value and a._iteration == b._iteration
+
+
+def caches_of(net):
+    return sorted({g["cache"] for g in net.train_graphs_report()
+                   if g["tag"].split(":")[0] in ("train", "epoch")})
+
+
+def train_step_times(net, batches, epochs):
+    """``fit`` over ``batches``: host ms a step over ``epochs`` epochs
+    (after one warm epoch, which captures), then one epoch under the
+    profiler: device ms, launch calls (kernels and graphs) and device
+    records a step, and the busy share."""
+    import torch
+    n = len(batches)
+    net.fit(batches, num_epochs=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(batches, num_epochs=epochs)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (epochs * n)
+    counts = {}
+    by_name = device_ms_by_kernel(lambda: net.fit(batches, num_epochs=1), 1,
+                                  counts=counts)
+    device_ms = sum(by_name.values()) / n
+    return {"step_ms": step_ms, "device_ms": device_ms,
+            "busy_share": device_ms / step_ms,
+            "launch_calls_per_step": counts["launches"] / n,
+            "device_records_per_step": counts["device_records"] / n}
+
+
+def census_of(fn):
+    """The kinds of the census events ``fn()`` records."""
+    from deeplearning4j_tpu_torch.common.environment import environment
+    events = []
+    env = environment()
+    env.add_compile_listener(events.append)
+    try:
+        fn()
+    finally:
+        env.remove_compile_listener(events.append)
+    return [str(k[0]).split(":")[0] for k in events]
+
+
+def phase_graphs_train():
+    """Captured ``fit`` steps (``nn/fit_fastpath.py`` over
+    ``runtime/cuda_graphs.py``; module docstring, ``graphs_train``)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import (LeNet, ResNet50,
+                                              TextGenerationLSTM)
+    import weakref
+    t_phase = time.perf_counter()
+    fails = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the cuBLAS workspaces torch caches a stream (earlier phases'
+        # too) go first, so the reading at the end compares like with like
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        base_alloc = torch.cuda.memory_allocated()
+        rs = np.random.RandomState(21)
+        lenet_batches = zoo_batches(rs, GRAPHS_TRAIN_BATCHES, LENET_B,
+                                    (1, 28, 28), 10)
+        zoo = TextGenerationLSTM()
+        feat, T = zoo.input_shape
+
+        def onehot(n):
+            a = np.zeros((n, feat, T), np.float32)
+            a[np.arange(n)[:, None], rs.randint(0, feat, (n, T)),
+              np.arange(T)[None, :]] = 1.0
+            return torch.from_numpy(a).cuda()
+        text_batches = [DataSet(onehot(TEXT_B), onehot(TEXT_B))
+                        for _ in range(TEXT_PROFILED)]
+        batches_alloc = torch.cuda.memory_allocated()
+
+        def dropout_lenet():
+            conf = LeNet(dtype="bfloat16").build_conf()
+            dense = next(l for l in conf.layers
+                         if type(l).__name__ == "DenseLayer")
+            dense.dropout = 0.5
+            return MultiLayerNetwork(conf, device="cuda").init()
+        models = {
+            "lenet": lambda: LeNet(dtype="bfloat16").init_model(
+                device="cuda"),
+            "lenet_dropout": dropout_lenet,
+            "text_lstm": lambda: zoo.init_model(device="cuda")}
+        recs, kept, dead = {}, [], []
+        for name, make in models.items():
+            batches = text_batches if name == "text_lstm" else lenet_batches
+            pair = fit_pair(make)
+            # kept to the end of the part: a network made after another
+            # was dropped could take its id(), and with it its census tags
+            kept.append(pair)
+            dead += [weakref.ref(n) for n in pair.values()]
+            rec = {"B": TEXT_B if name == "text_lstm" else LENET_B,
+                   "batches": len(batches)}
+            for label, net in pair.items():
+                kinds = census_of(lambda: net.fit(batches, num_epochs=1))
+                again = census_of(lambda: net.fit(batches, num_epochs=1))
+                rec[label] = {"census_first_fit": kinds,
+                              "census_repeat_fit": again}
+                if name != "lenet_dropout":
+                    rec[label].update(train_step_times(
+                        net, batches, GRAPHS_TRAIN_EPOCHS))
+                # the per-step path (a listener): its own signature
+                scores = CollectScoresListener()
+                net.set_listeners(scores)
+                rec[label]["census_per_step"] = census_of(
+                    lambda: net.fit(batches[:2], num_epochs=1))
+                net.set_listeners()
+                rec[label]["per_step_scores"] = scores.scores
+                rec[label]["caches"] = caches_of(net)
+                rec[label]["replays"] = sum(
+                    g["replays"] for g in net.train_graphs_report())
+            rep, eag = rec["replayed"], rec["eager"]
+            rec["bitwise_equal"] = bits_equal(pair["replayed"],
+                                              pair["eager"])
+            rec["per_step_scores_equal"] = \
+                rep["per_step_scores"] == eag["per_step_scores"]
+            recs[name] = rec
+            emit({"phase": "graphs_train", "model": name, **rec})
+            if rep["caches"] != ["captured"] or \
+                    eag["caches"] != ["eager:reference"]:
+                fails.append(f"{name} caches {rep['caches']} "
+                             f"{eag['caches']}")
+            if rep["census_first_fit"] != ["epoch"] or \
+                    rep["census_repeat_fit"] or \
+                    rep["census_per_step"] != ["train"]:
+                fails.append(f"{name} census {rep['census_first_fit']} "
+                             f"{rep['census_repeat_fit']} "
+                             f"{rep['census_per_step']}")
+            if name != "text_lstm" and not (rec["bitwise_equal"]
+                                            and rec["per_step_scores_equal"]):
+                fails.append(f"{name} replayed state differs from eager")
+            if "device_records_per_step" in rep and \
+                    rep["device_records_per_step"] != \
+                    eag["device_records_per_step"]:
+                fails.append(f"{name} device records a step "
+                             f"{rep['device_records_per_step']} replayed, "
+                             f"{eag['device_records_per_step']} eager")
+        del kept, pair, net
+        # ResNet-50 (config 2): captured against two eager runs
+        rz = ResNet50(num_classes=RESNET_CLASSES, input_shape=RESNET_SHAPE,
+                      dtype="bfloat16")
+        rbatches = zoo_batches(np.random.RandomState(22),
+                               GRAPHS_RESNET_STEPS, RESNET_B, RESNET_SHAPE,
+                               RESNET_CLASSES)
+        resnet_alloc = torch.cuda.memory_allocated()
+        runs = {}
+        for label in ("eager_1", "eager_2", "replayed"):
+            net = rz.init_model()
+            dead.append(weakref.ref(net))
+            if label != "replayed":
+                net._eager_reason = "reference"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            net.fit(rbatches, num_epochs=1)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            runs[label] = {
+                "first_fit_s": first_s, "loss": net.score_value,
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                "caches": caches_of(net),
+                "state": [t.float().cpu() for t in train_state(net)]}
+            # the steady state: the same steps again
+            t0 = time.perf_counter()
+            net.fit(rbatches, num_epochs=1)
+            torch.cuda.synchronize()
+            runs[label]["samples_per_s"] = GRAPHS_RESNET_STEPS * RESNET_B \
+                / (time.perf_counter() - t0)
+            del net
+            torch.cuda.empty_cache()
+        def maxdiff(a, b):
+            return max(float((x - y).abs().max())
+                       for x, y in zip(runs[a]["state"], runs[b]["state"]))
+        spread = maxdiff("eager_1", "eager_2")
+        diff = maxdiff("replayed", "eager_1")
+        tol = 2 * spread
+        torch.cuda.empty_cache()
+        rrec = {"B": RESNET_B, "steps": GRAPHS_RESNET_STEPS,
+                "eager_spread_max_abs": spread, "tol": tol,
+                "replayed_vs_eager_max_abs": diff,
+                **{label: {k: v for k, v in r.items() if k != "state"}
+                   for label, r in runs.items()}}
+        emit({"phase": "graphs_train", "model": "resnet50", **rrec})
+        if runs["replayed"]["caches"] != ["captured"]:
+            fails.append(f"resnet50 caches {runs['replayed']['caches']}")
+        if not diff <= tol:
+            fails.append(f"resnet50 replayed differs from eager by {diff} "
+                         f"> {tol} (twice the eager runs' spread)")
+        del runs, rbatches
+        torch.cuda.empty_cache()
+        # what the dropped networks held came back, with no collection:
+        # every network is gone, and the allocator is where it was with
+        # only the batches alive, once the cuBLAS workspaces torch cached
+        # for this phase's streams are let go
+        alive = sum(r() is not None for r in dead)
+        after = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        held = torch.cuda.memory_allocated() - batches_alloc
+        emit({"phase": "graphs_train", "memory": {
+            "allocated_before_bytes": base_alloc,
+            "allocated_with_batches_bytes": batches_alloc,
+            "allocated_with_resnet_batches_bytes": resnet_alloc,
+            "allocated_after_drop_bytes": after,
+            "cublas_workspaces_bytes": after - batches_alloc - held,
+            "held_after_drop_bytes": held,
+            "networks_alive_after_drop": alive,
+            "reserved_after_drop_bytes": torch.cuda.memory_reserved()},
+            "seconds": time.perf_counter() - t_phase})
+        if held != 0 or alive:
+            fails.append(f"{held} bytes still held and {alive} networks "
+                         f"alive after the networks were dropped")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if fails:
+        raise RuntimeError(f"graphs_train phase failed: {fails}")
+    return recs
+
+
 def paged_record(Q, seed, H=12):
     """The paged read at ``Q`` query rows and ``H`` heads of 64: kernel,
     plain version and SDPA over the pre-gathered view, device times
@@ -3882,7 +4153,9 @@ def phase_resnet50():
         epoch_s.append(time.perf_counter() - t0)
     net.set_listeners()
     # one epoch on the staged path (no listener: the losses stay on the
-    # card until it ends), the steady state
+    # card until it ends), the steady state, after one that captures it
+    net.fit(batches, num_epochs=1)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     net.fit(batches, num_epochs=1)
     torch.cuda.synchronize()
@@ -3956,6 +4229,11 @@ def phase_resnet50():
                            f" pooled features by {feat_err} of their "
                            f"largest (tol {RESNET_F32_FEATURE_RTOL})")
     del f32, cpu, params
+    # the phases after only save, load and predict with the trained
+    # network: its captured training steps and their pool (the step's
+    # activations) go now
+    net._train_graphs().release()
+    torch.cuda.empty_cache()
     return net, batches[0].features.torch(), rec
 
 
@@ -4115,6 +4393,7 @@ def phase_transfer(net, images, full):
             (RESNET_B, RESNET_CLASSES))), num_epochs=TRANSFER_RECALIBRATE)
         torch.cuda.synchronize()
         rec["recalibrate_s"] = time.perf_counter() - t0
+        body._train_graphs().release()   # its steps are done
         rec["recalibrated_weights_same_bits"] = all(
             torch.equal(v, restored._params[n][k])
             for n, p in body._params.items() for k, v in p.items()
@@ -5021,6 +5300,10 @@ def phase_text_lstm():
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     first = net.score_value
+    # the timed and the profiled epochs are signatures of their own
+    # (TEXT_BATCHES and TEXT_PROFILED batches): each captured first
+    net.fit(batches, num_epochs=1)
+    net.fit(batches[:TEXT_PROFILED], num_epochs=1)
     t0 = time.perf_counter()
     net.fit(batches, num_epochs=TEXT_EPOCHS)
     torch.cuda.synchronize()
@@ -5312,8 +5595,9 @@ def yolo_labels(rng, B, classes, grid, max_boxes=YOLO_MAX_BOXES):
 
 
 def train_record(net, ds, steps):
-    """One warm step of ``net.fit`` on ``ds``, then ``steps`` timed steps
-    on it (a loss read each step), then one step under the profiler:
+    """One warm step of ``net.fit`` on ``ds`` and one on the per-step
+    path (each captures its signature), then ``steps`` timed steps on it
+    (a loss read each step), then one step under the profiler:
     losses, samples/s, host ms a step, device ms a step by kernel group,
     the busy share and the peak memory."""
     import torch
@@ -5323,6 +5607,10 @@ def train_record(net, ds, steps):
     net.fit([ds], num_epochs=1)   # includes cuDNN's algorithm choice
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # the per-step path (a listener) is a signature of its own: captured
+    # before the timed steps
+    net.set_listeners(CollectScoresListener())
+    net.fit([ds], num_epochs=1)
     scores = CollectScoresListener()
     net.set_listeners(scores)
     t0 = time.perf_counter()
@@ -7076,6 +7364,7 @@ def main():
     phase_bert_forward()
     phase_causal(model)
     phase_lenet()
+    phase_graphs_train()
     mlp_launches, mlp_twin = phase_mlp_int8()
     predict_launches, predict_twin, mlp_f32, mlp_pool = phase_predict_http()
     phase_fleet(mlp_f32, mlp_pool)

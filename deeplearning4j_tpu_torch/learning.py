@@ -6,8 +6,13 @@ Counterpart of ``deeplearning4j_tpu/learning.py`` (the reference's
 (update, state')`` over a params tree (nested dicts and lists of
 tensors), on the ``ops.updater_ops`` functions; the state has the JAX
 package's layout (``{"u": tree, "m": tree}`` for Adam, ...), so a state
-bridged from it lines up. Schedules are callables ``f(iteration) -> lr``
-on a Python int iteration (the fit loop counts on the host).
+bridged from it lines up. Schedules are callables ``f(iteration) -> lr``;
+the fit loop passes ``iteration`` as a 0-d int64 tensor on the network's
+device (what a captured step reads from its static inputs), as the JAX
+package's are functions of the traced int, so the schedules here are
+tensor functions of it (an int gives a 0-d CPU tensor). A schedule that
+returns a Python number for a tensor cannot be captured
+(:func:`host_schedules`).
 """
 from __future__ import annotations
 
@@ -24,6 +29,17 @@ Schedule = Union[float, Callable[[Any], Any]]
 
 def _lr_at(lr: Schedule, iteration):
     return lr(iteration) if callable(lr) else lr
+
+
+def host_schedules(updater) -> list:
+    """The names of ``updater``'s schedules that answer a tensor
+    iteration with a host value (a Python number): a CUDA graph would
+    bake that value in, so a step using them runs eagerly."""
+    probe = torch.zeros((), dtype=torch.int64)
+    return [f.name for f in dataclasses.fields(updater)
+            if callable(getattr(updater, f.name))
+            and not isinstance(getattr(updater, f.name)(probe),
+                               torch.Tensor)]
 
 
 def tree_map(fn, tree, *rest):
@@ -235,23 +251,24 @@ def inverse_schedule(initial: float, gamma: float, power: float = 1.0):
 
 def poly_schedule(initial: float, power: float, max_iter: int):
     def f(iteration):
-        frac = min(iteration / max_iter, 1.0)
+        frac = torch.clamp(torch.as_tensor(iteration) / max_iter, max=1.0)
         return initial * (1 - frac) ** power
     return f
 
 
 def cosine_schedule(initial: float, max_iter: int, final: float = 0.0):
     def f(iteration):
-        frac = min(iteration / max_iter, 1.0)
-        return final + 0.5 * (initial - final) * (1 + math.cos(math.pi * frac))
+        frac = torch.clamp(torch.as_tensor(iteration) / max_iter, max=1.0)
+        return final + 0.5 * (initial - final) * (
+            1 + torch.cos(math.pi * frac))
     return f
 
 
 def warmup_linear_schedule(peak: float, warmup_iters: int, total_iters: int):
     def f(iteration):
-        it = float(iteration)
-        if it < warmup_iters:
-            return peak * it / max(warmup_iters, 1)
-        return peak * max((total_iters - it)
-                          / max(total_iters - warmup_iters, 1), 0.0)
+        it = torch.as_tensor(iteration).float()
+        warm = peak * it / max(warmup_iters, 1)
+        decay = peak * torch.clamp(
+            (total_iters - it) / max(total_iters - warmup_iters, 1), min=0.0)
+        return torch.where(it < warmup_iters, warm, decay)
     return f

@@ -4,7 +4,8 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``. A layer is a
 config with ``init_params(generator, input_type)`` (a param dict drawn
 on the generator's device) and ``forward(params, x, training, key)`` on
 tensors; the backward pass is autograd over the whole network. ``key``
-is an int seed (``common/rng.py``) for the layers that draw (dropout).
+is the step key of the layers that draw (dropout): an int or a 0-d int64
+tensor on the network's device (``common/rng.py``).
 
 Parameters keep the JAX package's layouts and key names, so weights
 cross between the two unchanged: dense ``W`` is ``[n_in, n_out]``,
@@ -20,7 +21,6 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ...common import rng
 from ...common.mesh import batch_memo, batch_moments
 from ...ops import conv_ops, nn_ops, recurrent
 from ...quant.transforms import QuantizedTensor, dequant_matmul, dequantize
@@ -89,8 +89,7 @@ class DenseLayer(Layer):
             out = out + params["b"]
         out = get_activation(self.activation)(out)
         if self.dropout > 0 and training and key is not None:
-            out = nn_ops.dropout(out, self.dropout,
-                                 rng.generator(key, out.device))
+            out = nn_ops.dropout(out, self.dropout, key)
         return out
 
     def output_type(self, input_type):
@@ -493,7 +492,7 @@ class DropoutLayer(Layer):
 
     def forward(self, params, x, training=False, key=None):
         if training and key is not None and self.rate > 0:
-            return nn_ops.dropout(x, self.rate, rng.generator(key, x.device))
+            return nn_ops.dropout(x, self.rate, key)
         return x
 
     def has_params(self):

@@ -8,9 +8,9 @@ connected, elementwise and normalization layers, the noise layers, the
 loss heads (``CnnLossLayer``, ``CenterLossOutputLayer``,
 ``Yolo2OutputLayer``, ...), attention, the VAE, capsules and transfer
 learning's ``FrozenLayer``. Parameter layouts and names are the JAX
-package's. The noise layers draw from a torch generator seeded by the
-layer's key, so their draws differ from ``jax.random``'s; at inference
-they are the identity on both sides.
+package's. The noise layers draw from the layer's key through the
+counter-based hash of ``common/rng.py``, so their draws differ from
+``jax.random``'s; at inference they are the identity on both sides.
 
 Masking: ``MaskLayer`` emits a ``[B, T]`` keep-mask (``emits_mask``)
 that ``MultiLayerNetwork`` threads into the layers with
@@ -27,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from ...common import rng
-from ...common.mesh import rows_draw
 from ...ops import conv_ops, nn_ops, recurrent
 from ..activations import get_activation
 from ..losses import get_loss
@@ -801,7 +800,7 @@ class _Noise(Layer):
     def forward(self, params, x, training=False, key=None):
         if not training or key is None:
             return x
-        return self._draw(x, rng.generator(key, x.device))
+        return self._draw(x, key)
 
     def has_params(self):
         return False
@@ -821,11 +820,10 @@ class SpatialDropout(_Noise):
             return x
         return super().forward(params, x, training, key)
 
-    def _draw(self, x, gen):
+    def _draw(self, x, key):
         keep = 1.0 - self.rate
-        mask = rows_draw(lambda shape: torch.rand(shape, generator=gen,
-                                                  device=x.device),
-                         x.shape[:2] + (1,) * (x.dim() - 2), x.device) < keep
+        mask = nn_ops.uniform_like(
+            x, key, x.shape[:2] + (1,) * (x.dim() - 2)) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
@@ -833,24 +831,24 @@ class SpatialDropout(_Noise):
 class GaussianDropout(_Noise):
     rate: float = 0.5
 
-    def _draw(self, x, gen):
-        return nn_ops.gaussian_dropout(x, self.rate, gen, training=True)
+    def _draw(self, x, key):
+        return nn_ops.gaussian_dropout(x, self.rate, key, training=True)
 
 
 @dataclasses.dataclass
 class GaussianNoise(_Noise):
     stddev: float = 0.1
 
-    def _draw(self, x, gen):
-        return nn_ops.gaussian_noise(x, self.stddev, gen, training=True)
+    def _draw(self, x, key):
+        return nn_ops.gaussian_noise(x, self.stddev, key, training=True)
 
 
 @dataclasses.dataclass
 class AlphaDropout(_Noise):
     rate: float = 0.5
 
-    def _draw(self, x, gen):
-        return nn_ops.alpha_dropout(x, self.rate, gen, training=True)
+    def _draw(self, x, key):
+        return nn_ops.alpha_dropout(x, self.rate, key, training=True)
 
 
 # -- loss heads -------------------------------------------------------------
@@ -1120,8 +1118,7 @@ class VariationalAutoencoder(Layer):
         ``key``'s."""
         mu, logvar = self._encode(params, x)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=rng.generator(
-                key, mu.device), device=mu.device, dtype=mu.dtype)
+            eps = rng.normal(key, mu.shape, mu.device, mu.dtype)
         z = mu + torch.exp(0.5 * logvar) * eps
         rec = torch.sum((self._decode(params, z) - x) ** 2, dim=-1)
         kl = -0.5 * torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar),

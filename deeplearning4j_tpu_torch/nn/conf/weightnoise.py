@@ -2,23 +2,19 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/weightnoise.py`` (the
 reference's ``IWeightNoise``: DropConnect, WeightNoise). Train-time
-only. Noise is a function of (key, params): the key seeds a generator on
-the params' device (``common/rng.py``), so the draws differ from the JAX
-package's and only their statistics compare.
+only. Noise is a function of (key, params): the i-th param drawn for (in
+sorted name order) draws from ``rng.fold(key, i)`` through the
+counter-based hash of ``common/rng.py`` on the params' device, so a key
+tensor inside a CUDA graph draws fresh noise on every replay. The draws
+differ from the JAX package's; only their statistics compare.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-import torch
-
 from ...common import rng
 from .constraints import is_bias_param, is_weight_param
-
-
-def _device(pdict):
-    return next(iter(pdict.values())).device
 
 
 @dataclasses.dataclass
@@ -37,13 +33,12 @@ class DropConnect:
         return (is_weight_param(key, param)
                 or (self.apply_to_biases and is_bias_param(key, param)))
 
-    def apply_tree(self, key: int, pdict: dict) -> dict:
-        gen = rng.generator(key, _device(pdict))
+    def apply_tree(self, key: rng.Key, pdict: dict) -> dict:
         out = {}
-        for k in sorted(pdict):
+        for i, k in enumerate(sorted(pdict)):
             p = pdict[k]
             if self._hits(k, p):
-                keep = torch.rand(p.shape, generator=gen, device=p.device) \
+                keep = rng.uniform(rng.fold(key, i), p.shape, p.device) \
                     < self.weight_retain_prob
                 out[k] = p * keep.to(p.dtype) / self.weight_retain_prob
             else:
@@ -68,14 +63,13 @@ class WeightNoise:
         return (is_weight_param(key, param)
                 or (self.apply_to_bias and is_bias_param(key, param)))
 
-    def apply_tree(self, key: int, pdict: dict) -> dict:
-        gen = rng.generator(key, _device(pdict))
+    def apply_tree(self, key: rng.Key, pdict: dict) -> dict:
         out = {}
-        for k in sorted(pdict):
+        for i, k in enumerate(sorted(pdict)):
             p = pdict[k]
             if self._hits(k, p):
-                noise = (self.mean + self.stddev * torch.randn(
-                    p.shape, generator=gen, device=p.device)).to(p.dtype)
+                noise = (self.mean + self.stddev * rng.normal(
+                    rng.fold(key, i), p.shape, p.device)).to(p.dtype)
                 out[k] = p + noise if self.additive else p * noise
             else:
                 out[k] = p

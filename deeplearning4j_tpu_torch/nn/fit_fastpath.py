@@ -15,14 +15,27 @@ Counterpart of ``deeplearning4j_tpu/nn/fit_fastpath.py``:
   once per ``fit``; with no listener overriding ``iteration_done``, an
   epoch runs its steps back to back with the loss left on the device
   (``path="scan"`` in the telemetry, the JAX package's scanned epoch).
-  Capturing the epoch as a CUDA graph is ``ROADMAP.md`` queue 1 #12b.
-- **The census**: the step and the epoch go through
-  ``runtime.inference.counted_dispatch`` with the JAX package's tags
-  (``train:<id>:k<k>:<remat>``, ``epoch:...``), so a ``fit`` records one
-  ``dl4j_compiles_total`` event per new signature, as the JAX package's
-  ``counted_jit`` does, and a repeat call none. ``warm_compile`` records
-  the step's event without running it, and pulls or builds every kernel
-  library through the artifact store (``kernels/_build.py``).
+- **Captured steps**: every training step runs through the network's
+  ``runtime.cuda_graphs.StepGraphs``. On a CUDA network each signature
+  is captured once as a CUDA graph and replayed after that, on the
+  per-step path (listeners, streamed iterators) and on the epoch path,
+  whose step is captured once and replayed n times; on the CPU the same
+  body runs eagerly on the same buffers. The step's static inputs are
+  the network's own params, layer states and updater state (the body
+  ends by copying its new values into them, one ``_foreach_copy_``), x,
+  y, the iteration and the step key (0-d int64 tensors filled before
+  each run): schedules, Adam's bias correction, dropout and weight noise
+  advance on every replay. A step stays eager, with its reason in the
+  census and in :meth:`FitFastPathMixin.train_graphs_report`, on a mesh
+  (``eager:<backend>``, ``eager:mesh`` at one rank) and with a schedule
+  that answers a tensor with a host number (``eager:host_value``).
+- **The census**: the step and the epoch record the JAX package's tags
+  (``train:<id>:k<k>:<remat>``, ``epoch:...``), one
+  ``dl4j_compiles_total`` event per new signature (``cache="captured"``
+  on the card), as the JAX package's ``counted_jit`` does, and a repeat
+  call none. ``warm_compile`` records the step's event without running
+  it, and pulls or builds every kernel library through the artifact
+  store (``kernels/_build.py``).
 - **Activation checkpointing** (``conf.remat``): ``"layer"`` wraps each
   layer apply in ``torch.utils.checkpoint``, ``"dots_saveable"`` in a
   selective checkpoint that keeps matmul and convolution outputs.
@@ -41,8 +54,10 @@ gradients of one micro-batch), ``_step_fn``, ``_materialize_batches``,
 from __future__ import annotations
 
 import contextlib
-import threading
 import functools
+import threading
+import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,7 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..common import rng
 from ..common.environment import environment, tf32_applied
 from ..common.tracing import span
-from ..learning import tree_map
+from ..learning import host_schedules, tree_map
 from ..ndarray.ndarray import NDArray
 from .conf.constraints import apply_constraints
 
@@ -139,14 +154,24 @@ def _micro_batches(tree, k):
                      tree) for i in range(k)]
 
 
+def micro_keys(key, k: int, device) -> list:
+    """The keys of a step's k micro-batches, derived from its key on the
+    device (``common/rng.py``)."""
+    key = rng.as_key(key, device)
+    return [rng.fold(key, m) for m in range(k)]
+
+
 class FitFastPathMixin:
     # -- the params ------------------------------------------------------
     @property
     def _params(self):
-        """The param tree. Setting it lets go of the inference forward's
-        captured graphs (``runtime/inference.py::captured_dispatch``),
-        which hold the old tensors: they and the graphs' pool are freed
-        now, not at the next predict, which captures again."""
+        """The param tree. Setting it (``init(params=)``, ``set_params``,
+        a load, ``distribute``) lets go of the captured graphs that hold
+        the old tensors: the inference forward's
+        (``runtime/inference.py::captured_dispatch``) and the training
+        steps'. They and their pools are freed now, not at the next call,
+        which captures again. ``fit`` itself never sets it: its steps
+        write the new values into the same tensors."""
         try:
             return self.__dict__["_params"]
         except KeyError:
@@ -159,6 +184,9 @@ class FitFastPathMixin:
         if fns:
             from ..runtime.inference import release_captured
             release_captured(fns.values())
+        graphs = self.__dict__.get("_fit_graphs")
+        if graphs is not None:
+            graphs.release()
 
     # -- memory levers ---------------------------------------------------
     def _remat_mode(self) -> str:
@@ -185,8 +213,8 @@ class FitFastPathMixin:
         """Wrap a layer apply per the remat policy: under "layer" only the
         call's inputs survive to the backward pass (everything inside is
         recomputed); "dots_saveable" also keeps matmul and convolution
-        outputs. Dropout keys are ints, so the recompute draws the same
-        masks."""
+        outputs. A layer's key is a tensor input of the checkpointed call,
+        so the recompute draws the same masks."""
         mode = self._remat_mode()
         if mode == "none":
             return fn
@@ -258,6 +286,138 @@ class FitFastPathMixin:
         return apply_constraints(getattr(self.conf, "constraints", None),
                                  new), updater_state
 
+    # -- the captured training steps -------------------------------------
+    def _train_graphs(self):
+        """The network's :class:`~..runtime.cuda_graphs.StepGraphs`: its
+        training steps (``train``, ``epoch``) and the eager steps that
+        report beside them (solvers, ``ParallelWrapper``,
+        ``fit_accumulated``)."""
+        graphs = self.__dict__.get("_fit_graphs")
+        if graphs is None:
+            from ..runtime.cuda_graphs import StepGraphs
+            graphs = self.__dict__["_fit_graphs"] = StepGraphs(self.device)
+        return graphs
+
+    def train_graphs_report(self) -> list:
+        """One entry a training-step signature (``StepGraphs.report``):
+        its tag, ``cache`` (``captured``, ``eager`` on the CPU,
+        ``eager:<reason>``), captures and replays."""
+        return self._train_graphs().report()
+
+    def _train_eager_reason(self) -> Optional[str]:
+        """Why this network's ``fit`` steps run eagerly, or None: the
+        backend of a mesh whose collectives cross ranks (``mesh`` at one
+        rank, not captured yet), or ``host_value`` for a schedule that
+        answers a tensor iteration with a host number. A network's
+        ``_eager_reason``, where set, keeps its steps eager under that
+        reason (the reference the card's checks hold replays against)."""
+        forced = self.__dict__.get("_eager_reason")
+        if forced:
+            return forced
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None:
+            from ..runtime.cuda_graphs import mesh_reason
+            return mesh_reason(mesh) or "mesh"
+        if host_schedules(self.conf.updater):
+            return "host_value"
+        return None
+
+    def _state_leaves(self) -> list:
+        """The tensors of the params and the updater state, in order."""
+        return [t for t in _leaves([self._params, self._updater_state])
+                if isinstance(t, torch.Tensor)]
+
+    def _own_state(self) -> None:
+        """Make the params and the updater state the network's own static
+        buffers before ``fit`` writes into them: the first time, and
+        again after either was replaced from outside, each tensor is
+        cloned (a tensor may be shared: with the caller of
+        ``init(params=)``, a transfer-learning source, a bridge), except
+        on a mesh, whose shards ``distribute`` made for this network."""
+        owned = self.__dict__.get("_owned")
+        leaves = self._state_leaves()
+        if owned is not None and len(owned) == len(leaves) \
+                and all(r() is t for r, t in zip(owned, leaves)):
+            return
+        if getattr(self, "_mesh", None) is None:
+            def own(t):
+                return t.clone() if isinstance(t, torch.Tensor) else t
+            ustate = self._updater_state
+            self._params = tree_map(own, self._params)
+            self._updater_state = None if ustate is None \
+                else tree_map(own, ustate)
+        else:
+            self._train_graphs().release()
+        self.__dict__["_owned"] = [weakref.ref(t)
+                                   for t in self._state_leaves()]
+
+    @staticmethod
+    @torch.no_grad()
+    def _write_back(static, new) -> None:
+        """Copy each tensor of ``new`` into the tensor at its place in
+        ``static`` (trees of one structure), one ``_foreach_copy_``."""
+        dst, src = [], []
+
+        def pair(d, s):
+            if isinstance(d, torch.Tensor) and d is not s:
+                dst.append(d)
+                src.append(s)
+        tree_map(pair, static, new)
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+    def _step_in_place(self, ins):
+        """One training step on the static inputs ``ins`` (x, y, the
+        iteration and the key): the new params, states and updater state
+        written into the network's own tensors; returns the loss."""
+        static = (self._trainable(self._params), self._states(self._params),
+                  self._updater_state)
+        *new, loss = self._train_step_fn()(*static, ins["it"], ins["x"],
+                                           ins["y"], ins["key"])
+        self._write_back(list(static), new)
+        return loss
+
+    def _step_tag(self, kind: str) -> str:
+        """The JAX package's census tag of this network's ``kind`` step
+        (``train`` or ``epoch``) and build knobs."""
+        return f"{kind}:{id(self)}:k{self._grad_accum()}:{self._remat_mode()}"
+
+    def _step_of(self, kind, state_sig, x, y, n=None):
+        """The :class:`~..runtime.cuda_graphs.Step` of one signature:
+        static x and y shaped as these, the iteration and the key; the
+        epoch's signature also holds its batch count, as the JAX
+        package's stacked epoch does."""
+        from ..runtime.inference import _signature
+        sig = state_sig + _signature((x, y))
+        if n is not None:
+            sig += (("batches", n),)
+        dev = self.device
+
+        def inputs():
+            def buf(t):
+                return torch.empty_like(t, device=dev)
+            return {"x": tree_map(buf, x), "y": tree_map(buf, y),
+                    "it": torch.zeros((), dtype=torch.int64, device=dev),
+                    "key": torch.zeros((), dtype=torch.int64, device=dev)}
+        return self._train_graphs().step(self._step_tag(kind), sig, inputs)
+
+    def _run_step(self, step, x, y, key, graph_key, eager):
+        """Fill ``step``'s static inputs (x, y, ``self._iteration``,
+        ``key``) and run it: its graph's replay, or its body. Returns the
+        loss (on a replay the graph's own, good until its next run)."""
+        graphs = self._train_graphs()
+        ins = step.inputs
+        net = weakref.ref(self)   # the graphs must not hold the network
+
+        def make_body():
+            return lambda: net()._step_in_place(ins)
+        with graphs.lock:
+            tree_map(lambda d, s: d.copy_(s), ins["x"], x)
+            tree_map(lambda d, s: d.copy_(s), ins["y"], y)
+            ins["it"].fill_(self._iteration)
+            ins["key"].fill_(key)
+            return graphs.run(step, make_body, graph_key, eager=eager)
+
     # -- distribution (``distribute(mesh)``, nn/sharding.py) -------------
     def _distribute(self, mesh, sharded_params):
         """Keep ``sharded_params`` (this rank's shards), re-initialise the
@@ -267,7 +427,6 @@ class FitFastPathMixin:
         self._mesh = mesh
         self.device = mesh.device
         self._params = sharded_params
-        self.__dict__.pop("_census_seen", None)  # the steps are rebuilt
         trainable = self._trainable(self._params)
         state = self.conf.updater.init(trainable)
         if state is not None:
@@ -301,12 +460,12 @@ class FitFastPathMixin:
 
         def step(trainable, states, updater_state, iteration, data, labels,
                  key):
-            host = torch.Generator().manual_seed(int(key))
             gsum, lsum = None, 0.0
-            for mx, my in zip(_micro_batches(data, k),
-                              _micro_batches(labels, k)):
+            for mx, my, mkey in zip(_micro_batches(data, k),
+                                    _micro_batches(labels, k),
+                                    micro_keys(key, k, self.device)):
                 loss, states, grads = self._micro_grads(
-                    trainable, states, mx, my, rng.split(host))
+                    trainable, states, mx, my, mkey)
                 gsum = grads if gsum is None else tree_map(torch.add, gsum,
                                                            grads)
                 lsum = lsum + loss
@@ -320,16 +479,12 @@ class FitFastPathMixin:
     def _step_keys(self, n):
         return [rng.split(self._rng) for _ in range(n)]
 
-    def _counted_step(self, kind: str, fn):
-        """``fn`` under the census with the JAX package's tag for this
-        network's ``kind`` step (``train`` or ``epoch``) and build knobs.
-        The signatures seen are kept on the network per tag, as the JAX
-        package's cached jit keeps them across fits."""
-        from ..runtime.inference import counted_dispatch
-        k = self._grad_accum()
-        tag = f"{kind}:{id(self)}:k{k}:{self._remat_mode()}"
-        seen = self.__dict__.setdefault("_census_seen", {})
-        return counted_dispatch(fn, tag, seen.setdefault(tag, set()))
+    def _state_sig(self):
+        """The census signature of the params' states and the updater
+        state (what the JAX package's step signature holds beside x and
+        y)."""
+        from ..runtime.inference import _signature
+        return _signature((self._states(self._params), self._updater_state))
 
     def warm_compile(self, data, labels=None):
         """Ready the first ``fit`` ahead of time without stepping: record
@@ -348,9 +503,9 @@ class FitFastPathMixin:
         if not batches:
             raise ValueError("warm_compile needs at least one batch")
         x, y = batches[0]
-        self._counted_step("train", self._train_step_fn()).note(
-            self._trainable(self._params), self._states(self._params),
-            self._updater_state, self._iteration, x, y, 0)
+        graphs = self._train_graphs()
+        graphs.note(self._step_of("train", self._state_sig(), x, y),
+                    self._train_eager_reason())
         return _build.warm(self.device)
 
     @staticmethod
@@ -374,16 +529,20 @@ class FitFastPathMixin:
         Finite sources are staged on the network's device once per call;
         with no listener overriding ``iteration_done``, each epoch's steps
         run back to back and the losses stay on the device until the
-        epoch ends (or, with telemetry off, until ``fit`` returns).
+        epoch ends (or, with telemetry off, until ``fit`` returns). Each
+        step replays its signature's CUDA graph on the card (module
+        docstring).
         """
+        from ..runtime.inference import _param_key
         self._check_init()
         data = self._coerce_fit_data(data, labels)
         batches = self._materialize_batches(data)
-        step_fn = self._train_step_fn()
-
-        trainable = self._trainable(self._params)
-        states = self._states(self._params)
-        ustate = self._updater_state
+        self._own_state()
+        eager = self._train_eager_reason()
+        state_sig = self._state_sig()
+        # a graph holds the addresses of the state it updates, and the
+        # matmul precision in force when it was captured
+        graph_key = _param_key([self._params, self._updater_state])
 
         iter_listeners = [l for l in self._listeners
                           if self._listener_overrides(l, "iteration_done")]
@@ -414,19 +573,14 @@ class FitFastPathMixin:
             n = len(batches)
             bs = _batch_rows(batches[0][0])
             self._last_batch_size = bs
-            epoch = self._counted_step("epoch", None)
+            step = self._step_of("epoch", state_sig, *batches[0], n=n)
             for _ in range(num_epochs):
                 keys = self._step_keys(n)
-                epoch.note(trainable, states, ustate, self._iteration,
-                           batches, keys)
                 with span("train/epoch_scan", batches=n, batch_size=bs):
                     for (x, y), key in zip(batches, keys):
-                        trainable, states, ustate, loss = step_fn(
-                            trainable, states, ustate, self._iteration, x,
-                            y, key)
+                        loss = self._run_step(step, x, y, key, graph_key,
+                                              eager)
                         self._iteration += 1
-                self._params = self._merge_states(trainable, states)
-                self._updater_state = ustate
                 self._epoch += 1
                 if tel:
                     with span("train/device"):
@@ -439,7 +593,6 @@ class FitFastPathMixin:
                     for lst in epoch_listeners:
                         lst.on_epoch_end(self._epoch, self)
         else:
-            train_step = self._counted_step("train", step_fn)
             for _ in range(num_epochs):
                 if batches is None and hasattr(data, "reset"):
                     data.reset()
@@ -454,11 +607,9 @@ class FitFastPathMixin:
                             else self._stage_batch(item)
                     self._last_batch_size = _batch_rows(x)
                     with span("train/dispatch"):
-                        trainable, states, ustate, loss = train_step(
-                            trainable, states, ustate, self._iteration, x, y,
-                            rng.split(self._rng))
-                    self._params = self._merge_states(trainable, states)
-                    self._updater_state = ustate
+                        loss = self._run_step(
+                            self._step_of("train", state_sig, x, y), x, y,
+                            rng.split(self._rng), graph_key, eager)
                     if tel:
                         with span("train/device"):
                             value = float(loss)
@@ -477,8 +628,6 @@ class FitFastPathMixin:
                         self.score_value = float(loss)
                     for lst in epoch_listeners:
                         lst.on_epoch_end(self._epoch, self)
-        self._params = self._merge_states(trainable, states)
-        self._updater_state = ustate
         if loss is not None:
             self.score_value = float(loss)
         return self

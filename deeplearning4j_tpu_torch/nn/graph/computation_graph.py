@@ -402,13 +402,14 @@ class ComputationGraph(FitFastPathMixin):
         if cd is not None:
             acts = {k: self._cast_act(v, cd) for k, v in acts.items()}
         out_set = set(self.conf.outputs)
-        host = torch.Generator().manual_seed(int(key)) \
+        # the i-th vertex in order draws from rng.fold(key, i, purpose)
+        key = rng.as_key(key, self.device) \
             if key is not None and training else None
         state_inputs: Dict[str, torch.Tensor] = {}
         stateful = set(self._stateful_vertices()) if collect_state else ()
         remat = (self._remat_wrap if training and self._remat_mode() != "none"
                  else None)
-        for name in self._order:
+        for vi, name in enumerate(self._order):
             v = self.conf.vertices[name]
             ins = [acts[i] for i in self.conf.vertex_inputs[name]]
             p = params[name]
@@ -423,10 +424,10 @@ class ComputationGraph(FitFastPathMixin):
                     else ins[0]
             wn = (getattr(getattr(v, "layer", None), "weight_noise", None)
                   or self.conf.weight_noise)
-            if wn is not None and host is not None and p:
-                p = wn.apply_tree(rng.split(host), p)
-            vkey = rng.split(host) \
-                if host is not None and v.needs_key() else None
+            if wn is not None and key is not None and p:
+                p = wn.apply_tree(rng.fold(key, vi, rng.WEIGHT_NOISE), p)
+            vkey = rng.fold(key, vi, rng.LAYER_DRAW) \
+                if key is not None and v.needs_key() else None
 
             def fwd(p_, ins_, k_, _v=v):
                 return _v.forward(p_, ins_, training=training, key=k_)

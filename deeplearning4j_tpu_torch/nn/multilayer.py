@@ -134,13 +134,13 @@ class MultiLayerNetwork(FitFastPathMixin):
     def _merge_states(self, trainable, states):
         return [{**t, **s} for t, s in zip(trainable, states)]
 
-    def _weight_noised(self, layer, p, host):
+    def _weight_noised(self, layer, p, key, i):
         """Train-time weight noise: the layer's setting wins over the
-        network default; its key comes from ``host``."""
+        network default; it draws from layer ``i``'s noise key."""
         wn = getattr(layer, "weight_noise", None) or self.conf.weight_noise
-        if wn is None or host is None or not p:
+        if wn is None or key is None or not p:
             return p
-        return wn.apply_tree(rng.split(host), p)
+        return wn.apply_tree(rng.fold(key, i, rng.WEIGHT_NOISE), p)
 
     # -- forward ---------------------------------------------------------
     def _forward_core(self, params, x, training: bool, key=None,
@@ -155,11 +155,12 @@ class MultiLayerNetwork(FitFastPathMixin):
         (``return_sequence`` false). With ``collect_bn``, each stateful
         layer's input is kept so the train step refreshes running stats
         without a second pass. Returns (activations, mask or None,
-        bn_inputs)."""
+        bn_inputs). ``key`` (an int or a 0-d tensor) is the step's: layer
+        i draws from ``rng.fold(key, i, purpose)`` on the device."""
         cd = self._compute_dtype()
         last = len(self.layers) - 1
         h = self._cast_act(x, cd) if cd is not None else x
-        host = torch.Generator().manual_seed(int(key)) \
+        key = rng.as_key(key, self.device) \
             if key is not None and training else None
         mask = None
         bn_inputs = {}
@@ -177,9 +178,9 @@ class MultiLayerNetwork(FitFastPathMixin):
                     p = self._cast_layer_params(p, cd)
             if collect_bn and hasattr(layer, "new_state"):
                 bn_inputs[i] = h
-            p = self._weight_noised(layer, p, host)
-            layer_key = rng.split(host) \
-                if host is not None and layer.needs_key() else None
+            p = self._weight_noised(layer, p, key, i)
+            layer_key = rng.fold(key, i, rng.LAYER_DRAW) \
+                if key is not None and layer.needs_key() else None
             if getattr(layer, "emits_mask", False):
                 mask = layer.compute_mask(h)
             if mask is not None and getattr(layer, "accepts_mask", False):

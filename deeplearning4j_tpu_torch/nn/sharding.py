@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import torch
 
-from ..common import rng
 from ..common.mesh import (DATA, FSDP, TENSOR, P, batch_context,
                            batch_divides, dp_size, gather, gather_as,
                            local_slice, place, placement, shard_slices, tag,
@@ -163,16 +162,15 @@ def sharded_train_step(net, mesh, zero1: bool = False):
     batch and the loss the global one."""
     k = net._grad_accum()
     n_dp = dp_size(mesh)
-    from .fit_fastpath import _micro_batches
+    from .fit_fastpath import _micro_batches, micro_keys
 
     def step(trainable, states, ustate, iteration, x, y, key):
         full = tree_map(gather, trainable)
         if k <= 1:
             micro, keys = [(x, y)], [key]
         else:
-            host = torch.Generator().manual_seed(int(key))
             micro = list(zip(_micro_batches(x, k), _micro_batches(y, k)))
-            keys = [rng.split(host) for _ in micro]
+            keys = micro_keys(key, k, net.device)
         gsum, lsum, sharded = None, 0.0, False
         for (mx, my), mkey in zip(micro, keys):
             rows = _batch_rows(mx)

@@ -55,9 +55,11 @@ def _make_flat_loss(net, x, y):
                        for i, k, _, _ in spec]) if spec else \
         torch.zeros((0,), device=net.device)
     # the census: one event per solver entry, as the JAX package's
-    # counted_jit records for its jitted loss
-    from ..runtime.inference import counted_dispatch
-    return counted_dispatch(vg, tag=f"solver:{id(net)}"), flat0, unflatten
+    # counted_jit records for its jitted loss; eager, since the solver's
+    # host control flow reads every loss
+    from ..runtime.inference import eager_dispatch
+    return eager_dispatch(vg, f"solver:{id(net)}", net._train_graphs(),
+                          "host_decision"), flat0, unflatten
 
 
 def backtrack_line_search(vg: Callable, x0, f0, g0, direction,

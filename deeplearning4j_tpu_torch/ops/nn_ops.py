@@ -6,9 +6,11 @@ Counterpart of ``deeplearning4j_tpu/ops/nn_ops.py`` (the reference's
 plain product form, as there: the logits of a masked key are filled with
 ``finfo(dtype).min`` (not ``-inf``), so a fully masked query row gives
 the uniform softmax, where ``scaled_dot_product_attention`` gives NaN.
-The dropouts take a ``key``: an int seed (``common/rng.py``) or a
-``torch.Generator`` the caller seeds, where the JAX ops take a
-``jax.random`` key; the masks differ from JAX's, only their statistics
+The dropouts take a ``key`` where the JAX ops take a ``jax.random`` key:
+an int or a 0-d int64 tensor on the input's device, drawn from by the
+counter-based hash of ``common/rng.py`` (so a CUDA graph can hold the
+draw, its key read from a static buffer), or a ``torch.Generator`` the
+caller seeds. The masks differ from JAX's, only their statistics
 compare.
 """
 from __future__ import annotations
@@ -17,8 +19,9 @@ import math
 
 import torch
 
+from ..common import rng
 from ..common.mesh import rows_draw
-from ._util import axes, generator
+from ._util import axes
 from .registry import op
 
 op("softmax", "nn")(lambda x, axis=-1: torch.softmax(x, dim=axis))
@@ -94,11 +97,21 @@ def lrn(x, depth_radius=5, bias=1.0, alpha=1.0, beta=0.5):
     return x / torch.pow(bias + alpha * win, beta)
 
 
+def uniform_like(x, key, shape=None):
+    """float32 uniform draws in [0, 1) shaped like ``x`` (or ``shape``)
+    from ``key``; a sharded rank's rows of the global batch's draw
+    (``rows_draw``)."""
+    if isinstance(key, torch.Generator):
+        def draw(s):
+            return torch.rand(s, generator=key, device=x.device)
+    else:
+        def draw(s):
+            return rng.uniform(key, s, x.device)
+    return rows_draw(draw, x.shape if shape is None else shape, x.device)
+
+
 def _keep_mask(x, keep, key):
-    g = generator(key, x.device)
-    return rows_draw(lambda shape: torch.rand(shape, generator=g,
-                                              device=x.device),
-                     x.shape, x.device) < keep
+    return uniform_like(x, key) < keep
 
 
 @op("dropout", "nn")
@@ -127,11 +140,14 @@ def alpha_dropout(x, rate, key, training=True):
 
 
 def _normal_like(x, key):
-    g = generator(key, x.device)
-    return rows_draw(lambda shape: torch.randn(shape, generator=g,
-                                               device=x.device,
-                                               dtype=x.dtype),
-                     x.shape, x.device)
+    if isinstance(key, torch.Generator):
+        def draw(s):
+            return torch.randn(s, generator=key, device=x.device,
+                               dtype=x.dtype)
+    else:
+        def draw(s):
+            return rng.normal(key, s, x.device, x.dtype)
+    return rows_draw(draw, x.shape, x.device)
 
 
 @op("gaussian_dropout", "nn")

@@ -70,11 +70,14 @@ def fit_accumulated(net, batches: List, accumulation_steps: int = None,
     stateful layers' running stats per micro-batch."""
     net._check_init()
     accumulation_steps = accumulation_steps or len(batches)
-    # the census of the JAX package's two counted_jit entries
-    from ..runtime.inference import counted_dispatch
-    grad_fn = counted_dispatch(net._micro_grads, tag=f"accum_grad:{id(net)}")
-    apply_fn = counted_dispatch(net._apply_update,
-                                tag=f"accum_apply:{id(net)}")
+    # the census of the JAX package's two counted_jit entries; eager,
+    # since the host accumulator sums the gradients between them
+    from ..runtime.inference import eager_dispatch
+    graphs = net._train_graphs()
+    grad_fn = eager_dispatch(net._micro_grads, f"accum_grad:{id(net)}",
+                             graphs, "host_accumulator")
+    apply_fn = eager_dispatch(net._apply_update, f"accum_apply:{id(net)}",
+                              graphs, "host_accumulator")
 
     losses: list = []
     acc = GradientsAccumulator(threshold=threshold)

@@ -139,11 +139,13 @@ class ParallelWrapper:
         net._check_init()
         if self._step is None:
             # the census: one event per new signature, the JAX package's
-            # counted_jit tag
-            from ..runtime.inference import counted_dispatch
-            self._step = counted_dispatch(
+            # counted_jit tag; eager, as a mesh's fit step is
+            from ..runtime.cuda_graphs import mesh_reason
+            from ..runtime.inference import eager_dispatch
+            self._step = eager_dispatch(
                 sharded_train_step(net, self.mesh, self.zero1),
-                tag=f"parallel:{id(net)}:z{int(self.zero1)}")
+                f"parallel:{id(net)}:z{int(self.zero1)}",
+                net._train_graphs(), mesh_reason(self.mesh) or "mesh")
         trainable = net._trainable(net._params)
         states = net._states(net._params)
         ustate = net._updater_state

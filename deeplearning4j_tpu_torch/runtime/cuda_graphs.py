@@ -1,8 +1,10 @@
 """CUDA-graph capture of the census-counted steps.
 
 The capturing form of ``runtime/inference.py::counted_dispatch`` (its
-``captured_dispatch`` builds on :class:`StepGraphs`) and of the decode
-engine's prefill, decode and verify steps (``runtime/generation.py``).
+``captured_dispatch`` builds on :class:`StepGraphs`), of the decode
+engine's prefill, decode and verify steps (``runtime/generation.py``)
+and of the layer API's ``fit`` steps (``nn/fit_fastpath.py``, whose
+static inputs include the network's own params, written in place).
 It is the port's counterpart of the JAX package's compiled-executable
 contract (``counted_jit``): where XLA compiles each input signature once
 and dispatches the executable after that, a :class:`StepGraphs` captures
@@ -189,6 +191,18 @@ class StepGraphs:
             step.graph.replay()
             step.record.replay()
             return step.outputs
+
+    def note(self, step: Step, eager: Optional[str] = None) -> None:
+        """Record ``step``'s census event without running it
+        (``warm_compile``), under the label its first run takes:
+        ``eager:<eager>``, ``captured`` on a CUDA device, else ``eager``."""
+        with self.lock:
+            if step.cache is None:
+                step.cache = (f"eager:{eager}" if eager is not None
+                              else "captured" if self.device.type == "cuda"
+                              else "eager")
+                environment().record_compile((step.tag,) + step.sig,
+                                             cache=step.cache)
 
     # -- capture -------------------------------------------------------------
     def _census(self, step: Step, label: str, seconds: float):

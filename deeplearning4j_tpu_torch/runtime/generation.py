@@ -35,7 +35,10 @@ PyTorch on the model's device.
   kernel as the Q=1 step) and commits the longest matching prefix plus
   one target token.
 - **sampling** — greedy, temperature and top-k per slot, Gumbel-max with
-  noise hashed from ``(seed, step)`` (:func:`step_uniforms`).
+  noise hashed from ``(seed, request, position)`` (:func:`step_uniforms`
+  over :func:`row_streams`): a request's sampled tokens depend on the
+  engine's seed, the order it was submitted in and its own tokens, never
+  on what else the engine was running when it was sampled.
 - **captured steps** — every prefill (prompt bucket, batch rung), the
   decode step and the verify step is one signature: on a CUDA engine it
   is captured once as a CUDA graph and replayed after that
@@ -99,6 +102,7 @@ from ..common import faults
 from ..common.environment import environment
 from ..common.locks import ordered_condition, ordered_lock, ordered_rlock
 from ..common.metrics import exponential_buckets, registry
+from ..common.rng import _mix32
 from ..common.tracing import current_context, record_disposition, tracer
 from . import cuda_graphs, sharded
 from .inference import EngineClosedError, bucket_for, bucket_ladder
@@ -129,34 +133,40 @@ def _cdiv(a: int, b: int) -> int:
 _M32 = 0xFFFFFFFF
 
 
-def _mix32(x):
-    """A 32-bit integer finaliser (two multiply-xorshift rounds) on int64
-    tensors holding values below 2**32; every product stays below 2**59,
-    so the arithmetic is exact on every device."""
-    x = ((x >> 16) ^ x) * 0x45D9F3B & _M32
-    x = ((x >> 16) ^ x) * 0x45D9F3B & _M32
-    return (x >> 16) ^ x
-
-
 def step_uniforms(seed, step, shape, device) -> torch.Tensor:
-    """Uniform draws in (0, 1), float32 ``shape`` [rows, V], for one
-    engine step: a counter-based hash of (seed, step, row, column) in
-    plain integer ops. ``seed`` and ``step`` are ints or 0-d tensors (a
-    captured step reads them from its static inputs), so the draws are a
-    function of (seed, step) alone: the same in an eager step and in a
-    CUDA-graph replay, and on every device (the JAX package folds
-    ``step`` into a PRNG key instead)."""
+    """Uniform draws in (0, 1), float32 ``shape`` [rows, V]: a
+    counter-based hash of (seed, step, row, column) in plain integer ops.
+    ``seed`` and ``step`` are ints or 0-d tensors (a captured step reads
+    them from its static inputs), or ``step`` holds one stream a row
+    ([rows], :func:`row_streams`), which then draws from (seed, its
+    stream, column) whatever row it sits in. So the draws are the same in
+    an eager step and in a CUDA-graph replay, and on every device (the
+    JAX package folds ``step`` into a PRNG key instead)."""
     seed = torch.as_tensor(seed, device=device).long() & _M32
     step = torch.as_tensor(step, device=device).long() & _M32
     key = _mix32(seed ^ _mix32((step + 0x9E3779B9) & _M32))
-    idx = torch.arange(math.prod(shape), device=device,
-                       dtype=torch.int64).view(shape)
+    if key.dim() == 1:
+        key = key[:, None]
+        idx = torch.arange(shape[-1], device=device, dtype=torch.int64)
+    else:
+        idx = torch.arange(math.prod(shape), device=device,
+                           dtype=torch.int64).view(shape)
     h = _mix32((_mix32(idx ^ key) + key) & _M32)
     return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
 
 
+def row_streams(numbers, positions) -> torch.Tensor:
+    """One noise stream a row [rows] for :func:`step_uniforms`: the draw
+    of request ``numbers[r]`` (its submission number in the engine) for
+    its token ``positions[r]`` (the tokens it has generated so far)."""
+    n = numbers.long() & _M32
+    p = positions.long() & _M32
+    return _mix32(n ^ _mix32((p + 0x7F4A7C15) & _M32))
+
+
 def sample_tokens(logits, temperature, top_k, seed, step):
-    """Next-token sampling over ``logits`` [S, V] (f32).
+    """Next-token sampling over ``logits`` [S, V] (f32); ``step`` is one
+    stream for the whole draw or one a row (:func:`step_uniforms`).
 
     ``temperature`` [S]: <= 0 means greedy argmax for that slot.
     ``top_k`` [S]: <= 0 disables the top-k filter for that slot.
@@ -185,7 +195,7 @@ class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "eos",
                  "on_token", "future", "ctx", "deadline", "t_submit",
                  "t_first", "t_prefill0", "t_last", "tokens", "slot",
-                 "prefix", "admit_seq", "reuse_nodes", "start")
+                 "prefix", "admit_seq", "reuse_nodes", "start", "number")
 
     def __init__(self, prompt, max_tokens, temperature, top_k, eos,
                  on_token, deadline, ctx):
@@ -215,6 +225,9 @@ class _GenRequest:
         # whose blocks this request shares, covering rows [0, start)
         self.reuse_nodes: List = []
         self.start = 0
+        # submission number: with the count of its tokens, the stream of
+        # its sampling noise (row_streams)
+        self.number = 0
 
     def expired(self) -> bool:
         return self.deadline is not None and time.monotonic() >= self.deadline
@@ -515,13 +528,15 @@ class DecodeEngine:
         self.param_spec = param_spec
         if mesh is not None:
             self._shard(mesh, param_spec)
-        self._step = 0
+        #: requests submitted so far (each one's ``number``)
+        self._submitted = 0
         # per-slot host state (the loop thread owns it)
         S = self.slots
         self._tokens = np.zeros(S, np.int32)
         self._lengths = np.zeros(S, np.int32)
         self._temps = np.zeros(S, np.float32)
         self._topks = np.zeros(S, np.int32)
+        self._numbers = np.zeros(S, np.int32)
         self._tables = np.zeros((S, self.max_blocks), np.int32)
         self._nblocks = np.zeros(S, np.int32)
         self._alloc = _BlockAllocator(self.kv_blocks)
@@ -700,7 +715,6 @@ class DecodeEngine:
                 step.inputs.load(t[1])
                 self._graphs.run(step, lambda: self._bodies[name](
                     step.inputs.views), eager=self._eager_reason)
-            self._step += 1
 
     def _is_follower(self) -> bool:
         return self._link is not None and not self._link.is_leader
@@ -744,7 +758,8 @@ class DecodeEngine:
                                         v["tables"], v["lengths"],
                                         v["starts"])
                 return sample_tokens(logits, v["temps"], v["top_ks"],
-                                     v["seed"], v["step"])
+                                     v["seed"], row_streams(
+                                         v["numbers"], v["positions"]))
             return body
 
         def decode_body(v):
@@ -755,7 +770,8 @@ class DecodeEngine:
                     eng._step_params()[0], eng._cache, v["tables"],
                     tokens[:, None], v["lengths"])
                 nxt = sample_tokens(logits[:, 0], v["temps"], v["top_ks"],
-                                    v["seed"], v["step"])
+                                    v["seed"], row_streams(
+                                        v["numbers"], v["positions"]))
                 return torch.where(v["active"] != 0, nxt, tokens)
             return body
 
@@ -830,12 +846,14 @@ class DecodeEngine:
                     ("tables", (rows, MB), i32),
                     ("lengths", (rows,), i32), ("starts", (rows,), i32),
                     ("temps", (rows,), f32), ("top_ks", (rows,), i32),
-                    ("seed", (), i32), ("step", (), i32))
+                    ("seed", (), i32), ("numbers", (rows,), i32),
+                    ("positions", (rows,), i32))
         fields = (("tables", (rows, MB), i32), ("tokens", (rows,), i32),
                   ("lengths", (rows,), i32), ("active", (rows,), i32))
         if kind == "decode":
             fields += (("temps", (rows,), f32), ("top_ks", (rows,), i32),
-                       ("seed", (), i32), ("step", (), i32))
+                       ("seed", (), i32), ("numbers", (rows,), i32),
+                       ("positions", (rows,), i32))
         return fields
 
     def _graph_step(self, kind, shape):
@@ -875,7 +893,8 @@ class DecodeEngine:
         return self._link.call(
             record_kind, (torch.tensor(shape, dtype=torch.int32), buf), run)
 
-    def _run_prefill(self, ids, tables, lengths, starts, temps, top_ks):
+    def _run_prefill(self, ids, tables, lengths, starts, temps, top_ks,
+                     numbers, positions):
         """One batched prefill: ``ids`` [B, Tb] padded prompt *tails*,
         ``tables`` [B, MB] the target slots' block tables, ``lengths`` [B]
         real total prompt lengths, ``starts`` [B] rows already committed
@@ -891,12 +910,18 @@ class DecodeEngine:
                     "prefill", tuple(ids.shape),
                     {"ids": ids, "tables": tables, "lengths": lengths,
                      "starts": starts, "temps": temps, "top_ks": top_ks,
-                     "seed": self._seed, "step": self._step},
+                     "seed": self._seed, "numbers": numbers,
+                     "positions": positions},
                     sharded.PREFILL)
-                self._step += 1
                 return toks
             finally:
                 self._dispatch_started_at = None
+
+    def _positions(self) -> np.ndarray:
+        """Each slot's rider's tokens so far: the position its next
+        sampled token takes (0 for an empty slot)."""
+        return np.array([len(r.tokens) if r is not None else 0
+                         for r in self._slot_req], np.int32)
 
     def _run_decode(self, active):
         if faults.active():
@@ -909,9 +934,9 @@ class DecodeEngine:
                     {"tables": self._tables, "tokens": self._tokens,
                      "lengths": self._lengths, "active": active,
                      "temps": self._temps, "top_ks": self._topks,
-                     "seed": self._seed, "step": self._step},
+                     "seed": self._seed, "numbers": self._numbers,
+                     "positions": self._positions()},
                     sharded.DECODE)
-                self._step += 1
                 return nxt
             finally:
                 self._dispatch_started_at = None
@@ -928,7 +953,6 @@ class DecodeEngine:
                     {"tables": self._tables, "tokens": self._tokens,
                      "lengths": self._lengths, "active": active},
                     sharded.SPEC)
-                self._step += 1
                 return out[:, :-1], out[:, -1]
             finally:
                 self._dispatch_started_at = None
@@ -957,7 +981,8 @@ class DecodeEngine:
                         np.zeros((bb, b), np.int32),
                         np.zeros((bb, self.max_blocks), np.int32),
                         np.ones(bb, np.int32), np.zeros(bb, np.int32),
-                        np.zeros(bb, np.float32), np.zeros(bb, np.int32))
+                        np.zeros(bb, np.float32), np.zeros(bb, np.int32),
+                        np.zeros(bb, np.int32), np.zeros(bb, np.int32))
                     self._warmed.add(key)
             warmed.append(b)
         if "decode" not in self._warmed:
@@ -1019,6 +1044,8 @@ class DecodeEngine:
                        "draining" if self._draining else
                        "dead (worker restart budget exhausted)")
                     + "; it no longer accepts requests")
+            req.number = self._submitted & 0x7FFFFFFF
+            self._submitted += 1
             self._pending.append(req)
             depth = len(self._pending)
             self._cv.notify_all()
@@ -1484,6 +1511,8 @@ class DecodeEngine:
         starts = np.zeros(bb, np.int32)
         temps = np.zeros(bb, np.float32)
         topks = np.zeros(bb, np.int32)
+        numbers = np.zeros(bb, np.int32)
+        positions = np.zeros(bb, np.int32)
         for r, (req, slot) in enumerate(zip(group, slots)):
             p = req.prefix
             s = int(req.start)
@@ -1494,9 +1523,11 @@ class DecodeEngine:
             starts[r] = s
             temps[r] = req.temperature
             topks[r] = req.top_k
+            numbers[r] = req.number
+            positions[r] = len(req.tokens)
         t0 = time.perf_counter()
         toks = self._run_prefill(ids, tables, lengths, starts, temps,
-                                 topks)
+                                 topks, numbers, positions)
         t_done = time.perf_counter()
         hits = sum(1 for req in group if req.start > 0)
         reused = int(sum(req.start for req in group))
@@ -1546,6 +1577,7 @@ class DecodeEngine:
             self._lengths[slot] = int(req.prefix.size)
             self._temps[slot] = req.temperature
             self._topks[slot] = req.top_k
+            self._numbers[slot] = req.number
             with self._cv:
                 # publish the just-committed prompt blocks (decode writes
                 # land strictly past the prefix)

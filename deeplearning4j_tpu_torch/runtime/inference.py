@@ -236,6 +236,19 @@ def counted_dispatch(fn: Callable, tag: str,
     return wrapped
 
 
+def eager_dispatch(fn: Callable, tag: str, graphs, reason: str) -> Callable:
+    """``fn`` under the census of ``graphs`` (a
+    :class:`~.cuda_graphs.StepGraphs`), always run eagerly as
+    ``eager:<reason>``: a step whose host decisions or collectives keep
+    it out of a CUDA graph. One event per new signature (from
+    ``args[1:]``, as :func:`counted_dispatch`'s), and an entry in
+    ``graphs.report()``."""
+    def wrapped(*args):
+        step = graphs.step(tag, _signature(args[1:]), lambda: None)
+        return graphs.run(step, lambda: lambda: fn(*args), eager=reason)
+    return wrapped
+
+
 def _param_key(params) -> tuple:
     """What a captured forward over ``params`` holds: each leaf (by
     identity; a quantized leaf with its ``q`` and ``scale``) with the
@@ -279,8 +292,11 @@ def captured_dispatch(fn: Callable, tag: str, device) -> Callable:
                 lambda x: torch.empty_like(x, device=graphs.device), data))
             for buf, x in zip(_tree_leaves(step.inputs), leaves):
                 buf.copy_(x)
+            # the body holds the inputs, not the step (a cycle would keep
+            # a dropped network's graphs until a collection)
+            ins = step.inputs
             out = graphs.run(
-                step, lambda: lambda: fn(params, *step.inputs),
+                step, lambda: lambda: fn(params, *ins),
                 _param_key(params), eager=eager)
             return _tree_map(lambda t: t.clone() if isinstance(
                 t, torch.Tensor) else t, out)

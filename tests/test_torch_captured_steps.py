@@ -4,8 +4,8 @@ JAX package's compiled-executable contract, on the CPU.
 On a CPU engine every step signature runs eagerly on its static buffers,
 bound to the params of its last capture, so these cases exercise what a
 CUDA engine captures: the census, the packed step inputs, the sampling
-noise as a function of (seed, step), and the keys that keep a graph from
-reading stale params. The replays themselves run on the card
+noise as a function of (seed, request, position), and the keys that keep
+a graph from reading stale params. The replays themselves run on the card
 (``tests/test_torch_captured_steps_cuda.py``).
 
 - (a) the decode census: ``len(ladder) * len(batch ladder) + 1`` events
@@ -14,7 +14,8 @@ reading stale params. The replays themselves run on the card
   none after traffic;
 - (b) greedy tokens through the static-buffer step bodies identical to
   the JAX engine's, with and without a draft;
-- (c) sampled tokens a function of (seed, step);
+- (c) sampled tokens a function of (seed, request, position): the same
+  whatever else the engine runs beside a request;
 - (d) a network's predict after ``fit``, ``set_params`` and a
   ``matmul_precision`` change: its forward on the new params, and the
   JAX network's;
@@ -206,6 +207,48 @@ def test_sampled_tokens_are_a_function_of_seed_and_step(pair):
     assert torch.equal(sample_tokens(logits, hot, no_k, 7, 3),
                        sample_tokens(logits, hot, no_k, torch.tensor(7),
                                      torch.tensor(3)))
+
+
+def _sampled_rounds(model, together):
+    """Four sampled requests through one engine: submitted while its
+    scheduler is held (admitted and stepped together), or each only
+    after the one before has its first token (admitted one by one, so
+    every request is sampled at other engine steps)."""
+    import threading
+    eng = DecodeEngine(model, device="cpu", seed=5, slots=4, max_ctx=64,
+                       prompt_buckets=[16], prefill_batch=2)
+    prompts = [_prompt(n, seed=20 + n) for n in (5, 9, 7, 12)]
+    try:
+        eng.warmup()
+        if together:
+            with eng._cv:
+                futs = [eng.generate(p, max_tokens=8, temperature=1.5)
+                        for p in prompts]
+        else:
+            futs = []
+            for p in prompts:
+                first = threading.Event()
+                futs.append(eng.generate(p, max_tokens=8, temperature=1.5,
+                                         on_token=lambda t, e=first: e.set()))
+                assert first.wait(60)
+        return [f.result(120)["tokens"] for f in futs], eng.stats()
+    finally:
+        eng.close(10)
+
+
+def test_sampled_tokens_do_not_depend_on_the_co_scheduled_traffic(pair):
+    """(c) A request's sampled tokens are a function of the engine's
+    seed, its submission order and its own tokens: the same whether the
+    engine admits the four requests in one group or one by one, though
+    the engine's steps differ. Keyed on the engine's step count instead,
+    the tokens followed the host's timing, and a captured engine, whose
+    steps run faster, served other tokens than the eager reference on
+    the card (``test_decode_replays_after_the_verify_step_grew_the_
+    counters``)."""
+    together, s1 = _sampled_rounds(pair[1], True)
+    apart, s2 = _sampled_rounds(pair[1], False)
+    assert s1["prefill_dispatches"] != s2["prefill_dispatches"]
+    assert together == apart
 
 
 # -- predict ------------------------------------------------------------------

@@ -315,6 +315,22 @@ def distribute_mln(conf_json, params_np, xs, ys, axes):
             ref.output(xs[0]).numpy(), shapes)
 
 
+def mesh_fit_report(conf_json, xs, ys):
+    """``fit`` of a distributed network and a ``ParallelWrapper`` fit on
+    a 2-rank data mesh: the network's training-step report (every step
+    eager, with the mesh's backend as the reason)."""
+    from deeplearning4j_tpu_torch.nn.conf.config import \
+        MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.trainer import ParallelWrapper
+    m = _mesh(2, data=2)
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
+                            device="cpu").init().distribute(m)
+    net.fit(_datasets(xs, ys))
+    ParallelWrapper(net, m, prefetch_buffer=0).fit(_datasets(xs, ys))
+    return net.train_graphs_report()
+
+
 def distribute_graph(conf_json, params_np, xs, ys, axes):
     """The same for a ComputationGraph."""
     from deeplearning4j_tpu_torch.nn.graph.computation_graph import (
