@@ -103,13 +103,27 @@ exits non-zero without printing a result:
 7. train    — BERT-base masked-LM training (vocab 30522, hidden 768, 12
               layers, bf16, random weights from a seed) at B=128, T=128:
               ``make_scanned_train_step(n_steps=10, use_flash=True,
-              remat=False)`` after one warm call, through the three flash
-              kernels; the same step with ``use_flash=False`` from the
-              same params and batch for its first loss.
-   train_step — where one train step's device time goes, by kernel;
-              each flash wrapper's share sums the ``__global__``
-              functions of its source, and a wrapper that launched with
-              a share of 0 fails the phase.
+              remat=False)``, captured on its first call (the step
+              replayed 10 times a call, the three flash kernels inside
+              its graph), then a timed call of replays whose flash
+              launches must be 12 x 10 each; the same step with
+              ``use_flash=False`` (kept eager) from the same params and
+              batch for its first loss.
+   train_step — where one replayed train step's device time goes, by
+              kernel (each flash wrapper's share sums the ``__global__``
+              functions of its source; a wrapper that launched with a
+              share of 0 fails the phase); host ms, device ms, busy
+              share, launch calls and device records a step against the
+              same step kept eager (``eager="reference"``); the
+              replayed params, Adam moments and losses against two
+              eager runs of the same calls from the same start (bit for
+              bit where those agree, else within twice their spread);
+              device records equal both ways (the profiled pair taken
+              again until they are), 12 flash launches of each
+              kernel a step both ways; then ``make_train_step(remat=
+              True)`` captured and replayed 3 calls against eager, the
+              forward launched twice a layer and step. Each step's
+              graph pool is released when it is done.
    parallel — (run last, after every profiler reading of the script's
               own process, whose readings it must not disturb; its
               launches go into the kernels line) training parallelism
@@ -331,10 +345,15 @@ exits non-zero without printing a result:
    seq2seq  — BASELINE config 4's Seq2Seq LSTM at bench.py's widths
               (``models.seq2seq``: vocab 8000, embed 256, hidden 512,
               f32 without TF32, B=128, S=32, ids from ``RandomState(0)``,
-              Adam 1e-3): one warm step, 30 timed (host clock:
-              samples/s, ms a step), 3 under ``torch.profiler`` (device
-              ms a step by kernel class, launches a step, busy share),
-              the phase's own peak memory; the first loss (about ln
+              Adam 1e-3), its step captured: one warm step (which
+              captures), 30 timed (host clock: samples/s, ms a step),
+              the phase's own peak memory; the same calls of the same
+              step kept eager, twice from the same start, the replayed
+              params, moments and losses against the eager ones as in
+              train_step; then 3 more steps each way under
+              ``torch.profiler`` (device ms a step by kernel class,
+              launch calls, device records equal both ways, busy
+              share); the first loss (about ln
               8000) against a CPU copy of the same weights
               (``S2S_LOSS_ATOL``), the 30th below it, the census after
               warmup (must be 0), and
@@ -397,7 +416,9 @@ exits non-zero without printing a result:
    opbench  — ``benchmarks/opbench.py``'s whole-registry sweep on the
               card at N = 512 (``OPBENCH_ITERS`` calls and CUDA-graph
               replays an op): counts and names benched, skipped,
-              excluded and not captured, the 10 slowest ops, the
+              excluded and not captured (a capture that recorded no
+              kernel, a view or host work, is not timed: its kind
+              ``empty_graph``), the 10 slowest ops, the
               phase's seconds, the names the JAX CPU sweep
               (``OPBENCH_cpu_baseline.json``) benched that the card did
               not, with reasons; the JSON to ``OPBENCH_OUT``. A
@@ -406,6 +427,9 @@ exits non-zero without printing a result:
               the phase. None of these phases reaches one of the five
               kernels: no convolution, image or op-tail module of the
               JAX package reaches a ``pallas_call``.
+   empty_graphs — every capture of this process's ``StepGraphs`` that
+              recorded no kernel (each runs eagerly,
+              ``eager:empty_graph``), with the phase printed before it.
    host_profile — ``torch.profiler`` (CPU activities, every thread)
               and a 1 kHz sampling of every thread's innermost Python
               frame over a second run of serve_http's 16 requests and a
@@ -470,6 +494,7 @@ ResNet-50 update moves with the batch statistics' rounding).
 """
 import gc
 import json
+import logging
 import os
 import re
 import subprocess
@@ -551,6 +576,8 @@ WARM_ENGINE = {"slots": 4, "max_ctx": 256, "prompt_buckets": [64, 256],
 WARM_TOKENS = 16
 # BERT-base training: the bench headline's batch (bench.py bench_bert)
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 128, 128, 10
+# calls of the remat=True BERT step: one capture, two replays
+REMAT_CALLS = 3
 # flash shapes held against the plain version: the train shape and
 # BERT's longest position; the CausalLM's full forward runs B=CAUSAL_B
 # rows of MAX_CTX tokens (the causal phase and the causal forward record)
@@ -815,7 +842,27 @@ _T0 = time.perf_counter()
 def emit(obj):
     if "phase" in obj:
         obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
+        LAST_PHASE[0] = obj["phase"]
     print(json.dumps(obj), flush=True)
+
+
+#: the name of the last phase line printed
+LAST_PHASE = [None]
+#: captures of this process that recorded no kernel (they run eagerly,
+#: ``eager:empty_graph``), each with the phase line printed before it
+EMPTY_GRAPHS = []
+
+
+class EmptyGraphLog(logging.Handler):
+    """Prints ``runtime/cuda_graphs.py``'s log to standard error and
+    collects what it says of an empty capture into ``EMPTY_GRAPHS``."""
+
+    def emit(self, record):
+        msg = record.getMessage()
+        print(msg, file=sys.stderr, flush=True)
+        if "EmptyGraph" in msg:
+            EMPTY_GRAPHS.append({"after_phase": LAST_PHASE[0],
+                                 "message": msg[:400]})
 
 
 #: profiler windows taken again (one record each): the done line reports
@@ -3025,20 +3072,24 @@ def bert_batch(cfg, B, T, seed=0):
 
 
 def phase_train():
-    """BERT-base MLM training through the flash kernels. Returns the
-    kernels' launch counts on the timed run and what later phases
-    reuse."""
+    """BERT-base MLM training through the flash kernels, captured: the
+    scanned step (TRAIN_STEPS steps a call) is captured on its first
+    call and replayed from then on, the three flash kernels inside its
+    graph. Returns the kernels' launch counts on the timed run (replays
+    only) and what ``phase_train_step`` reuses."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch.models import bert
     cfg = bert.BertConfig.base()
     params = bert.init_params(cfg, seed=0, device="cuda")
     opt = bert.init_opt_state(params)
+    # where the eager reference steps of phase_train_step start
+    start = (clone_tree(params), clone_tree(opt))
     batch = bert_batch(cfg, TRAIN_B, TRAIN_T)
     step = bert.make_scanned_train_step(cfg, TRAIN_STEPS, learning_rate=1e-4,
                                         remat=False, use_flash=True)
     t0 = time.perf_counter()
-    params, opt, warm = step(params, opt, batch, 0)
+    params, opt, warm = step(params, opt, batch, 0)     # runs, captures
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     before = (clone_tree(params), clone_tree(opt))
@@ -3055,19 +3106,22 @@ def phase_train():
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     traj = losses.float().cpu().numpy()
     changed = int(np.count_nonzero(np.diff(traj)))
-    # the same step through the plain attention branch, same start
+    # the same step through the plain attention branch, same start, run
+    # eagerly (one call: nothing to replay)
     plain_step = bert.make_scanned_train_step(cfg, 1, learning_rate=1e-4,
                                               remat=False, use_flash=False)
-    _, _, plain_loss = plain_step(before[0], before[1], batch, TRAIN_STEPS)
+    _, _, plain_loss = plain_step(before[0], before[1], batch, TRAIN_STEPS,
+                                  eager="reference")
     plain_first = float(plain_loss[0])
     del before
+    entry, = step.graphs.report()
     want = cfg.num_layers * TRAIN_STEPS
     rec = {"phase": "train", "model": "bert-base", "B": TRAIN_B,
            "T": TRAIN_T, "n_steps": TRAIN_STEPS,
            "warm_call_s": round(t_warm, 3), "wall_s": wall,
            "step_ms": wall * 1e3 / TRAIN_STEPS,
            "samples_per_s": TRAIN_STEPS * TRAIN_B / wall,
-           "peak_memory_gib": peak_gb,
+           "peak_memory_gib": peak_gb, "graph": entry,
            "warm_losses": warm.float().cpu().tolist(),
            "losses": traj.tolist(), "adjacent_changed":
                f"{changed}/{len(traj) - 1}",
@@ -3075,6 +3129,8 @@ def phase_train():
            "first_loss_abs_diff": abs(plain_first - float(traj[0])),
            "launches": launches}
     emit(rec)
+    if entry["cache"] != "captured":
+        raise RuntimeError(f"the BERT train step was not captured: {entry}")
     if not np.all(np.isfinite(traj)):
         raise RuntimeError("non-finite loss in the train trajectory")
     if changed < 0.8 * (len(traj) - 1):
@@ -3088,7 +3144,9 @@ def phase_train():
             raise RuntimeError(f"{n} launched {c} times on the train run, "
                                f"want {cfg.num_layers} layers x "
                                f"{TRAIN_STEPS} steps = {want}")
-    return launches, params, opt, batch, rec["step_ms"]
+    return launches, {"step": step, "params": params, "opt": opt,
+                      "batch": batch, "start": start,
+                      "losses": [warm, losses], "step_ms": rec["step_ms"]}
 
 
 def flash_kernel_names():
@@ -3119,47 +3177,228 @@ def ms_under(by_name, names):
                                                     for p in pats))
 
 
-def phase_train_step(params, opt, batch, step_ms):
-    """Device time of one train step by kernel, from ``torch.profiler``
-    over a 2-step call; the busy share is that device time over the
-    timed run's host-clock step. Each flash wrapper's share sums the
-    ``__global__`` functions of its source; a wrapper that launched under
-    the profiler with a share of 0 fails the phase."""
+def state_diff(a, b):
+    """The largest elementwise gap between two lists of tensors (0.0
+    where they are equal bit for bit)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def replay_check(name, replayed, eager_1, eager_2, fails):
+    """The replayed state (a list of tensors: params, optimizer state,
+    losses) against two eager runs from the same start: bit for bit
+    where the eager runs agree bit for bit, else within twice their
+    spread. Returns the record's fields; a miss goes into ``fails``."""
+    import torch
+    spread = state_diff(eager_1, eager_2)
+    diff = state_diff(replayed, eager_1)
+    same = all(torch.equal(x, y) for x, y in zip(replayed, eager_1))
+    ok = same if spread == 0 else diff <= 2 * spread
+    if not ok:
+        fails.append(f"{name}: replayed differs from eager by {diff} "
+                     f"(eager runs' spread {spread})")
+    return {"bitwise_equal": same, "eager_spread_max_abs": spread,
+            "replayed_vs_eager_max_abs": diff}
+
+
+def step_profile(fn, steps, per_call=0):
+    """Device ms, launch calls and device records a step of ``fn()``
+    (``steps`` steps a call, after ``per_call`` device records a call
+    that are no step's: the copies of a step's batch into its static
+    buffers) from one profiler window, with the device ms by kernel."""
+    counts = {}
+    by_name = {k: v / steps for k, v in
+               device_ms_by_kernel(fn, 1, counts=counts).items()}
+    return {"device_ms": sum(by_name.values()),
+            "launch_calls": counts["launches"] / steps,
+            "device_records": (counts["device_records"] - per_call)
+            / steps}, by_name
+
+
+def profile_pair(name, replayed, eager, fails, per_call=0):
+    """``step_profile`` of a replayed and an eager call (``replayed`` and
+    ``eager`` are (fn, steps a call)), taken again, up to PROFILE_TRIES
+    pairs, until their device records a step agree: the tracer may drop
+    some records of a graph's kernels while it keeps the graph launch's
+    own, a loss ``device_ms_by_kernel`` cannot see. Returns the two
+    readings, each with its flash launches a step; a pair that never
+    agrees goes into ``fails``."""
+    counters = flash_counters()
+
+    def take(fn, steps):
+        n0 = {w: f.launches for w, f in counters.items()}
+        rec, by_name = step_profile(fn, steps, per_call)
+        rec["flash_launches"] = {w: (f.launches - n0[w]) / steps
+                                 for w, f in counters.items()}
+        return rec, by_name
+    for attempt in range(PROFILE_TRIES):
+        rep, eag = take(*replayed), take(*eager)
+        if rep[0]["device_records"] == eag[0]["device_records"]:
+            return rep, eag
+        PROFILER_RETAKES.append({
+            "fn": name, "attempt": attempt, "device_records":
+                [rep[0]["device_records"], eag[0]["device_records"]]})
+    fails.append(f"{name}: {rep[0]['device_records']} device records a "
+                 f"replayed step, {eag[0]['device_records']} eager, in "
+                 f"{PROFILE_TRIES} pairs of windows")
+    return rep, eag
+
+
+def step_state(params, opt, losses):
+    """The params, the Adam moments and the losses of a run, as one list
+    of tensors."""
+    import torch
+    from deeplearning4j_tpu_torch.models import _optim
+    return _optim.tree_leaves([params, opt]) + [
+        torch.cat([t.reshape(-1) for t in losses])]
+
+
+# steps a call of the eager BERT step under the profiler (a profiled
+# eager step records some 20,000 host events)
+EAGER_PROFILED = 2
+
+
+def phase_train_step(run):
+    """The captured BERT-base step against the same body kept eager
+    (``eager="reference"``): device time by kernel of a replayed call
+    (each flash wrapper's share sums the ``__global__`` functions of its
+    source; a wrapper that launched with a share of 0 fails), host ms,
+    device ms, busy share, launch calls and device records a step each
+    way (the eager ones over an EAGER_PROFILED-step call), the replayed
+    state after phase_train's two calls against two eager runs of the
+    same calls from ``start``, the flash launches held at layers a
+    step; then a remat=True step, captured and replayed against eager.
+    Each step's graphs are released at the end."""
+    import torch
     from deeplearning4j_tpu_torch.models import bert
     cfg = bert.BertConfig.base()
-    step = bert.make_scanned_train_step(cfg, 2, learning_rate=1e-4,
-                                        remat=False, use_flash=True)
+    step, params, opt, batch, start, step_ms = (
+        run[k] for k in ("step", "params", "opt", "batch", "start",
+                         "step_ms"))
     names = flash_kernel_names()
-    counters = flash_counters()
-    n0 = {w: f.launches for w, f in counters.items()}
-    # the 2-step call, counted per step
-    by_name = {k: v / 2 for k, v in device_ms_by_kernel(
-        lambda: step(params, opt, batch, 100), 1).items()}
-    launched = {w: f.launches - n0[w] for w, f in counters.items()}
-    device_ms = sum(by_name.values())
+    fails = []
+    # the replayed state after phase_train's calls (0, TRAIN_STEPS)
+    rep_state = [t.clone() for t in step_state(params, opt, run["losses"])]
+    # the same body kept eager, twice, through the replayed state's
+    # calls; the first's second call timed
+    eager_step = bert.make_scanned_train_step(cfg, TRAIN_STEPS,
+                                              learning_rate=1e-4,
+                                              remat=False, use_flash=True)
+    runs = {}
+    for label in ("eager_1", "eager_2"):
+        p, o = clone_tree(start[0]), clone_tree(start[1])
+        losses = [eager_step(p, o, batch, 0, eager="reference")[2]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(eager_step(p, o, batch, TRAIN_STEPS,
+                                 eager="reference")[2])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        runs[label] = step_state(p, o, losses)
+        if label == "eager_1":
+            kept, eager_ms = (p, o), ms
+        del p, o
+    check = replay_check("bert train step", rep_state, runs["eager_1"],
+                         runs["eager_2"], fails)
+    del runs, rep_state
+    # profiled: a replayed call (its graph captured in phase_train) and an
+    # EAGER_PROFILED-step call of the eager step
+    short = bert.make_scanned_train_step(cfg, EAGER_PROFILED,
+                                         learning_rate=1e-4, remat=False,
+                                         use_flash=True)
+    # its first call makes its static inputs (a fill of its own)
+    short(*kept, batch, 100, eager="reference")
+    (replayed, by_name), (eager, eager_by_name) = profile_pair(
+        "bert train step",
+        (lambda: step(params, opt, batch, 100), TRAIN_STEPS),
+        (lambda: short(*kept, batch, 100, eager="reference"),
+         EAGER_PROFILED), fails, len(batch))
+    del kept
+    step.graphs.release()
+    replayed.update(step_ms=step_ms, busy_share=replayed["device_ms"]
+                    / step_ms)
+    eager.update(step_ms=eager_ms, busy_share=eager["device_ms"] / eager_ms)
+    launched, eager_launched = (replayed.pop("flash_launches"),
+                                eager.pop("flash_launches"))
     split = {w: ms_under(by_name, ns) for w, ns in names.items()}
+    eager_split = {w: ms_under(eager_by_name, ns) for w, ns in names.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # cuBLAS's matrix products (nvjet, cutlass and xmma kernel names)
     gemm = sum(v for k, v in by_name.items()
                if any(f in k.lower() for f in ("gemm", "nvjet", "cutlass",
                                                "xmma")))
+    per_launch = {w: {"replayed": split[w] / launched[w] if launched[w]
+                      else None,
+                      "eager": eager_split[w] / eager_launched[w]
+                      if eager_launched[w] else None} for w in names}
+    want = float(cfg.num_layers)
     emit({"phase": "train_step", "step_ms": step_ms,
-          "device_ms_per_step": device_ms,
-          "device_busy_share": device_ms / step_ms,
+          "device_ms_per_step": replayed["device_ms"],
+          "device_busy_share": replayed["busy_share"],
           "flash_fwd_ms_per_step": split["flash_attention_fwd"],
           "flash_dq_ms_per_step": split["flash_attention_dq"],
           "flash_dkv_ms_per_step": split["flash_attention_dkv"],
-          "flash_launches_per_step": {w: n / 2 for w, n in launched.items()},
+          "flash_ms_per_launch": per_launch,
+          "flash_launches_per_step": launched,
+          "flash_launches_per_step_eager": eager_launched,
           "flash_kernel_names": names,
           "gemm_ms_per_step": gemm,
           "kernels_seen": len(by_name),
-          "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]})
+          "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+          "replayed": replayed, "eager": eager,
+          "samples_per_s_replayed": TRAIN_B * 1e3 / step_ms,
+          "samples_per_s_eager": TRAIN_B * 1e3 / eager_ms, **check})
     for w, n in launched.items():
         if n > 0 and not split[w] > 0:
-            raise RuntimeError(
-                f"train step: {w} launched {n} times under the profiler, "
-                f"but no device time was found under its kernels' names "
-                f"{names[w]}")
+            fails.append(f"train step: {w} launched {n} times a step under "
+                         f"the profiler, but no device time was found "
+                         f"under its kernels' names {names[w]}")
+        if n != want or eager_launched[w] != want:
+            fails.append(f"train step: {w} launched {n} times a replayed "
+                         f"step, {eager_launched[w]} eager, want {want}")
+    phase_train_remat(cfg, start, batch, fails)
+    if fails:
+        raise RuntimeError(f"train_step phase failed: {fails}")
+
+
+def phase_train_remat(cfg, start, batch, fails):
+    """``make_train_step(remat=True, use_flash=True)`` at BERT-base
+    B=128, T=128: REMAT_CALLS calls captured (the first) and replayed,
+    against the same calls kept eager twice from ``start``; the flash
+    forward launches twice a layer and step (the backward recomputes
+    it), dq and dk/dv once."""
+    import torch
+    from deeplearning4j_tpu_torch.models import bert
+    counters = flash_counters()
+    runs, graph, launched = {}, None, None
+    for label in ("replayed", "eager_1", "eager_2"):
+        p, o = clone_tree(start[0]), clone_tree(start[1])
+        step = bert.make_train_step(cfg, learning_rate=1e-4, remat=True,
+                                    use_flash=True)
+        eager = None if label == "replayed" else "reference"
+        for f in counters.values():
+            f.launches = 0
+        losses = [step(p, o, batch, i, eager=eager)[2]
+                  for i in range(REMAT_CALLS)]
+        torch.cuda.synchronize()
+        if label == "replayed":
+            launched = {w: f.launches for w, f in counters.items()}
+            graph, = step.graphs.report()
+        runs[label] = step_state(p, o, losses)
+        step.graphs.release()
+        del p, o, step
+    layers = cfg.num_layers * REMAT_CALLS
+    want = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": layers,
+            "flash_attention_dkv": layers}
+    check = replay_check("bert remat step", runs["replayed"],
+                         runs["eager_1"], runs["eager_2"], fails)
+    emit({"phase": "train_step", "remat": True, "calls": REMAT_CALLS,
+          "graph": graph, "flash_launches": launched,
+          "losses": runs["replayed"][-1].float().cpu().tolist(), **check})
+    if graph["cache"] != "captured":
+        fails.append(f"the remat step was not captured: {graph}")
+    if launched != want:
+        fails.append(f"remat step flash launches {launched}, want {want}")
 
 
 def phase_bert_forward():
@@ -5148,16 +5387,50 @@ def rnn_profile(fn, per_call):
             "device_records": counts["device_records"] / per_call}
 
 
+def s2s_steps(step, params, opt, batch, eager=None):
+    """The phase's compared calls of the Seq2Seq step on ``params``: one
+    warm call (which captures, where the step is not kept eager) and
+    S2S_STEPS timed, at iterations 0, 1, ... Returns the losses, the
+    first loss, the warm call's seconds and the host ms a timed step."""
+    import torch
+    t0 = time.perf_counter()
+    losses = [step(params, opt, batch, 0, eager=eager)[2]]
+    first = float(losses[0])
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(1, S2S_STEPS + 1):
+        losses.append(step(params, opt, batch, i, eager=eager)[2])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / S2S_STEPS
+    return losses, first, warm_s, step_ms
+
+
+def s2s_profiled(step, params, opt, batch, eager=None):
+    """A call that runs S2S_PROFILED more steps (a profiled window's)."""
+    it = [S2S_STEPS]
+
+    def steps():
+        for _ in range(S2S_PROFILED):
+            it[0] += 1
+            step(params, opt, batch, it[0], eager=eager)
+    return steps
+
+
 def phase_seq2seq():
     """BASELINE config 4's Seq2Seq LSTM at bench.py's widths (vocab 8000,
     embed 256, hidden 512, f32 without TF32, B=128, S=32, ids from
-    ``RandomState(0)``, Adam 1e-3): one warm step, S2S_STEPS timed (host
-    clock), S2S_PROFILED under the profiler (device ms a step by kernel
-    class, launches, busy share), the phase's own peak memory. The
-    first loss against a CPU copy of the same weights (near ln 8000),
-    the last timed loss below it, the census after warmup 0, and
-    ``greedy_decode`` on S2S_DECODE_ROWS rows token-identical to
-    ``greedy_decode_recompute`` on the card."""
+    ``RandomState(0)``, Adam 1e-3), its step captured: one warm step
+    (which captures) and S2S_STEPS timed (host clock), the phase's own
+    peak memory; the same calls of the same body kept eager
+    (``eager="reference"``), twice from the same start, and the replayed
+    params, Adam moments and losses against the eager ones (bit for bit
+    where the eager runs agree, else within twice their spread); then
+    S2S_PROFILED more steps replayed and eager under the profiler
+    (``profile_pair``): device ms a step by kernel class, launch calls,
+    device records and busy share each way. The first loss against a CPU copy of the
+    same weights (near ln 8000), the last timed loss below it, the
+    census after warmup 0, and ``greedy_decode`` on S2S_DECODE_ROWS rows
+    token-identical to ``greedy_decode_recompute`` on the card."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch.common.environment import environment
@@ -5182,32 +5455,41 @@ def phase_seq2seq():
     # a copy (the train step updates params in place)
     cpu_params = tree_map(lambda t: t.to("cpu", copy=True), params)
     opt = seq2seq.init_opt_state(params)
+    start = (clone_tree(params), clone_tree(opt))
     step = seq2seq.make_train_step(c, learning_rate=S2S_LR)
     env = environment()
     H, E, V = c.hidden, c.embed_dim, c.vocab_size
     flops = 3 * (2 * 2 * S * B * (E + H) * 4 * H + 2 * B * S * H * V)
+    fails = []
     with full_f32():
-        t0 = time.perf_counter()
-        params, opt, loss = step(params, opt, batch, 0)
-        first = float(loss)
-        warm_s = time.perf_counter() - t0
         c0 = env.compile_count()
-        losses = []
-        t0 = time.perf_counter()
-        for i in range(1, S2S_STEPS + 1):
-            params, opt, loss = step(params, opt, batch, i)
-            losses.append(loss)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        losses, first, warm_s, step_ms = s2s_steps(step, params, opt, batch)
         census = env.compile_count() - c0
-        losses = [float(v) for v in torch.stack(losses).cpu()]
-        it = [S2S_STEPS]
-
-        def steps():
-            for _ in range(S2S_PROFILED):
-                it[0] += 1
-                step(params, opt, batch, it[0])
-        prof = rnn_profile(steps, S2S_PROFILED)
+        max_memory = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        graph, = step.graphs.report()
+        # the same body kept eager, twice from the same start
+        eager_step = seq2seq.make_train_step(c, learning_rate=S2S_LR)
+        runs = {"replayed": step_state(params, opt, losses)}
+        for label in ("eager_1", "eager_2"):
+            p, o = clone_tree(start[0]), clone_tree(start[1])
+            ls, _, _, ms = s2s_steps(eager_step, p, o, batch,
+                                     eager="reference")
+            runs[label] = step_state(p, o, ls)
+            if label == "eager_1":
+                kept, eager_ms = (p, o), ms
+            del p, o
+        check = replay_check("seq2seq step", runs["replayed"],
+                             runs["eager_1"], runs["eager_2"], fails)
+        del runs, start
+        (prof, by_name), (eager, _) = profile_pair(
+            "seq2seq step",
+            (s2s_profiled(step, params, opt, batch), S2S_PROFILED),
+            (s2s_profiled(eager_step, *kept, batch, eager="reference"),
+             S2S_PROFILED), fails)
+        del kept
+        eager.pop("flash_launches")
+        eager.update(step_ms=eager_ms, busy_share=eager["device_ms"]
+                     / eager_ms)
         rows = batch["src"][:S2S_DECODE_ROWS]
         t0 = time.perf_counter()
         cached = seq2seq.greedy_decode(params, rows, S2S_DECODE_LEN, c)
@@ -5217,11 +5499,15 @@ def phase_seq2seq():
         naive = seq2seq.greedy_decode_recompute(params, rows,
                                                 S2S_DECODE_LEN, c)
         recompute_s = time.perf_counter() - t0
+    groups, top = {}, sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for k, v in by_name.items():
+        g = kernel_group(k, RNN_KERNEL_GROUPS)
+        groups[g] = groups.get(g, 0.0) + v
     with torch.no_grad():
         ref = float(seq2seq.loss_fn(
             cpu_params, {k: torch.from_numpy(v) for k, v in host.items()},
             c))
-    step_ms = wall * 1e3 / S2S_STEPS
+    losses = [float(v) for v in torch.stack(losses[1:S2S_STEPS + 1]).cpu()]
     same = torch.equal(cached.cpu(), naive.cpu())
     rec = {"phase": "seq2seq", "vocab": V, "embed": E, "hidden": H, "B": B,
            "S": S, "dtype": "float32", "lr": S2S_LR,
@@ -5229,37 +5515,41 @@ def phase_seq2seq():
                          seq2seq._optim.tree_leaves(params)),
            "flops_per_step": flops, "bound_ms_f32": flops / F32_FLOPS_PER_S
            * 1e3, "warm_step_s": warm_s, "steps_timed": S2S_STEPS,
-           "wall_s": wall, "step_ms": step_ms,
-           "samples_per_s": S2S_STEPS * B / wall,
+           "step_ms": step_ms, "samples_per_s": B * 1e3 / step_ms,
            "device_ms_per_step": prof["device_ms"],
            "device_busy_share": prof["device_ms"] / step_ms,
-           "ms_per_step_by_class": prof["ms_by_class"],
-           "launches_per_step": prof["launches"],
+           "ms_per_step_by_class": groups,
+           "launches_per_step": prof["launch_calls"],
            "device_records_per_step": prof["device_records"],
-           "top_kernels_ms_per_step": prof["top_kernels_ms"],
-           "max_memory_gib": (torch.cuda.max_memory_allocated() - base)
-           / 2 ** 30,
+           "top_kernels_ms_per_step": [[k[:80], v] for k, v in top],
+           "max_memory_gib": max_memory, "graph": graph,
+           "eager": eager, **check,
            "first_loss": first, "ln_vocab": float(np.log(V)),
            "first_loss_cpu": ref, "first_loss_abs_err": abs(first - ref),
            "first_loss_tol": S2S_LOSS_ATOL, "loss_last": losses[-1],
-           "losses": losses, "census_after_warmup": census,
+           "losses": losses, "census_after_warmup": census - 1,
            "decode_rows": S2S_DECODE_ROWS, "decode_len": S2S_DECODE_LEN,
            "decode_token_identical": same, "decode_s": decode_s,
            "decode_recompute_s": recompute_s,
            "seconds": time.perf_counter() - t_phase}
     emit(rec)
+    if graph["cache"] != "captured":
+        fails.append(f"the Seq2Seq step was not captured: {graph}")
     if not (np.isfinite(first) and abs(first - ref) <= S2S_LOSS_ATOL):
-        raise RuntimeError(f"the first loss {first} differs from the CPU "
-                           f"copy's {ref} by more than {S2S_LOSS_ATOL}")
+        fails.append(f"the first loss {first} differs from the CPU copy's "
+                     f"{ref} by more than {S2S_LOSS_ATOL}")
     if not (np.isfinite(losses[-1]) and losses[-1] < first):
-        raise RuntimeError(f"the loss did not fall: {first} -> {losses}")
-    if census != 0:
-        raise RuntimeError(f"{census} census events after warmup")
+        fails.append(f"the loss did not fall: {first} -> {losses}")
+    if census != 1:
+        fails.append(f"{census - 1} census events after warmup")
     if not same or tuple(cached.shape) != (S2S_DECODE_ROWS, S2S_DECODE_LEN):
-        raise RuntimeError("the cached greedy decode is not token-identical"
-                           " to the recompute loop")
-    del params, opt, batch
+        fails.append("the cached greedy decode is not token-identical to "
+                     "the recompute loop")
+    step.graphs.release()
+    del params, opt, batch, step
     torch.cuda.empty_cache()
+    if fails:
+        raise RuntimeError(f"seq2seq phase failed: {fails}")
 
 
 def phase_text_lstm():
@@ -6251,7 +6541,8 @@ def phase_opbench():
                                       max(hi, r["jit_us"]))
     failure_kinds = {}
     for err in out["capture_failures"].values():
-        kind = ("cpu_cuda_copy" if "Cannot copy between CPU and CUDA"
+        kind = ("empty_graph" if err.startswith("EmptyGraph")
+                else "cpu_cuda_copy" if "Cannot copy between CPU and CUDA"
                 in err else "host_sync" if "capture" in err.lower()
                 else "other")
         failure_kinds[kind] = failure_kinds.get(kind, 0) + 1
@@ -6410,7 +6701,10 @@ def par_bert_sp(rank):
         rstep = bert.make_train_step(cfg, learning_rate=1e-4, remat=False,
                                      use_flash=True)
         t0 = time.perf_counter()
-        rec["losses_single"] = [float(rstep(ref, ropt, batch, i)[2])
+        # kept eager, as the mesh step it is held against (a rank
+        # process sharing the card holds no graph pool)
+        rec["losses_single"] = [float(rstep(ref, ropt, batch, i,
+                                            eager="reference")[2])
                                 for i in range(PAR_BERT_STEPS)]
         rec["step_ms_single"] = _sync_ms(t0) / PAR_BERT_STEPS
         del ref, ropt
@@ -6482,7 +6776,7 @@ def par_tp_pp(rank, ckpt_dir):
     if rank == 0:
         ref = clone_tree(full)
         ref_loss = float(bert.make_train_step(cfg, remat=False)(
-            ref, bert.init_opt_state(ref), batch, 0)[2])
+            ref, bert.init_opt_state(ref), batch, 0, eager="reference")[2])
         del ref
     recs = {}
     mesh = make_mesh(MeshConfig(tensor=2), device="cuda")
@@ -6520,7 +6814,7 @@ def par_tp_pp(rank, ckpt_dir):
             state["params"], state["opt"], batch, 0)[2])
         ms = _sync_ms(t0)
         ref_restored = float(bert.make_train_step(cfg, remat=False)(
-            saved["params"], saved["opt"], batch, 0)[2])
+            saved["params"], saved["opt"], batch, 0, eager="reference")[2])
         recs["restore"] = {"saved_on": 2, "restored_on": 1, "loss": loss,
                            "loss_single": ref_restored, "step_ms": ms}
     del saved, full
@@ -7321,6 +7615,8 @@ def main():
         atexit.register(shutil.rmtree, store, True)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    logging.getLogger("deeplearning4j_tpu_torch.runtime.cuda_graphs") \
+        .addHandler(EmptyGraphLog())
     import torch
     # f32 comparisons run in full f32 (no TF32 in matmuls or convolutions)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7356,10 +7652,10 @@ def main():
     graph_launches = {k: sum(r["launches"][k] for r in graph_runs.values())
                       for k in ("paged_flash_decode", "dequant_matmul")}
     free_card()
-    train_launches, params, opt, batch, step_ms = phase_train()
+    train_launches, train_run = phase_train()
     launches.update(train_launches)
-    phase_train_step(params, opt, batch, step_ms)
-    del params, opt
+    phase_train_step(train_run)
+    del train_run
     free_card()
     phase_bert_forward()
     phase_causal(model)
@@ -7393,6 +7689,7 @@ def main():
     phase_opbench()
     free_card()
     emit({"phase": "host_profile", **HOST_PROFILES})
+    emit({"phase": "empty_graphs", "captures": EMPTY_GRAPHS})
     rows, shapes = phase_kernels(twin, launches, errs)
     for row in rows:
         row["launches_graphs"] = graph_launches[row["name"]]

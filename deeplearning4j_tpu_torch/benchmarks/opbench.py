@@ -23,8 +23,10 @@ the device. Each benched op has two times, in microseconds a call:
   capture of the call (after a warm-up on a side stream), replayed
   ``n_iter`` times, then one synchronise. An op that cannot be captured
   (a host sync: ``.item()``, ``eig``, ``num_segments=None``, a
-  data-dependent shape) keeps its ``eager_us``, gets ``jit_us: null``
-  and is named with its error under ``capture_failures``. On the CPU
+  data-dependent shape), or whose capture records no kernel (a view, an
+  identity, a creation op computed on the host: ``EmptyGraph``), keeps
+  its ``eager_us``, gets ``jit_us: null`` and is named with its error
+  under ``capture_failures``. On the CPU
   there is no capture, and every ``jit_us`` is null.
 Ops that no candidate argument set satisfies are ``skipped`` and the
 excluded ones ``excluded``, each with its reason: none is dropped
@@ -422,8 +424,12 @@ def _time_fn(fn, n_iter: int, sync) -> float:
 
 def _graph_us(fn, n_iter: int, generators) -> float:
     """One CUDA-graph capture of ``fn`` replayed ``n_iter`` times, in us a
-    replay. A failed capture raises and leaves the stream usable."""
+    replay. A failed capture raises and leaves the stream usable; so does
+    one that recorded no kernel (``EmptyGraph``: the op launches nothing
+    on the card, a view or work on the host, and a replay would time
+    nothing)."""
     import torch
+    from ..runtime.cuda_graphs import EmptyGraph, empty_capture
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -434,8 +440,12 @@ def _graph_us(fn, n_iter: int, generators) -> float:
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        fn()
+    with empty_capture() as seen:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn()
+    if seen.empty:
+        raise EmptyGraph("the capture recorded no kernel: the op launches "
+                         "nothing on the card")
     graph.replay()
     torch.cuda.synchronize()
     return _time_fn(graph.replay, n_iter, torch.cuda.synchronize)

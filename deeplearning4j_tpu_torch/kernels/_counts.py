@@ -8,7 +8,10 @@ CUDA graph (``runtime/cuda_graphs.py``) calls no Python wrapper, and a
 capture launches nothing. So while a thread captures, what its wrappers
 would count goes into that capture's :class:`LaunchRecord` instead, and
 every replay of the graph adds the record: a count still counts the
-launches the card ran.
+launches the card ran. A launch on the capturing stream from another
+thread (autograd runs a backward on a worker thread of its own, on the
+forward's stream) goes into the record too, where its wrapper names the
+stream it launched on.
 
 Each wrapper also names its library (``wrapper.library``), which
 :func:`libraries_used` collects for ``runtime/warm_image.py``.
@@ -19,11 +22,14 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 _local = threading.local()
 #: the sets of the open :func:`libraries_used` blocks
 _uses: List[set] = []
+#: the records of the captures in progress, by the stream each captures
+#: (a raw ``cudaStream_t``)
+_streams: Dict[int, "LaunchRecord"] = {}
 
 
 class LaunchRecord:
@@ -51,13 +57,16 @@ def _record():
     return getattr(_local, "record", None)
 
 
-def count_launch(wrapper: Callable) -> None:
-    """One launch of ``wrapper``'s kernel: on its count, or on the record
-    of the capture this thread runs (the launch happens at each
-    replay)."""
+def count_launch(wrapper: Callable, stream: Optional[int] = None) -> None:
+    """One launch of ``wrapper``'s kernel on ``stream`` (a raw
+    ``cudaStream_t``, where the wrapper names it): on its count, or on
+    the record of the capture this thread runs or ``stream`` is captured
+    by (the launch happens at each replay)."""
     for names in _uses:
         names.add(wrapper.library)
     rec = _record()
+    if rec is None and stream is not None:
+        rec = _streams.get(stream)
     if rec is None:
         wrapper.launches += 1
     else:
@@ -75,15 +84,20 @@ def deferred(fn: Callable, *args) -> bool:
 
 
 @contextmanager
-def recording(rec: LaunchRecord):
-    """Route this thread's counts into ``rec`` for the block (a
-    capture)."""
+def recording(rec: LaunchRecord, stream: Optional[int] = None):
+    """Route this thread's counts, and those of launches on ``stream``
+    (the captured stream, a raw ``cudaStream_t``) from any thread, into
+    ``rec`` for the block (a capture)."""
     prev = _record()
     _local.record = rec
+    if stream is not None:
+        _streams[stream] = rec
     try:
         yield rec
     finally:
         _local.record = prev
+        if stream is not None:
+            _streams.pop(stream, None)
 
 
 @contextmanager

@@ -147,14 +147,15 @@ def _flash_fwd(q, k, v, mask, causal, scale):
     B, S, H, D = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib, fn = _kernel("flash_attention_fwd", "flash_attention_fwd", 6)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
                 o.data_ptr(), lse.data_ptr(), B, S, H, D,
                 _strides(q, k, v, o), _scale(D, scale), int(causal),
                 _DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream)
     _build.check(lib, status, "flash_attention_fwd")
-    count_launch(_flash_fwd)
+    count_launch(_flash_fwd, stream)
     return o, lse
 
 
@@ -166,15 +167,16 @@ def _flash_bwd_dq(q, k, v, g, o, lse, g_lse, mask, causal, scale):
     B, S, H, D = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib, fn = _kernel("flash_attention_bwd", "flash_attention_bwd_dq", 10)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 o.data_ptr(), lse.data_ptr(), _ptr(g_lse), _ptr(mask),
                 delta.data_ptr(), dq.data_ptr(), B, S, H, D,
                 _strides(q, k, v, g, o, dq, dq), _scale(D, scale),
                 int(causal), _DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream)
     _build.check(lib, status, "flash_attention_bwd_dq")
-    count_launch(_flash_bwd_dq)
+    count_launch(_flash_bwd_dq, stream)
     return dq, delta
 
 
@@ -184,15 +186,16 @@ def _flash_bwd_dkv(q, k, v, g, lse, delta, mask, causal, scale):
     B, S, H, D = q.shape
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib, fn = _kernel("flash_attention_bwd", "flash_attention_bwd_dkv", 9)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), _ptr(mask), dk.data_ptr(),
                 dv.data_ptr(), B, S, H, D,
                 _strides(q, k, v, g, dk, dk, dv), _scale(D, scale),
                 int(causal), _DTYPES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream)
     _build.check(lib, status, "flash_attention_bwd_dkv")
-    count_launch(_flash_bwd_dkv)
+    count_launch(_flash_bwd_dkv, stream)
     return dk, dv
 
 

@@ -25,16 +25,19 @@ def tree_leaves(tree):
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` holding ``leaves`` in
     :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            seq = [build(v) for v in node]
-            return seq if isinstance(node, list) else tuple(seq)
-        return None if node is None else next(it)
-    return build(tree)
+
+def _build(node, it):
+    # a module function, not a closure: a recursive closure is a
+    # reference cycle, which would hold ``leaves`` (a step's gradients)
+    # until a collection
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        seq = [_build(v, it) for v in node]
+        return seq if isinstance(node, list) else tuple(seq)
+    return None if node is None else next(it)
 
 
 def value_and_grad(loss_fn, params, *args):

@@ -22,9 +22,15 @@ einsum/softmax branch of the JAX package.
 Params and the Adam state are updated IN PLACE by the train steps,
 where the JAX package donates them to its jitted step.
 Every step goes through the dispatch census
-(``runtime.inference.counted_dispatch``) with the JAX package's tags
+(``runtime.inference.captured_train_step``) with the JAX package's tags
 (``bert_train``, ``bert_qa``, ``bert_pipeline``): one
 ``dl4j_compiles_total`` event per new signature, as its ``counted_jit``.
+On the card each signature of an unsharded step is captured once as a
+CUDA graph (the flash kernels inside it) and replayed; the caller's
+params and state are its static buffers, so a call on other tensors
+captures again. ``step.graphs`` reports each signature and
+``step.graphs.release()`` frees the graphs' memory; a mesh step runs
+eagerly (``eager:<backend>``).
 
 **On a mesh** (``mesh=``, a ``common.mesh.Mesh``): ``place_params`` /
 ``place_opt_state`` keep each rank's shard per :func:`param_specs`
@@ -483,17 +489,26 @@ def _make_loss_fn(config, mesh, seq_parallel, remat, use_flash):
         return loss_fn
 
     def remat_loss_fn(params, batch):
-        # keep only the inputs; the encoder is recomputed in the backward
-        return checkpoint(loss_fn, params, batch, use_reentrant=False)
+        # keep only the inputs; the encoder is recomputed in the backward.
+        # The loss draws nothing at random, so there is no generator state
+        # to save and restore around the recompute (a host read of it
+        # would stop the step's capture).
+        return checkpoint(loss_fn, params, batch, use_reentrant=False,
+                          preserve_rng_state=False)
     return remat_loss_fn
 
 
-def _counted(step, kind):
+def _counted(step, kind, mesh=None, n_steps=None):
     """``step`` under the census with the JAX package's tag (one
     ``dl4j_compiles_total`` event per new signature of its opt_state,
-    batch and iteration)."""
-    from ..runtime.inference import counted_dispatch
-    return counted_dispatch(step, tag=f"{kind}:{id(step)}")
+    batch and iteration), captured as one CUDA graph a signature
+    (``runtime.inference.captured_train_step``; ``n_steps`` replays of
+    one step per call); on a mesh it runs eagerly, as
+    ``eager:<backend>`` (``eager:mesh`` at one rank)."""
+    from ..runtime.cuda_graphs import mesh_reason
+    from ..runtime.inference import captured_train_step
+    reason = None if mesh is None else mesh_reason(mesh) or "mesh"
+    return captured_train_step(step, f"{kind}:{id(step)}", n_steps, reason)
 
 
 def make_train_step(config: BertConfig, mesh=None,
@@ -505,7 +520,7 @@ def make_train_step(config: BertConfig, mesh=None,
     state placed (``place_params``, ``init_opt_state`` of them), the
     batch global; this rank's shards are updated."""
     return _counted(_train_step(config, mesh, learning_rate, seq_parallel,
-                                remat, use_flash), "bert_train")
+                                remat, use_flash), "bert_train", mesh)
 
 
 def _train_step(config, mesh, learning_rate, seq_parallel, remat,
@@ -531,22 +546,14 @@ def make_scanned_train_step(config: BertConfig, n_steps: int, mesh=None,
                             use_flash: bool = False):
     """``n_steps`` chained train steps in one call: ``(params, opt_state,
     batch, start_iteration) -> (params, opt_state, losses[n_steps])``.
-    The steps are queued on the device back to back; the losses stay
-    there (no host sync per step), so the caller's one synchronisation
-    covers all ``n_steps`` and the trajectory shows that training
-    stepped."""
-    step = _train_step(config, mesh, learning_rate, seq_parallel, remat,
-                       use_flash)
-
-    def scanned(params, opt_state, batch, start_iteration):
-        losses = []
-        for i in range(n_steps):
-            params, opt_state, loss = step(params, opt_state, batch,
-                                           start_iteration + i)
-            losses.append(loss)
-        return params, opt_state, torch.stack(losses)
-
-    return _counted(scanned, "bert_train")
+    One step is captured and replayed ``n_steps`` times, back to back on
+    the device; the losses stay there (no host sync per step), so the
+    caller's one synchronisation covers all ``n_steps`` and the
+    trajectory shows that training stepped. One census event per
+    signature, as the JAX package's one scanned executable."""
+    return _counted(_train_step(config, mesh, learning_rate, seq_parallel,
+                                remat, use_flash), "bert_train", mesh,
+                    n_steps)
 
 
 def _make_sharded_step(config, mesh, learning_rate, seq_parallel, use_flash,
@@ -642,7 +649,7 @@ def make_qa_train_step(config: BertConfig, mesh=None,
     if mesh is not None:
         return _counted(_make_sharded_step(config, mesh, learning_rate,
                                            False, False, _qa_sums),
-                        "bert_qa")
+                        "bert_qa", mesh)
 
     def loss_fn(all_params, batch):
         return qa_loss(all_params["bert"], all_params["qa"], batch, config)
@@ -804,8 +811,7 @@ def make_pipeline_train_step(config: BertConfig, mesh: Mesh,
                           iteration)
         return params, opt_state, loss
 
-    from ..runtime.inference import counted_dispatch
-    step = counted_dispatch(step, tag=f"bert_pipeline:{id(loss_fn)}")
+    step = _counted(step, "bert_pipeline", mesh)
     step.loss_fn = loss_fn  # exposed for gradient-level parity tests
     return step
 

@@ -6,8 +6,9 @@ Counterpart of ``deeplearning4j_tpu/models/seq2seq.py`` (BASELINE config
 JAX package load 1:1), the same loss and the same decode. A train step
 is forward, loss, autograd backward and the shared flat Adam, with
 params and the Adam state updated IN PLACE where the JAX package donates
-them to its jitted step; the step is counted in the dispatch census
-(``runtime.inference.counted_dispatch``).
+them to its jitted step; the step is counted in the dispatch census and,
+on the card, captured as one CUDA graph a signature and replayed
+(``runtime.inference.captured_train_step``).
 
 ``decode_step`` carries the recurrent state ``(h, c)`` — the LSTM's
 analog of a KV cache — so ``greedy_decode`` costs one ``lstm_cell`` a
@@ -105,7 +106,8 @@ def loss_fn(params, batch, c: Seq2SeqConfig):
 def make_train_step(c: Seq2SeqConfig, learning_rate: float = 1e-2):
     """One train step ``(params, opt_state, batch, iteration) -> (params,
     opt_state, loss)``: forward, loss, backward and Adam, params and state
-    updated in place, counted in the dispatch census."""
+    updated in place, counted in the dispatch census and captured on the
+    card (``step.graphs``, as BERT's steps)."""
     def loss(params, batch):
         return loss_fn(params, batch, c)
 
@@ -115,8 +117,8 @@ def make_train_step(c: Seq2SeqConfig, learning_rate: float = 1e-2):
                           iteration)
         return params, opt_state, loss_value
 
-    from ..runtime.inference import counted_dispatch
-    return counted_dispatch(step, tag=f"seq2seq_train:{id(step)}")
+    from ..runtime.inference import captured_train_step
+    return captured_train_step(step, f"seq2seq_train:{id(step)}")
 
 
 def init_opt_state(params):

@@ -2,9 +2,11 @@
 
 The capturing form of ``runtime/inference.py::counted_dispatch`` (its
 ``captured_dispatch`` builds on :class:`StepGraphs`), of the decode
-engine's prefill, decode and verify steps (``runtime/generation.py``)
-and of the layer API's ``fit`` steps (``nn/fit_fastpath.py``, whose
-static inputs include the network's own params, written in place).
+engine's prefill, decode and verify steps (``runtime/generation.py``),
+of the layer API's ``fit`` steps (``nn/fit_fastpath.py``, whose
+static inputs include the network's own params, written in place) and
+of the model-level train steps (``inference.captured_train_step``:
+BERT's and the Seq2Seq step, over the caller's params and Adam state).
 It is the port's counterpart of the JAX package's compiled-executable
 contract (``counted_jit``): where XLA compiles each input signature once
 and dispatches the executable after that, a :class:`StepGraphs` captures
@@ -34,7 +36,9 @@ each signature's step once as a ``torch.cuda.CUDAGraph`` and replays it.
   (``kernels/_counts.py``) are added on every replay.
 - **Eager signatures.** A signature whose capture raises runs eagerly
   from then on, reported as ``cache="eager:<reason>"`` in the census and
-  in :meth:`StepGraphs.report`, and logged once. A caller keeps a call
+  in :meth:`StepGraphs.report`, and logged once; so does one whose
+  capture recorded no kernel (``eager:empty_graph``: torch only warns of
+  an empty graph, whose replay would run nothing). A caller keeps a call
   eager by passing its reason to :meth:`StepGraphs.run`: steps that
   issue collectives between ranks (a mesh of more than one rank,
   :func:`mesh_reason`) as ``eager:<backend>``, signatures with host
@@ -58,6 +62,8 @@ import gc
 import logging
 import math
 import time
+import warnings
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -104,11 +110,54 @@ def mesh_reason(mesh) -> Optional[str]:
     return str(dist.get_backend()) if dist.is_initialized() else None
 
 
+class EmptyGraph(RuntimeError):
+    """A capture that ended with no node in its graph: a replay would run
+    nothing."""
+
+
+class _Seen:
+    empty = False
+
+
+@contextmanager
+def empty_capture():
+    """A block that ends a capture: torch's warning that the graph came
+    out empty (its only word on it) is taken, not printed, and the
+    yielded object's ``empty`` says, once the block has ended, whether
+    it came. Other warnings pass on."""
+    seen = _Seen()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield seen
+    for w in caught:
+        if "CUDA Graph is empty" in str(w.message):
+            seen.empty = True
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+
+
+def _empty_detail(outputs, inputs) -> str:
+    """What an empty capture's outputs were: how many, how many on the
+    CPU, how many share storage with the step's inputs (a forward that
+    only views its input launches nothing)."""
+    outs = _tensors(outputs)
+    held = {t.untyped_storage().data_ptr() for t in _tensors(inputs)}
+    cpu = sum(t.device.type == "cpu" for t in outs)
+    alias = sum(t.untyped_storage().data_ptr() in held for t in outs)
+    return (f"the capture recorded no kernel on its stream ({len(outs)} "
+            f"outputs: {cpu} on the CPU, {alias} sharing the inputs' "
+            f"storage)")
+
+
 def _reason_class(exc: BaseException) -> str:
-    """A short class for a failed capture: ``host_copy`` for a copy
-    between host and card through pageable memory, ``host_sync`` for
-    another operation CUDA refuses while a stream captures (a host read,
-    a synchronisation), else the exception's type."""
+    """A short class for a failed capture: ``empty_graph`` for a capture
+    that recorded nothing, ``host_copy`` for a copy between host and card
+    through pageable memory, ``host_sync`` for another operation CUDA
+    refuses while a stream captures (a host read, a synchronisation),
+    else the exception's type."""
+    if isinstance(exc, EmptyGraph):
+        return "empty_graph"
     msg = str(exc)
     if "Cannot copy between CPU and CUDA" in msg:
         return "host_copy"
@@ -144,17 +193,26 @@ class StepGraphs:
     """The captured steps of one engine (or of one network's forward):
     their signatures, one capture stream and one private memory pool."""
 
-    def __init__(self, device):
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+    def __init__(self, device=None):
+        #: the card (or the CPU) the steps run on; a set made without one
+        #: takes the device of its first call (:meth:`bind`)
+        self.device = None
         #: held around filling a step's inputs, running it and copying
         #: its outputs out
         self.lock = ordered_rlock("cuda_graphs.steps")
         self._steps: Dict[Tuple[str, tuple], Step] = {}
         self._stream = None
         self._pool = None
+        if device is not None:
+            self.bind(device)
+
+    def bind(self, device) -> None:
+        """Run the steps on ``device``, where the set has no device yet."""
+        if self.device is None:
+            device = torch.device(device)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            self.device = device
 
     def step(self, tag: str, sig: tuple, make_inputs: Callable[[], Any],
              desc: Optional[str] = None) -> Step:
@@ -250,7 +308,8 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         rec = LaunchRecord()
         err = None
-        with _CAPTURE_LOCK, recording(rec), torch.cuda.stream(stream):
+        with _CAPTURE_LOCK, recording(rec, stream.cuda_stream), \
+                torch.cuda.stream(stream):
             # a capture cannot hand cached blocks back to the card, so the
             # ones cached for other streams (the warm run's) go first, as
             # torch.cuda.graph does
@@ -270,9 +329,13 @@ class StepGraphs:
                 except Exception as e:  # noqa: BLE001 — reported below
                     err = e
                 try:
-                    graph.capture_end()
+                    with empty_capture() as seen:
+                        graph.capture_end()
                 except Exception as e:  # noqa: BLE001 — reported below
                     err = err or e
+                else:
+                    if seen.empty and err is None:
+                        err = EmptyGraph(_empty_detail(static, step.inputs))
             finally:
                 if collecting:
                     gc.enable()

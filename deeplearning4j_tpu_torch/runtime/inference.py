@@ -305,6 +305,86 @@ def captured_dispatch(fn: Callable, tag: str, device) -> Callable:
     return wrapped
 
 
+def captured_train_step(fn: Callable, tag: str,
+                        n_steps: Optional[int] = None,
+                        reason: Optional[str] = None) -> Callable:
+    """A model-level train step ``fn(params, opt_state, batch, iteration)
+    -> (params, opt_state, loss)``, which writes the params and the
+    optimizer state in place, under the census (one event per ``(tag,
+    signature)`` of its opt_state, batch and iteration, as
+    :func:`counted_dispatch`) with one CUDA graph a signature.
+
+    The caller's params and state are the graph's static buffers: a
+    graph is keyed on each leaf's identity and storage and on the
+    precision in force (:func:`_param_key`), so a call on other tensors
+    captures again. The batch is copied into static buffers per
+    signature, and the iteration into a 0-d int64 tensor before each
+    run, so its value is never baked in; ``fn`` sees a tensor iteration
+    on every path (the Adam bias correction then rounds in f32, as under
+    ``jit``, captured or eager alike). With ``n_steps`` one step is
+    captured and replayed ``n_steps`` times at iterations
+    ``iteration + i``, each loss copied into a device
+    ``losses[n_steps]`` with no host sync. The returned loss is a copy.
+
+    Eager: a batch with a host value among its leaves
+    (``eager:host_value``, run on the caller's batch), every call of a
+    step made with a ``reason`` (a mesh: ``eager:<backend>``), and a call
+    given ``eager=<reason>``, which runs the same body on the same
+    buffers (the reference a replay is held against). On the CPU the
+    body runs eagerly on the same buffers. ``wrapped.graphs`` is the
+    :class:`~.cuda_graphs.StepGraphs`; dropping the step frees its graphs
+    and pool (the bodies hold their buffers, not the step)."""
+    graphs = cuda_graphs.StepGraphs()
+
+    def wrapped(params, opt_state, batch, iteration,
+                eager: Optional[str] = None):
+        sig = _signature((opt_state, batch, iteration))
+        leaves = _tree_leaves(batch)
+        dev = _tree_leaves(params)[0].device
+        why = reason or (None if all(isinstance(x, torch.Tensor)
+                                     for x in leaves) else "host_value")
+        with graphs.lock:
+            graphs.bind(dev)
+            if why is not None:
+                step = graphs.step(tag, sig, lambda: None)
+
+                def run(i):
+                    it = torch.as_tensor(iteration + i, dtype=torch.int64,
+                                         device=dev)
+                    return graphs.run(step, lambda: lambda: fn(
+                        params, opt_state, batch, it)[2], eager=why)
+            else:
+                step = graphs.step(tag, sig, lambda: {
+                    "batch": _tree_map(
+                        lambda x: torch.empty_like(x, device=dev), batch),
+                    "it": torch.zeros((), dtype=torch.int64, device=dev)})
+                ins = step.inputs
+                for buf, x in zip(_tree_leaves(ins["batch"]), leaves):
+                    buf.copy_(x)
+                key = _param_key([params, opt_state])
+
+                def make_body():
+                    return lambda: fn(params, opt_state, ins["batch"],
+                                      ins["it"])[2]
+
+                def run(i):
+                    ins["it"].fill_(iteration + i)
+                    return graphs.run(step, make_body, key, eager=eager)
+            if n_steps is None:
+                return params, opt_state, run(0).clone()
+            losses = None
+            for i in range(n_steps):
+                loss = run(i)
+                if losses is None:
+                    losses = torch.empty((n_steps,), dtype=loss.dtype,
+                                         device=loss.device)
+                losses[i].copy_(loss)
+            return params, opt_state, losses
+
+    wrapped.graphs = graphs
+    return wrapped
+
+
 def release_captured(fns) -> None:
     """Let go of the graphs (and the params they hold) of every
     :func:`captured_dispatch` among ``fns``: a model whose params were

@@ -188,6 +188,28 @@ def bert_qa_step(all_np, batch, axes, n_steps, lr):
     return got, want, _tree_np(gather_tree(placed)), _tree_np(ref)
 
 
+def bert_mesh_reports(all_np, batch, qa_batch):
+    """The scanned MLM step (2 steps), the QA step and the pipeline step
+    on a 2-rank mesh (data, data, pipe): every step's report (each runs
+    eagerly, with the mesh's backend as the reason)."""
+    c = _bert_config("float32")
+    m = _mesh(2, data=2)
+    full = bridge.params_from_numpy(all_np, "cpu")
+    placed = {"bert": tb.place_params(full["bert"], c, m),
+              "qa": {k: place(v, m) for k, v in full["qa"].items()}}
+    b, qb = _torch_batch(batch), _torch_batch(qa_batch)
+    train = tb.make_scanned_train_step(c, 2, m, learning_rate=1e-3)
+    train(placed["bert"], tb.init_opt_state(placed["bert"]), b, 0)
+    qa = tb.make_qa_train_step(c, m, learning_rate=1e-3)
+    qa(placed, tb.init_opt_state(placed), qb, 0)
+    pm = _mesh(2, pipe=2)
+    staged = tb.place_pipeline_params(tb.to_pipeline_params(
+        bridge.params_from_numpy(all_np["bert"], "cpu"), 2), pm)
+    pipe = tb.make_pipeline_train_step(c, pm, 2, learning_rate=1e-3)
+    pipe(staged, tb.init_opt_state(staged), b, 0)
+    return [r for s in (train, qa, pipe) for r in s.graphs.report()]
+
+
 # -- pipelines ------------------------------------------------------------------------
 
 def _stage_fn(p, x):
