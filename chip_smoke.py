@@ -206,6 +206,33 @@ exits non-zero without printing a result:
               with TF32 switched on in the process (``LENET_F32_ATOL``),
               and, for scale, the same forward with the port's TF32 guard
               taken away.
+   data     — the data pipeline (``etl/``, ``native/``, the record
+              iterators). The native C++ library built with ``g++`` (its
+              seconds; the phase fails without it); an IDX file of
+              MNIST's training shape (60,000 x 28 x 28 u8 and its labels,
+              from a seed) read by ``native.read_idx`` and by the numpy
+              reader (both times, equality) and by ``parse_idx`` (the
+              native route's float32); full-width LeNet (bf16, B=128)
+              fitted over one epoch of it three ways after a warm epoch:
+              fed by ``NativeBatchDataSetIterator(device="cuda")`` (the
+              C++ ring's pinned batches, the per-step captured path), by
+              the same epoch's batches pre-staged on the card
+              (``ListDataSetIterator``, the epoch path) and by
+              ``AsyncDataSetIterator`` over the same batches on the host;
+              each with samples/s, host ms a step, the ``train/data_wait``
+              share of the epoch, the time ``next()`` blocked on the ring,
+              the busy share (device ms a step from the profiler over 32
+              steps fed the same way) and the census (no event on a
+              repeat fit, every signature captured and replayed). The card ring's epoch
+              against the CPU ring's, bit for bit; the params after the
+              same 3 steps ring-fed against pre-staged. Then the tabular
+              path: a CSV of 20,000 rows (30 numeric columns, 2
+              categorical, a label of 10 classes) through a
+              ``TransformProcess`` (one-hot, a filter, a product column,
+              min-max of the 30 columns from ``analyze_local``) into
+              ``RecordReaderDataSetIterator(device="cuda")`` and an MLP's
+              ``fit`` for 3 epochs: records/s, fit samples/s, the loss of
+              each epoch (it must fall).
    graphs_train — the captured ``fit`` steps (``nn/fit_fastpath.py``
               over ``runtime/cuda_graphs.py``), cuDNN deterministic.
               LeNet (bf16, Adam, B=128), the same LeNet with dropout on
@@ -589,6 +616,15 @@ CAUSAL_B = 4
 # LeNet-MNIST training (bench.py bench_lenet, BASELINE config 1): 32
 # device-staged batches of 128, one warm epoch, then LENET_EPOCHS timed
 LENET_B, LENET_BATCHES, LENET_EPOCHS = 128, 32, 5
+# the data phase: an IDX file of MNIST's training shape, fed to LeNet in
+# batches of LENET_B; the tabular path's CSV and its MLP
+DATA_N, DATA_SEED = 60_000, 22
+DATA_PARITY_STEPS = 3
+# steps of each feed under the profiler (an epoch's ~133k device records
+# would take the profiler longer than the rest of the phase)
+DATA_PROFILED = 32
+TAB_ROWS, TAB_NUMERIC, TAB_CLASSES, TAB_B, TAB_EPOCHS = 20_000, 30, 10, 256, 3
+TAB_STATES = (("a", "b", "c", "d"), ("x", "y", "z"))
 # an f32 LeNet's output() on the card against the CPU's, same weights:
 # softmax probabilities from convolutions and products summed in another
 # order (f32 rounding, ~1e-6 relative on the logits); TF32 (10-bit
@@ -3717,6 +3753,331 @@ def phase_lenet():
     if not err <= LENET_F32_ATOL:
         raise RuntimeError(f"f32 LeNet output on the card differs from the "
                            f"CPU's by {err} > {LENET_F32_ATOL} (TF32?)")
+
+
+def write_idx(path, arr):
+    """An IDX file (MNIST's container: magic 0, 0, 8 = u8, ndim; big-endian
+    dims; the bytes) of the u8 array ``arr``."""
+    import struct
+    with open(path, "wb") as f:
+        f.write(bytes([0, 0, 8, arr.ndim]))
+        f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+        f.write(arr.tobytes())
+
+
+def span_seconds(name):
+    """Seconds in the tracer's buffer under spans named ``name``."""
+    from deeplearning4j_tpu_torch.common import tracing
+    return sum(e["dur"] for e in tracing.tracer().events()
+               if e["name"] == name) / 1e6
+
+
+def feed_record(net, feed, steps, profiled):
+    """One warm ``fit`` epoch over ``feed`` (captures), one timed with the
+    tracer's ``train/data_wait`` spans, one more with the census counted
+    (none may come), then ``profiled`` (DATA_PROFILED batches of the same
+    shape, fed the same way) once to warm and once under the profiler:
+    samples/s, host ms a step, the data-wait share of the timed epoch,
+    device ms a step and the busy share, and the train graphs' report."""
+    import torch
+    from deeplearning4j_tpu_torch.common import tracing
+    net.fit(feed, num_epochs=1)
+    torch.cuda.synchronize()
+    tracing.tracer().clear()
+    blocked0 = getattr(feed, "blocked_s", 0.0)
+    t0 = time.perf_counter()
+    net.fit(feed, num_epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wait = span_seconds("train/data_wait")
+    blocked = getattr(feed, "blocked_s", 0.0) - blocked0
+    census = census_of(lambda: net.fit(feed, num_epochs=1))
+    net.fit(profiled, num_epochs=1)
+    by_name = device_ms_by_kernel(lambda: net.fit(profiled, num_epochs=1),
+                                  1)
+    device_ms = sum(by_name.values()) / DATA_PROFILED
+    step_ms = wall * 1e3 / steps
+    graphs = [g for g in net.train_graphs_report()
+              if g["tag"].split(":")[0] in ("train", "epoch")]
+    return {"steps": steps, "wall_s": wall,
+            "samples_per_s": steps * LENET_B / wall, "step_ms": step_ms,
+            "data_wait_s": wait, "data_wait_share": wait / wall,
+            "ring_blocked_ms_per_step": blocked * 1e3 / steps,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / step_ms,
+            "census_repeat_fit": census,
+            "graphs": [{k: g[k] for k in ("tag", "cache", "captures",
+                                           "replays")} for g in graphs],
+            "loss": net.score_value}
+
+
+def tabular_csv(path, rng):
+    """The tabular path's CSV: TAB_NUMERIC numeric columns of assorted
+    scales, two categorical ones and a label that a linear map of them
+    decides (so the loss can fall). Returns the label column."""
+    x = rng.randn(TAB_ROWS, TAB_NUMERIC) * rng.uniform(0.5, 20, TAB_NUMERIC) \
+        + rng.uniform(-5, 5, TAB_NUMERIC)
+    cats = [rng.randint(0, len(s), TAB_ROWS) for s in TAB_STATES]
+    logits = ((x - x.mean(0)) / x.std(0)) @ rng.randn(TAB_NUMERIC,
+                                                       TAB_CLASSES) \
+        + np.eye(len(TAB_STATES[0]))[cats[0]] @ rng.randn(
+            len(TAB_STATES[0]), TAB_CLASSES)
+    label = np.argmax(logits, 1)
+    with open(path, "w") as f:
+        f.write(",".join([f"f{i}" for i in range(TAB_NUMERIC)]
+                         + ["c0", "c1", "label"]) + "\n")
+        for i in range(TAB_ROWS):
+            f.write(",".join(f"{v:.6g}" for v in x[i]) + ","
+                    + ",".join(s[c[i]] for s, c in zip(TAB_STATES, cats))
+                    + f",{label[i]}\n")
+    return label
+
+
+def phase_data():
+    """The data pipeline on the card (module docstring, ``data``)."""
+    import shutil
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import etl, native
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        AsyncDataSetIterator, ListDataSetIterator,
+        NativeBatchDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets.record_iterator import \
+        RecordReaderDataSetIterator
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (InputType, MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    t_phase = time.perf_counter()
+    fails = []
+    tmp = tempfile.mkdtemp(prefix="data-")
+    try:
+        # 1. the native library, built here with g++
+        t0 = time.perf_counter()
+        ok = native.available()
+        rec = {"native_available": ok,
+               "native_build_s": native.build_seconds,
+               "native_load_s": time.perf_counter() - t0,
+               "native_library": os.path.relpath(native._lib_path())}
+        if not ok:
+            raise RuntimeError(f"native library did not build: "
+                               f"{native.build_error()}")
+        # 2. an IDX file of MNIST's training shape
+        rng = np.random.RandomState(DATA_SEED)
+        images = rng.randint(0, 256, (DATA_N, 28, 28)).astype(np.uint8)
+        labels = rng.randint(0, 10, DATA_N).astype(np.uint8)
+        img_path = os.path.join(tmp, "train-images-idx3-ubyte")
+        lab_path = os.path.join(tmp, "train-labels-idx1-ubyte")
+        write_idx(img_path, images)
+        write_idx(lab_path, labels)
+        t0 = time.perf_counter()
+        x_native = native.read_idx(img_path, normalize=True)
+        rec["read_idx_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x_numpy = native._read_idx_py(img_path, normalize=True)
+        rec["read_idx_numpy_s"] = time.perf_counter() - t0
+        raw_equal = bool(np.array_equal(native.read_idx(img_path),
+                                        native._read_idx_py(img_path,
+                                                            False)))
+        norm_diff = float(np.abs(x_native - x_numpy).max())
+        parsed = fetchers.parse_idx(lab_path)
+        rec.update({"idx_bytes": os.path.getsize(img_path),
+                    "read_idx_equal_raw": raw_equal,
+                    "read_idx_normalized_max_abs_diff": norm_diff,
+                    "parse_idx_dtype": str(parsed.dtype)})
+        # x * (1/255) in the C++ against x / 255 in numpy: an ulp apart
+        if not raw_equal or norm_diff > 1e-7 or parsed.dtype != np.float32 \
+                or not np.array_equal(parsed, labels):
+            fails.append(f"IDX reads differ: raw equal {raw_equal}, "
+                         f"normalized {norm_diff}, parse_idx "
+                         f"{parsed.dtype}")
+        x = x_native.reshape(DATA_N, 1, 28, 28)
+        y = np.eye(10, dtype=np.float32)[parsed.astype(np.int64)]
+        del x_numpy, images
+        emit({"phase": "data", "part": "idx", **rec})
+
+        # 3. LeNet fed three ways; the ring's epoch first, card vs CPU
+        steps = DATA_N // LENET_B
+        card = NativeBatchDataSetIterator(x, y, LENET_B, seed=DATA_SEED,
+                                          device="cuda", drop_last=True)
+        host = NativeBatchDataSetIterator(x, y, LENET_B, seed=DATA_SEED,
+                                          device="cpu", drop_last=True)
+        # the ring alone: the CPU ring's epoch (the C++ thread's gather
+        # and ring_next's copy out of its slot), then the card's, every
+        # batch kept (a fresh pinned block each)
+        t0 = time.perf_counter()
+        host_batches = list(host)
+        ring_cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card_batches = list(card)
+        torch.cuda.synchronize()
+        ring_card_s = time.perf_counter() - t0
+        ring_equal = len(card_batches) == len(host_batches) == steps and all(
+            torch.equal(c.features.torch().cpu(), h.features.torch())
+            and torch.equal(c.labels.torch().cpu(), h.labels.torch())
+            for c, h in zip(card_batches, host_batches))
+        if not ring_equal:
+            fails.append("the card ring's epoch differs from the CPU's")
+        n_prof = DATA_PROFILED * LENET_B
+        feeds = {"ring": (card, NativeBatchDataSetIterator(
+                     x[:n_prof], y[:n_prof], LENET_B, seed=DATA_SEED,
+                     device="cuda", drop_last=True)),
+                 "prestaged": (ListDataSetIterator(card_batches),
+                               ListDataSetIterator(
+                                   card_batches[:DATA_PROFILED])),
+                 "async": (AsyncDataSetIterator(
+                     ListDataSetIterator(host_batches), device="cuda"),
+                     AsyncDataSetIterator(ListDataSetIterator(
+                         host_batches[:DATA_PROFILED]), device="cuda"))}
+        lenet = {}
+        for name, (feed, profiled) in feeds.items():
+            net = LeNet(dtype="bfloat16").init_model(device="cuda")
+            lenet[name] = feed_record(net, feed, steps, profiled)
+            want = "epoch" if name == "prestaged" else "train"
+            g = lenet[name]["graphs"]
+            # one signature a batch count on the epoch path (the profiled
+            # feed's is its own), one train signature on the per-step path
+            if lenet[name]["census_repeat_fit"] or not g or any(
+                    e["cache"] != "captured" or not e["replays"]
+                    or e["tag"].split(":")[0] != want for e in g) or \
+                    len(g) != (2 if name == "prestaged" else 1) or \
+                    not np.isfinite(lenet[name]["loss"]):
+                fails.append(f"LeNet {name}: census "
+                             f"{lenet[name]['census_repeat_fit']}, graphs "
+                             f"{g}, loss {lenet[name]['loss']}")
+            del net
+        emit({"phase": "data", "part": "lenet", "B": LENET_B,
+              "dtype": "bfloat16", "profiled_steps": DATA_PROFILED,
+              "ring_cpu_epoch_s": ring_cpu_s,
+              "ring_cpu_ms_per_batch": ring_cpu_s * 1e3 / steps,
+              "ring_card_epoch_kept_s": ring_card_s,
+              "card_ring_equals_cpu_ring": ring_equal, **lenet})
+        # the params after the same 3 steps: fed by the ring (per-step
+        # path) and pre-staged (epoch path) from one seed
+        n = DATA_PARITY_STEPS * LENET_B
+        ring = NativeBatchDataSetIterator(x[:n], y[:n], LENET_B,
+                                          seed=DATA_SEED, device="cuda",
+                                          drop_last=True)
+        twin = NativeBatchDataSetIterator(x[:n], y[:n], LENET_B,
+                                          seed=DATA_SEED, device="cuda",
+                                          drop_last=True)
+        twin.reset()    # fit resets once, then iter() starts the epoch
+        staged = list(twin)
+        nets = {}
+        for name, feed in (("ring", ring), ("prestaged", staged)):
+            nets[name] = LeNet(dtype="bfloat16").init_model(device="cuda")
+            nets[name].fit(feed, num_epochs=1)
+        a, b = train_state(nets["ring"]), train_state(nets["prestaged"])
+        diff = max(float((s - t).float().abs().max()) for s, t in zip(a, b))
+        parity = {"steps": DATA_PARITY_STEPS,
+                  "bitwise_equal": bits_equal(nets["ring"],
+                                              nets["prestaged"]),
+                  "max_abs_diff": diff,
+                  "loss": [nets[k].score_value for k in nets],
+                  "caches": {k: caches_of(v) for k, v in nets.items()}}
+        emit({"phase": "data", "part": "lenet_parity", **parity})
+        if not parity["bitwise_equal"]:
+            fails.append(f"ring-fed and pre-staged params differ by {diff} "
+                         f"after {DATA_PARITY_STEPS} steps")
+        del nets, card_batches, host_batches, feeds, staged, x, y
+        free_card()
+
+        # 5. the tabular path
+        csv = os.path.join(tmp, "tabular.csv")
+        t0 = time.perf_counter()
+        label = tabular_csv(csv, np.random.RandomState(DATA_SEED))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        records = list(etl.CSVRecordReader(skip_num_lines=1).initialize(
+            etl.FileSplit(csv)))
+        read_s = time.perf_counter() - t0
+        names = [f"f{i}" for i in range(TAB_NUMERIC)]
+        schema = (etl.Schema.Builder().add_columns_double(*names)
+                  .add_column_categorical("c0", list(TAB_STATES[0]))
+                  .add_column_categorical("c1", list(TAB_STATES[1]))
+                  .add_column_integer("label").build())
+        t0 = time.perf_counter()
+        stats = etl.analyze_local(schema, records)
+        analyze_s = time.perf_counter() - t0
+        # the numbers as the CSV holds them (6 significant digits)
+        parsed_num = np.array([[float(v) for v in r[:TAB_NUMERIC]]
+                               for r in records])
+        cut = float(np.quantile(parsed_num[:, 0], 0.99))
+        b = (etl.TransformProcess.Builder(schema)
+             .categorical_to_one_hot("c0", "c1")
+             .filter(etl.ColumnCondition("f0", etl.ConditionOp.GreaterThan,
+                                         cut)))
+        for c in names:
+            a = stats.analysis_for(c)
+            b = (b.double_math_op(c, "Subtract", a.min)
+                 .double_math_op(c, "Divide", a.max - a.min))
+        tp = b.double_columns_math_op("f0_x_f1", "Multiply", "f0",
+                                      "f1").build()
+        t0 = time.perf_counter()
+        it = RecordReaderDataSetIterator(
+            etl.CollectionRecordReader(records).initialize(), TAB_B,
+            label_index=tp.final_schema().index_of("label"),
+            num_classes=TAB_CLASSES, transform_process=tp, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kept = it.total_examples()
+        # the card's matrix against numpy's min-max of the same numbers:
+        # the same float64 operations on both sides, then float32
+        keep = parsed_num[:, 0] <= cut
+        lo, hi = parsed_num.min(0), parsed_num.max(0)
+        want = ((parsed_num[keep] - lo) / (hi - lo)).astype(np.float32)
+        got = it._features[:, :TAB_NUMERIC].cpu().numpy()
+        minmax_err = float(np.abs(got - want).max()) \
+            if got.shape == want.shape else float("inf")
+        label_ok = bool(np.array_equal(
+            it._labels.argmax(1).cpu().numpy(), label[
+                np.array([float(r[0]) for r in records]) <= cut]))
+        width = it._features.shape[1]
+        conf = (NeuralNetConfiguration.builder().seed(DATA_SEED)
+                .updater(Adam(1e-3)).list()
+                .layer(DenseLayer(n_out=256, activation="relu"))
+                .layer(DenseLayer(n_out=256, activation="relu"))
+                .layer(OutputLayer(n_out=TAB_CLASSES))
+                .set_input_type(InputType.feed_forward(width)).build())
+        mlp = MultiLayerNetwork(conf, device="cuda").init()
+        # the loss of one fixed batch, before and after each epoch
+        probe = DataSet(it._features[:TAB_B], it._labels[:TAB_B])
+        first = mlp.score(probe)
+        losses, epoch_s = [], []
+        for _ in range(TAB_EPOCHS):
+            t0 = time.perf_counter()
+            mlp.fit(it, num_epochs=1)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            losses.append(mlp.score(probe))
+        tab = {"rows": TAB_ROWS, "kept": kept, "features": width,
+               "transforms": len(tp.steps), "csv_write_s": write_s,
+               "csv_read_s": read_s, "csv_records_per_s": TAB_ROWS / read_s,
+               "analyze_s": analyze_s,
+               "iterator_build_s": build_s,
+               "executor_and_vectorise_records_per_s": TAB_ROWS / build_s,
+               "minmax_max_abs_err": minmax_err, "labels_equal": label_ok,
+               "B": TAB_B,
+               "epoch_s": epoch_s,
+               "fit_samples_per_s": kept / min(epoch_s[1:]),
+               "probe_loss_before": first,
+               "probe_loss_after_each_epoch": losses,
+               "last_step_loss": mlp.score_value,
+               "caches": caches_of(mlp)}
+        emit({"phase": "data", "part": "tabular", **tab})
+        if not (minmax_err == 0.0 and label_ok and np.isfinite(losses).all()
+                and first > losses[0] > losses[-1]):
+            fails.append(f"tabular: min-max error {minmax_err}, labels "
+                         f"equal {label_ok}, losses "
+                         f"{first} then {losses}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "data", "seconds": time.perf_counter() - t_phase})
+    if fails:
+        raise RuntimeError(f"data phase failed: {fails}")
 
 
 def mlp_network(device="cuda"):
@@ -7660,6 +8021,8 @@ def main():
     phase_bert_forward()
     phase_causal(model)
     phase_lenet()
+    phase_data()
+    free_card()
     phase_graphs_train()
     mlp_launches, mlp_twin = phase_mlp_int8()
     predict_launches, predict_twin, mlp_f32, mlp_pool = phase_predict_http()

@@ -7,9 +7,9 @@ reference's ``MnistDataFetcher``, ``EmnistDataFetcher``,
 cache only (``$DL4J_TPU_DATA`` or ``~/.deeplearning4j_tpu/<name>/``) and
 raise ``FileNotFoundError`` when the files are absent: nothing is
 downloaded. Iris and the 8x8 Digits set come from scikit-learn's bundled
-copies, imported when such an iterator is constructed. ``parse_idx`` is
-the numpy reader; the JAX package's native decoder waits for ``native/``
-(``ROADMAP.md`` queue 1 item 11).
+copies, imported when such an iterator is constructed. ``parse_idx``
+decodes a plain u8 IDX file through ``native/``'s C++ decoder where the
+library builds (float32 out), else with numpy.
 """
 from __future__ import annotations
 
@@ -51,7 +51,21 @@ def _find(name: str, *candidates: str) -> str:
 
 def parse_idx(path: str) -> np.ndarray:
     """Parse an IDX-format file (the MNIST container format), plain or
-    gzipped."""
+    gzipped.
+
+    Plain u8 files route through the native C++ decoder when it builds
+    (``deeplearning4j_tpu_torch.native``, float32 out); gz or typed files,
+    and a header the decoder refuses, use the numpy path."""
+    if not path.endswith(".gz") and os.path.exists(path):
+        from .. import native
+        if native.available():
+            with open(path, "rb") as f:
+                u8 = f.read(3)[2:] == b"\x08"
+            if u8:
+                try:
+                    return native.read_idx(path)
+                except OSError:
+                    pass   # the numpy reader below says what is wrong
     with _open_maybe_gz(path) as f:
         magic = struct.unpack(">I", f.read(4))[0]
         dtype_code = (magic >> 8) & 0xFF

@@ -5,14 +5,16 @@ reference's DataSetIterator API): ``ListDataSetIterator``,
 ``ArrayDataSetIterator``, ``AsyncDataSetIterator``, whose worker
 thread copies each batch to the device (``device=``, the card by
 default) while the consumer trains on the previous one, and
-``BenchmarkDataSetIterator``, one fixed synthetic batch on the device.
-The native-ring iterator waits for ``native/`` (``ROADMAP.md`` queue 1
-item 11).
+``BenchmarkDataSetIterator``, one fixed synthetic batch on the device,
+and ``NativeBatchDataSetIterator``, whose batches the C++ ring of
+``native/`` gathers into pinned host memory and copies to the card.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
+import warnings
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -233,10 +235,103 @@ class BenchmarkDataSetIterator(DataSetIterator):
 
 
 class NativeBatchDataSetIterator(DataSetIterator):
-    """The C++ batch-assembler ring's iterator of the JAX package; it
-    waits for ``native/`` (``ROADMAP.md`` queue 1 item 11)."""
+    """Minibatch iterator backed by the C++ batch-assembler ring
+    (``native.NativeBatchIterator``): shuffling and gather-copies happen on
+    a native thread outside the GIL while the previous step runs on the
+    device — the AsyncDataSetIterator role with native workers (reference
+    AsyncDataSetIterator + DataVec local executor threads). The same seed
+    gives the JAX package's batches bit for bit: epoch ``e`` of the ring
+    shuffles with ``seed + e``, and every ``reset()`` (``fit`` calls it,
+    and so does ``iter()``) starts the next epoch.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "NativeBatchDataSetIterator is not ported yet; it waits for "
-            "native/ (ROADMAP.md queue 1 item 11)")
+    On ``device`` (the card by default) the ring writes each batch into a
+    pinned host tensor fresh from torch's caching host allocator, which is
+    copied to the card with ``non_blocking=True`` on the consumer's current
+    stream. The allocator records an event on that stream for the block
+    and hands it out again only once the copy has finished, so a pinned
+    buffer is never rewritten while its copy is in flight, and no second
+    stream is needed. On the CPU the batch is the host tensor itself.
+    ``blocked_s`` adds up the seconds ``next()`` waited for the ring."""
+
+    def __init__(self, features, labels, batch_size: int,
+                 shuffle: bool = True, seed: int = 0, n_slots: int = 4,
+                 drop_last=None, device="cuda"):
+        from ..nn.multilayer import resolve_device
+        self.device = resolve_device(device)
+        self._x = _host_f32(features)
+        self._y = _host_f32(labels)
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.n_slots = n_slots
+        #: True (default): every batch has exactly ``batch_size`` rows —
+        #: required by a captured step, whose graph holds one batch shape
+        #: (a ragged last batch is a new signature and a new capture).
+        #: Pass False to opt into the reference DataSetIterator contract,
+        #: which emits a trailing partial batch.
+        defaulted = drop_last is None
+        self.drop_last = True if defaulted else drop_last
+        if (defaulted and self.drop_last
+                and self._x.shape[0] >= self.batch_size
+                and self._x.shape[0] % self.batch_size != 0):
+            warnings.warn(
+                f"NativeBatchIterator: {self._x.shape[0] % self.batch_size} "
+                f"trailing rows (of {self._x.shape[0]}) are dropped per "
+                f"epoch under the drop_last=True default (differs from the "
+                f"reference DataSetIterator contract); pass drop_last=False "
+                f"to keep the partial batch, or drop_last=True to silence",
+                stacklevel=2)
+        if self.drop_last and self._x.shape[0] < self.batch_size:
+            raise ValueError(
+                f"dataset has {self._x.shape[0]} rows < batch_size="
+                f"{self.batch_size}: with drop_last=True (the default) the "
+                f"iterator would yield zero batches; lower batch_size or "
+                f"pass drop_last=False")
+        self.blocked_s = 0.0
+        self._epoch = 0
+        self._it = None
+        self.reset()
+
+    def reset(self):
+        from .. import native
+        if self._it is not None:
+            self._it.close()
+        self._it = native.NativeBatchIterator(
+            self._x, self._y, self.batch_size, shuffle=self.shuffle,
+            seed=self.seed + self._epoch, num_epochs=1,
+            n_slots=self.n_slots, drop_last=self.drop_last)
+        self._epoch += 1
+
+    def __next__(self) -> DataSet:
+        if self._it is None:
+            raise StopIteration
+        pin = self.device.type == "cuda"
+        bx = torch.empty((self.batch_size,) + self._x.shape[1:],
+                         dtype=torch.float32, pin_memory=pin)
+        by = torch.empty((self.batch_size,) + self._y.shape[1:],
+                         dtype=torch.float32, pin_memory=pin)
+        t0 = time.perf_counter()
+        rows = self._it.next_into(bx, by)
+        self.blocked_s += time.perf_counter() - t0
+        if not rows:
+            raise StopIteration
+        x, y = bx[:rows], by[:rows]
+        if pin:
+            x = x.to(self.device, non_blocking=True)
+            y = y.to(self.device, non_blocking=True)
+        return DataSet(x, y)
+
+    def close(self):
+        if self._it is not None:
+            self._it.close()
+            self._it = None
+
+
+def _host_f32(a) -> np.ndarray:
+    """``a`` (numpy, an ``NDArray`` or a tensor on any device) as a float32
+    numpy array on the host."""
+    if isinstance(a, NDArray):
+        a = a.torch()
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)

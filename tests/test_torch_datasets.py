@@ -59,14 +59,6 @@ def test_benchmark_iterator_labels_match_jax():
             tds.BenchmarkDataSetIterator((2, 2), 2, 1)
 
 
-def test_native_and_record_iterators_wait_for_item_11():
-    for cls in (tds.NativeBatchDataSetIterator,
-                tds.RecordReaderDataSetIterator,
-                tds.SequenceRecordReaderDataSetIterator):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cls(None, 4)
-
-
 # -- normalizers --------------------------------------------------------
 
 def _batches(shape, n=3, seed=0, scale=3.0, shift=2.0):
