@@ -369,6 +369,27 @@ exits non-zero without printing a result:
               kernels' names; TF32 GEMMs under "high" only, finite losses
               whose first values agree within 1e-2, the property and the
               TF32 flags restored.
+   modelimport — BASELINE config 3 as specified: BERT-base (hidden 768,
+              12 layers, 12 heads, intermediate 3072, vocab 30522,
+              max_pos 512) imported from a TF1 GraphDef into a SameDiff on
+              the card. The graph is ``tests/test_modelimport.py::
+              build_tf1_bert``'s, committed as a skeleton
+              (``tests/torch_data/bert_base_skeleton.pb``) whose 440 MB of
+              weights ``tests/torch_import_cases.py::fill_graphdef``
+              writes from a seed; imported at B=8, T=128 with the mask
+              zeroing the last 28 positions: GraphDef MB, nodes, parse
+              and map seconds, SameDiff ops, parameters; ``output()`` of
+              the sequence and pooled outputs (host ms and device ms
+              from the profiler a call, each the median of 5, busy
+              share, peak MB); both against the same
+              bytes imported on the CPU (``IMPORT_ATOL``, TF32 off);
+              ``save_flatbuffers`` then ``load_samediff_fb(device=
+              "cuda")``, the outputs bit for bit, file MB and seconds;
+              then at small width ``OnnxRunner`` (the ONNX MLP and
+              residual block) and ``GraphRunner(backend="native")`` (the
+              tiny BERT GraphDef) on the card against their CPU runs. The
+              imported graph runs none of the five kernels (attention is
+              ``BatchMatMulV2`` and ``Softmax``).
    seq2seq  — BASELINE config 4's Seq2Seq LSTM at bench.py's widths
               (``models.seq2seq``: vocab 8000, embed 256, hidden 512,
               f32 without TF32, B=128, S=32, ids from ``RandomState(0)``,
@@ -5624,6 +5645,164 @@ def phase_samediff_bert():
     return sd, batches
 
 
+# the modelimport phase: BERT-base from its GraphDef skeleton at B=8,
+# T=128, the last 28 positions masked; card against CPU within the JAX
+# package's full-size tolerance against TF (test_bert_base_full_size_
+# golden): 12 layers of f32 products summed in another order
+IMPORT_B, IMPORT_MASKED, IMPORT_SEED = 8, 28, 0
+IMPORT_ATOL = 5e-4
+IMPORT_CALLS = 5
+# the small graphs on the card against the CPU: f32 products and
+# convolutions in another order (TF32 off)
+IMPORT_SMALL_ATOL = 2e-5
+
+
+def phase_modelimport():
+    """BERT-base imported from a TF GraphDef and run on the card (see the
+    module docstring); every check raises on failure."""
+    import tempfile
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_import_cases as cases
+    from deeplearning4j_tpu_torch.interop import GraphRunner, OnnxRunner
+    from deeplearning4j_tpu_torch.modelimport.samediff_fb import \
+        load_samediff_fb
+    from deeplearning4j_tpu_torch.modelimport.tf.importer import \
+        TFGraphImporter
+    outs = list(cases.OUTPUTS)
+    rec = {"phase": "modelimport", "B": IMPORT_B,
+           "T": cases.BERT["base"]["seq"], "masked": IMPORT_MASKED,
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32
+                        or torch.backends.cudnn.allow_tf32)}
+    t0 = time.perf_counter()
+    pb = cases.bert_graph("base", seed=IMPORT_SEED)
+    rec["fill_s"] = time.perf_counter() - t0
+    rec["graphdef_mb"] = len(pb) / 2 ** 20
+    feeds = cases.bert_feeds("base", IMPORT_B, IMPORT_MASKED)
+    shapes = {k: v.shape for k, v in feeds.items()}
+
+    def imported(device):
+        t0 = time.perf_counter()
+        importer = TFGraphImporter(pb, input_shapes=shapes, outputs=outs,
+                                   device=device)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = importer.import_graph()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return importer.graph, graph, parse_s, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ir, imp, rec["parse_s"], rec["map_s"] = imported("cuda")
+    rec["graphdef_nodes"] = len(ir.nodes) + len(ir.initializers) \
+        + len(ir.inputs)
+    rec["sd_ops"] = len(imp.sd._ops)
+    rec["parameters"] = int(sum(a.size for a in ir.initializers.values()
+                                if a.dtype == np.float32 and a.ndim >= 1))
+    rec["static_shapes"] = len(imp.ctx._var_aval)
+    del ir
+    got = imp.output(feeds, outs)          # the first call captures
+    host = []
+    for _ in range(IMPORT_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imp.output(feeds, outs)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    rec["host_ms_per_call"] = float(np.median(host))
+    rec["host_ms_calls"] = host
+    windows = sorted((device_ms_by_kernel(lambda: imp.output(feeds, outs),
+                                          1) for _ in range(IMPORT_CALLS)),
+                     key=lambda w: sum(w.values()))
+    by_name = windows[IMPORT_CALLS // 2]    # the median window
+    rec["device_ms_per_call"] = sum(by_name.values())
+    rec["device_ms_calls"] = [sum(w.values()) for w in windows]
+    rec["device_busy_share"] = rec["device_ms_per_call"] \
+        / rec["host_ms_per_call"]
+    rec["top_kernels_ms_per_call"] = [
+        [k[:80], v] for k, v in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1])[:6]]
+    rec["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    rec["graphs"] = [{k: g[k] for k in ("cache", "error")}
+                     for g in imp.sd.make_function(
+                         [imp.outputs[o + ":0"] for o in outs],
+                         tuple(sorted(imp.inputs.values())))
+                     .graphs.report()]
+    # the same bytes imported on the CPU
+    _, cpu, _, _ = imported("cpu")
+    ref = cpu.output(feeds, outs)
+    del cpu
+    rec["vs_cpu_max_abs_err"] = {
+        o: float(np.abs(got[o].numpy() - ref[o].numpy()).max())
+        for o in outs}
+    rec["vs_cpu_atol"] = IMPORT_ATOL
+    finite = all(np.isfinite(got[o].numpy()).all() for o in outs)
+    want = {"sequence_output": (IMPORT_B, rec["T"], 768),
+            "pooled_output": (IMPORT_B, 768)}
+    shapes_ok = all(tuple(got[o].shape) == want[o] for o in outs)
+    # the FlatBuffers round trip, loaded onto the card
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        path = os.path.join(tmp.name, "bert.fb")
+        t0 = time.perf_counter()
+        imp.sd.save_flatbuffers(path)
+        rec["fb_save_s"] = time.perf_counter() - t0
+        rec["fb_mb"] = os.path.getsize(path) / 2 ** 20
+        t0 = time.perf_counter()
+        loaded = load_samediff_fb(path, device="cuda")
+        torch.cuda.synchronize()
+        rec["fb_load_s"] = time.perf_counter() - t0
+    finally:
+        tmp.cleanup()
+    names = [imp.outputs[o + ":0"] for o in outs]
+    ph = {imp.inputs[k + ":0"]: v for k, v in feeds.items()}
+    a, b = imp.sd.output(ph, names), loaded.output(ph, names)
+    rec["fb_same_bits"] = all(torch.equal(a[n].torch(), b[n].torch())
+                              for n in names)
+    del loaded, imp, a, b, got
+    torch.cuda.empty_cache()
+    # small width: OnnxRunner and the native GraphRunner, card against CPU
+    small = {}
+    mlp, _ = cases.onnx_mlp(np.random.RandomState(0))
+    block, _ = cases.onnx_residual_block(np.random.RandomState(0))
+    rs = np.random.RandomState(1)
+    for name, data, x in (
+            ("onnx_mlp", mlp, rs.randn(4, 8).astype(np.float32)),
+            ("onnx_residual_block", block,
+             rs.randn(2, 8, 12, 12).astype(np.float32))):
+        card = OnnxRunner(data, device="cuda").run({"x": x})["y"]
+        host = OnnxRunner(data, device="cpu").run({"x": x})["y"]
+        small[name] = float(np.abs(card.numpy() - host.numpy()).max())
+    tiny = cases.bert_graph("tiny", seed=IMPORT_SEED)
+    tfeeds = cases.bert_feeds("tiny", 2, 4)
+    runs = [GraphRunner(tiny, list(tfeeds), outs,
+                        {k: v.shape for k, v in tfeeds.items()},
+                        backend="native", device=d).run(tfeeds)
+            for d in ("cuda", "cpu")]
+    small["graph_runner_tiny_bert"] = max(
+        float(np.abs(runs[0][o].numpy() - runs[1][o].numpy()).max())
+        for o in outs)
+    rec["small_vs_cpu_max_abs_err"] = small
+    rec["small_atol"] = IMPORT_SMALL_ATOL
+    emit(rec)
+    if rec["parameters"] != cases.BERT_BASE_PARAMS:
+        raise RuntimeError(f"the GraphDef holds {rec['parameters']} "
+                           f"parameters, want {cases.BERT_BASE_PARAMS}")
+    if not (finite and shapes_ok):
+        raise RuntimeError("the imported BERT's outputs are not finite "
+                           "values of the expected shapes")
+    if max(rec["vs_cpu_max_abs_err"].values()) > IMPORT_ATOL:
+        raise RuntimeError(f"the card's outputs differ from the CPU's: "
+                           f"{rec['vs_cpu_max_abs_err']}")
+    if not rec["fb_same_bits"]:
+        raise RuntimeError("the .fb round trip changed the outputs' bits")
+    if max(small.values()) > IMPORT_SMALL_ATOL:
+        raise RuntimeError(f"a small graph differs on the card: {small}")
+
+
 # the precision phase: the samediff_bert phase's trained QA graph and
 # batches, PRECISION_STEPS fit steps from the same weights at each
 # matmul_precision level after one warm step at it; the first losses of
@@ -8040,6 +8219,8 @@ def main():
     qa_graph, qa_batches = phase_samediff_bert()
     phase_precision(qa_graph, qa_batches)
     del qa_graph, qa_batches
+    free_card()
+    phase_modelimport()
     free_card()
     phase_seq2seq()
     phase_text_lstm()

@@ -926,7 +926,7 @@ class SameDiff:
         return _load(path, device=device)
 
     def save_flatbuffers(self, path, save_updater_state: bool = False):
-        """The reference FlatBuffers format: not ported yet."""
-        raise NotImplementedError(
-            "SameDiff.save_flatbuffers is not ported yet; it goes with "
-            "modelimport/ and waits for ROADMAP.md queue 1 item 11")
+        """The reference FlatBuffers format (a FlatGraph ``.fb``), read
+        back by ``modelimport.samediff_fb.load_samediff_fb``."""
+        from .serialization import save_flatbuffers as _save_fb
+        _save_fb(self, path, save_updater_state)

@@ -12,8 +12,11 @@ bf16 arrays are written as the JAX package's ``np.savez`` writes an
 ``ml_dtypes`` bf16 array: the raw 2-byte values, a ``V2`` record in the
 ``.npy`` header; the port reads such a record back as bf16. Ops recorded
 from raw functions (``_record_fn``) are refused at save time: every node
-must be a registered op. ``SameDiff.save_flatbuffers`` (the reference
-FlatBuffers writer) is not ported (``ROADMAP.md`` queue 1 item 11).
+must be a registered op.
+
+``save_flatbuffers`` writes the reference's FlatGraph ``.fb`` (the JAX
+package's writer, on the port's own builder, ``modelimport/flatbuf.py``);
+``modelimport/samediff_fb.py`` reads it back.
 """
 from __future__ import annotations
 
@@ -148,6 +151,368 @@ def _training_config_dict(tc):
         "loss_variables": list(tc.loss_variables),
         "minimize": tc.minimize,
     }
+
+
+# ---------------------------------------------------------------------------
+# Reference-format FlatBuffers writer (the SameDiff.asFlatBuffers analog:
+# `SameDiff.java:5465-5727`; schemas `libnd4j/include/graph/scheme/*.fbs`).
+# Emits a FlatGraph the JVM reference and both packages' readers
+# (`modelimport/samediff_fb.py`) can load: variables (VARIABLE/CONSTANT
+# with ndarrays, PLACEHOLDER with shapes, ARRAY stubs), FlatNodes with
+# inputPaired wiring + per-op arg packing, lossVariables, trainingConfig
+# JSON, and per-param UpdaterState.
+# ---------------------------------------------------------------------------
+
+_FB_DTYPES = {"bool": 1, "float16": 3, "float32": 5, "float64": 6,
+              "int8": 7, "int16": 8, "int32": 9, "int64": 10,
+              "uint8": 11, "uint16": 12, "uint32": 13, "uint64": 14,
+              "bfloat16": 17}
+_FB_OPTYPE_CUSTOM = 21   # OpType.CUSTOM (utils.fbs)
+_FB_ALL_DIMS = 2147483647
+
+
+def _fb_dtype_enum(dt) -> int:
+    from ..modelimport.ir import dtype_name
+    name = dt if isinstance(dt, str) else dtype_name(dt)
+    try:
+        return _FB_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"dtype {dt} has no FlatBuffers DType enum")
+
+
+def _fb_str_vector(b, strings):
+    offs = [b.CreateString(s) for s in strings]
+    return _fb_table_vector(b, offs)
+
+
+def _fb_table_vector(b, offs):
+    b.StartVector(4, len(offs), 4)
+    for o in reversed(offs):
+        b.PrependUOffsetTRelative(o)
+    return b.EndVector()
+
+
+def _fb_flat_array(b, arr) -> int:
+    """FlatArray table: nd4j shapeInfo [rank, *shape, *strides, extras,
+    ews, order] + raw C-order buffer."""
+    arr = np.ascontiguousarray(host_array(arr))
+    rank = arr.ndim
+    strides = []
+    if rank:
+        acc = 1
+        for d in reversed(arr.shape):
+            strides.insert(0, acc)
+            acc *= d
+    info = np.asarray([rank, *arr.shape, *strides, 0, 1, 99], np.int64)
+    buf_off = b.CreateByteVector(arr.tobytes())
+    info_off = b.CreateNumpyVector(info)
+    b.StartObject(4)
+    b.PrependUOffsetTRelativeSlot(1, buf_off, 0)
+    b.PrependUOffsetTRelativeSlot(0, info_off, 0)
+    b.PrependInt8Slot(2, _fb_dtype_enum(arr.dtype), 0)
+    b.PrependInt8Slot(3, 0, 0)   # ByteOrder.LE
+    return b.EndObject()
+
+
+def _fb_int_pair(b, first, second) -> int:
+    b.StartObject(2)
+    b.PrependInt32Slot(1, int(second), 0)
+    b.PrependInt32Slot(0, int(first), 0)
+    return b.EndObject()
+
+
+# Per-op argument packing: kwargs -> (i_args, t_args, b_args, dimensions).
+# These are the exact inverses of the reader's _CONVERTERS
+# (modelimport/samediff_fb.py), so writer->reader round-trips losslessly.
+
+def _pack_matmul(kw):
+    return dict(i_args=[1 if kw.get("transpose_a") else 0,
+                        1 if kw.get("transpose_b") else 0],
+                t_args=[float(kw.get("alpha", 1.0))]), \
+        {"transpose_a", "transpose_b", "alpha"}
+
+
+def _pack_softmax(kw):
+    return dict(i_args=[int(kw.get("axis", -1))]), {"axis"}
+
+
+def _pack_reduction(kw):
+    out = {}
+    dims = kw.get("dims")
+    out["dimensions"] = ([int(d) for d in dims] if dims is not None
+                         else [_FB_ALL_DIMS])
+    if kw.get("keep_dims"):
+        out["b_args"] = [True]
+    return out, {"dims", "keep_dims"}
+
+
+# The shape ops of an imported TF graph (the port packs these beyond the
+# JAX package's writer, whose reader runs them without their kwargs), in
+# the reference's encodings: reshape [order 'c', *shape], permute / squeeze
+# axes, gather / expand_dims axis, onehot [axis, depth] + [on, off], cast
+# [DType], biasadd [nchw] and strided_slice [begin, ellipsis, end,
+# new_axis, shrink masks, *begin, *end, *strides].
+
+def _pack_axis(key):
+    return lambda kw: (dict(i_args=[int(kw.get(key, 0))]), {key})
+
+
+def _pack_axes(key):
+    def pack(kw):
+        v = kw.get(key)
+        return dict(i_args=[] if v is None else
+                    [int(a) for a in np.atleast_1d(v)]), {key}
+    return pack
+
+
+def _pack_reshape(kw):
+    return dict(i_args=[99] + [int(d) for d in kw["shape"]]), {"shape"}
+
+
+def _pack_onehot(kw):
+    return dict(i_args=[int(kw.get("axis", -1)), int(kw["depth"])],
+                t_args=[float(kw.get("on_value", 1.0)),
+                        float(kw.get("off_value", 0.0))]), \
+        {"axis", "depth", "on_value", "off_value"}
+
+
+def _pack_cast(kw):
+    return dict(i_args=[_fb_dtype_enum(str(kw["dtype"]))]), {"dtype"}
+
+
+def _pack_biasadd(kw):
+    return dict(b_args=[bool(kw.get("nchw", False))]), {"nchw"}
+
+
+def _pack_strided_slice(kw):
+    masks = [0] * 5          # begin, ellipsis, end, new_axis, shrink
+    begin, end, strides = [], [], []
+    for i, entry in enumerate(kw["spec"]):
+        kind, bit = entry[0], 1 << i
+        b_, e_, s_ = 0, 0, 1
+        if kind == "slice":
+            b_, e_, s_ = entry[1], entry[2], entry[3]
+            if b_ is None:
+                masks[0] |= bit
+            if e_ is None:
+                masks[2] |= bit
+        elif kind == "int":
+            b_, e_ = entry[1], entry[1] + 1
+            masks[4] |= bit
+        elif kind == "newaxis":
+            masks[3] |= bit
+        elif kind == "ellipsis":
+            masks[1] |= bit
+        else:                # "all"
+            masks[0] |= bit
+            masks[2] |= bit
+        begin.append(b_ or 0)
+        end.append(e_ or 0)
+        strides.append(s_)
+    return dict(i_args=masks + begin + end + strides), {"spec"}
+
+
+_FB_PACKERS = {
+    "matmul": _pack_matmul,
+    "softmax": _pack_softmax,
+    "log_softmax": _pack_softmax,
+    "reduce_mean": _pack_reduction, "reduce_sum": _pack_reduction,
+    "reduce_max": _pack_reduction, "reduce_min": _pack_reduction,
+    "reduce_prod": _pack_reduction, "reduce_norm2": _pack_reduction,
+    "argmax": _pack_reduction, "argmin": _pack_reduction,
+    "reshape": _pack_reshape,
+    "transpose": _pack_axes("axes"), "squeeze": _pack_axes("axis"),
+    "gather": _pack_axis("axis"), "expand_dims": _pack_axis("axis"),
+    "onehot": _pack_onehot, "cast": _pack_cast, "biasadd": _pack_biasadd,
+    "tf_strided_slice": _pack_strided_slice,
+}
+
+
+def _fb_pack_kwargs(node, opdef):
+    """kwargs -> FlatNode arg vectors; unencodable non-default kwargs fail
+    loudly (same contract as the JSON path's raw-function rejection)."""
+    import inspect
+    packer = _FB_PACKERS.get(node.op_name)
+    if packer is not None:
+        packed, known = packer(node.kwargs)
+        extra = {k: v for k, v in node.kwargs.items() if k not in known}
+    else:
+        packed, extra = {}, dict(node.kwargs)
+    if extra:
+        # kwargs equal to the op's declared defaults carry no information
+        def _is_default(param, v):
+            if param.default is inspect.Parameter.empty:
+                return False
+            try:
+                return bool(param.default == v)
+            except (TypeError, ValueError, RuntimeError):
+                # array-valued kwarg: `default == v` broadcasts and bool()
+                # raises "truth value is ambiguous" — treat as non-default
+                # so the clean ValueError below names the offending op
+                return False
+        try:
+            sig = inspect.signature(opdef.fn)
+            extra = {k: v for k, v in extra.items()
+                     if not (k in sig.parameters
+                             and _is_default(sig.parameters[k], v))}
+        except (TypeError, ValueError):  # builtins without signatures
+            pass
+    if extra:
+        raise ValueError(
+            f"op {node.name!r} ({node.op_name}): kwargs {sorted(extra)} "
+            f"have no FlatBuffers arg packing; extend _FB_PACKERS (and the "
+            f"reader's _CONVERTERS) to serialize this op faithfully")
+    return packed
+
+
+def save_flatbuffers(sd, path, save_updater_state: bool = False):
+    """Write the graph as a reference-format FlatGraph ``.fb`` file."""
+    from ..modelimport.flatbuf import Builder
+    from .samediff import VariableType
+
+    reg = OpRegistry.get()
+    b = Builder(4096)
+
+    # ids: op nodes 1..N in recorded order; leaf variables after
+    op_ids = {name: i + 1 for i, name in enumerate(sd._op_order)}
+    var_ids = {}
+    for opn in sd._op_order:
+        for idx, out in enumerate(sd._ops[opn].outputs):
+            var_ids[out] = (op_ids[opn], idx)
+    next_id = len(sd._op_order) + 1
+    for v in sd._vars.values():
+        if v.name not in var_ids:
+            var_ids[v.name] = (next_id, 0)
+            next_id += 1
+
+    # -- FlatNodes --------------------------------------------------------
+    node_offs = []
+    for opn in sd._op_order:
+        node = sd._ops[opn]
+        if not reg.has(node.op_name):
+            raise ValueError(
+                f"op {node.name!r} ({node.op_name}) was recorded from a raw "
+                f"function and cannot be serialized; register it as a named "
+                f"op")
+        if node.needs_key:
+            raise ValueError(
+                f"op {node.name!r} ({node.op_name}) consumes RNG state; "
+                f"random ops are not serializable to the reference format")
+        packed = _fb_pack_kwargs(node, reg.lookup(node.op_name))
+
+        name_off = b.CreateString(node.name)
+        opname_off = b.CreateString(node.op_name)
+        outnames_off = _fb_str_vector(b, node.outputs)
+        pair_offs = [_fb_int_pair(b, *var_ids[i]) for i in node.inputs]
+        inputs_off = _fb_table_vector(b, pair_offs)
+        vec_offs = {}
+        if packed.get("t_args"):
+            vec_offs["t"] = b.CreateNumpyVector(
+                np.asarray(packed["t_args"], np.float64))
+        if packed.get("i_args"):
+            vec_offs["i"] = b.CreateNumpyVector(
+                np.asarray(packed["i_args"], np.int64))
+        if packed.get("b_args"):
+            ba = packed["b_args"]
+            b.StartVector(1, len(ba), 1)
+            for x in reversed(ba):
+                b.PrependBool(bool(x))
+            vec_offs["b"] = b.EndVector()
+        if packed.get("dimensions"):
+            vec_offs["d"] = b.CreateNumpyVector(
+                np.asarray(packed["dimensions"], np.int32))
+
+        b.StartObject(24)
+        b.PrependInt32Slot(0, op_ids[opn], 0)
+        b.PrependUOffsetTRelativeSlot(1, name_off, 0)
+        b.PrependInt8Slot(2, _FB_OPTYPE_CUSTOM, 0)
+        b.PrependUOffsetTRelativeSlot(6, inputs_off, 0)
+        if "t" in vec_offs:
+            b.PrependUOffsetTRelativeSlot(8, vec_offs["t"], 0)
+        if "i" in vec_offs:
+            b.PrependUOffsetTRelativeSlot(9, vec_offs["i"], 0)
+        if "b" in vec_offs:
+            b.PrependUOffsetTRelativeSlot(10, vec_offs["b"], 0)
+        if "d" in vec_offs:
+            b.PrependUOffsetTRelativeSlot(11, vec_offs["d"], 0)
+        b.PrependUOffsetTRelativeSlot(15, outnames_off, 0)
+        b.PrependUOffsetTRelativeSlot(16, opname_off, 0)
+        node_offs.append(b.EndObject())
+
+    # -- FlatVariables ----------------------------------------------------
+    _VT = {VariableType.VARIABLE: 0, VariableType.CONSTANT: 1,
+           VariableType.ARRAY: 2, VariableType.PLACEHOLDER: 3}
+    var_offs = []
+    for v in sd._vars.values():
+        name_off = b.CreateString(v.name)
+        arr_off = None
+        if v.var_type in (VariableType.VARIABLE, VariableType.CONSTANT):
+            if v.name not in sd._arrays:
+                raise ValueError(f"{v.var_type.value} {v.name!r} has no "
+                                 f"array value to serialize")
+            arr_off = _fb_flat_array(b, sd._arrays[v.name])
+        shape_off = None
+        if v.shape is not None:
+            # dynamic dims (None) are written as -1, the reference marker
+            shape_off = b.CreateNumpyVector(
+                np.asarray([-1 if s is None else int(s) for s in v.shape],
+                           np.int64))
+        id_off = _fb_int_pair(b, *var_ids[v.name])
+        b.StartObject(10)
+        b.PrependUOffsetTRelativeSlot(0, id_off, 0)
+        b.PrependUOffsetTRelativeSlot(1, name_off, 0)
+        b.PrependInt8Slot(2, _fb_dtype_enum(v.dtype), 0)
+        if shape_off is not None:
+            b.PrependUOffsetTRelativeSlot(3, shape_off, 0)
+        if arr_off is not None:
+            b.PrependUOffsetTRelativeSlot(4, arr_off, 0)
+        b.PrependInt8Slot(6, _VT[v.var_type], 0)
+        var_offs.append(b.EndObject())
+
+    # -- UpdaterState ------------------------------------------------------
+    upd_offs = []
+    if save_updater_state and sd._updater_state is not None:
+        # updater state shape: {state_key: {param_name: array}}
+        state = sd._updater_state
+        by_param = {}
+        for key in sorted(state):
+            for pname, arr in state[key].items():
+                by_param.setdefault(pname, []).append((key, arr))
+        for pname, pairs in sorted(by_param.items()):
+            pn_off = b.CreateString(pname)
+            keys_off = _fb_str_vector(b, [k for k, _ in pairs])
+            vals_off = _fb_table_vector(
+                b, [_fb_flat_array(b, a) for _, a in pairs])
+            b.StartObject(3)
+            b.PrependUOffsetTRelativeSlot(0, pn_off, 0)
+            b.PrependUOffsetTRelativeSlot(1, keys_off, 0)
+            b.PrependUOffsetTRelativeSlot(2, vals_off, 0)
+            upd_offs.append(b.EndObject())
+
+    # -- FlatGraph ---------------------------------------------------------
+    placeholders = [v.name for v in sd._vars.values()
+                    if v.var_type == VariableType.PLACEHOLDER]
+    vars_off = _fb_table_vector(b, var_offs)
+    nodes_off = _fb_table_vector(b, node_offs)
+    ph_off = _fb_str_vector(b, placeholders)
+    loss_off = _fb_str_vector(b, sd._loss_variables)
+    tc = _training_config_dict(sd.training_config)
+    tc_off = b.CreateString(json.dumps(tc)) if tc is not None else None
+    upd_vec_off = _fb_table_vector(b, upd_offs) if upd_offs else None
+
+    b.StartObject(9)
+    b.PrependUOffsetTRelativeSlot(1, vars_off, 0)
+    b.PrependUOffsetTRelativeSlot(2, nodes_off, 0)
+    b.PrependUOffsetTRelativeSlot(5, ph_off, 0)
+    b.PrependUOffsetTRelativeSlot(6, loss_off, 0)
+    if tc_off is not None:
+        b.PrependUOffsetTRelativeSlot(7, tc_off, 0)
+    if upd_vec_off is not None:
+        b.PrependUOffsetTRelativeSlot(8, upd_vec_off, 0)
+    b.Finish(b.EndObject())
+
+    with open(path, "wb") as f:
+        f.write(b.Output())
 
 
 def _unflatten(template, leaves):

@@ -29,7 +29,9 @@ _QT_KEYS = {"q", "scale", "orig_dtype"}
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """One array -> a tensor on ``device``; bf16 bit-exact."""
     a = np.array(a, copy=True, order="C")  # owned and writable
-    if a.dtype.name == "bfloat16":
+    # an ml_dtypes bf16 array, or its raw 2-byte values (a ``V2`` record,
+    # as the port's serializers and model importers hold bf16)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
     if a.dtype.name == "float8_e4m3fn":

@@ -300,12 +300,13 @@ def _greedy_nms(overlap_rows, scores, max_output_size, threshold,
     suppressed = torch.zeros(n, dtype=torch.bool, device=dev)
     for _ in range(min(n, max_out)):
         avail = ~suppressed & eligible
-        idx = torch.argmax(avail.to(torch.uint8))
+        # a 1-element index tensor: a 0-d one would be read on the host
+        idx = torch.argmax(avail.to(torch.uint8)).reshape(1)
         do = avail.any() & (count < max_out)
         slot = (slots == torch.clamp(count, 0, max_out - 1)) & do
         selected = torch.where(slot, order[idx].to(torch.int32), selected)
         count = count + do.to(torch.int64)
-        suppressed = suppressed | (avail & (overlap_rows(idx) > threshold)) \
+        suppressed = suppressed | (avail & (overlap_rows(idx)[0] > threshold)) \
             | (positions == idx)
     return selected
 

@@ -196,11 +196,15 @@ def percentile(x, q, dims=None, interpolation="linear"):
 def bincount(x, weights=None, minlength=0, maxlength=None):
     length = minlength if maxlength is None else maxlength
     length = max(int(length), 1)
+    # a scatter-add of static length (no boolean mask, no host read):
+    # values outside [0, length) add nothing
     flat = x.reshape(-1).long()
     keep = (flat >= 0) & (flat < length)
-    w = None if weights is None else weights.reshape(-1)[keep]
-    r = torch.bincount(flat[keep], weights=w, minlength=length)[:length]
-    return i32(r) if weights is None else r.to(weights.dtype)
+    idx = torch.where(keep, flat, 0)
+    w = keep.to(torch.int32) if weights is None else \
+        torch.where(keep, weights.reshape(-1), 0)
+    return torch.zeros(length, dtype=w.dtype, device=x.device) \
+        .scatter_add_(0, idx, w)
 
 
 @op("histogram", "reduce", differentiable=False)

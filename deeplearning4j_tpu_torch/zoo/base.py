@@ -11,7 +11,7 @@ Adler32-verified; ``download_to_cache`` reads ``file://`` URLs and
 nothing over the network. No pretrained weights ship with the port. A
 serde zip restores through ``nn.serde.restore_model``; a DL4J
 ``coefficients.bin`` zip waits for ``zoo/dl4j_import.py`` (``ROADMAP.md``
-queue 1 item 11).
+queue 1 item 11c-ii).
 """
 from __future__ import annotations
 
@@ -267,7 +267,7 @@ class ZooModel:
             raise NotImplementedError(
                 f"{path} is a DL4J ModelSerializer zip (coefficients.bin); "
                 "its reader, zoo/dl4j_import.py, waits for ROADMAP.md queue "
-                "1 item 11")
+                "1 item 11c-ii")
         from ..nn import serde
         # the artifact carries the config and every param, the state_*
         # running stats (batch-norm means and variances) included

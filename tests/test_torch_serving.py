@@ -452,6 +452,15 @@ class TestPortOnlyLifecycle:
         base = f"http://127.0.0.1:{srv.start()}"
         assert _post(base + "/v1/models/lm/generate",
                      {"prompt": [4, 5], "max_tokens": 2})[0] == 200
+        # the handler records the request in the ring after its response
+        # has gone out: the client can hold the 200 before the server has
+        # finished the request, and a SIGTERM in that window dumps an
+        # empty ring. Wait for the server's own record first.
+        deadline = time.monotonic() + 10
+        while not srv.request_ring.records() and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(srv.request_ring.records()) == 1
         lc = tserving.GracefulLifecycle(reg, srv, drain_timeout_s=10)
         lc.install(dump_signals=())
         try:
