@@ -390,6 +390,26 @@ exits non-zero without printing a result:
               tiny BERT GraphDef) on the card against their CPU runs. The
               imported graph runs none of the five kernels (attention is
               ``BatchMatMulV2`` and ``Softmax``).
+   keras_import — Keras's ``ResNet50V2(weights=None)`` (25,613,800
+              parameters) from its committed h5 skeleton
+              (``tests/torch_data/resnet50v2_skeleton.h5``, no weight
+              written) filled from a seed by ``tests/torch_keras_cases.py``
+              (numpy and the port's HDF5 reader), imported with
+              ``import_keras_model_and_weights(device="cuda")`` and run
+              with ``output()`` at B=8, 224x224, NCHW, f32: h5 MB, fill /
+              read / import s, vertices, layers, parameters, host and
+              device ms a call (median of 5), busy share, peak MB; held to
+              Keras's committed golden of the same file and to the same
+              file imported on the CPU at atol and rtol 1e-4 (TF32 off),
+              with the argmax rule of ``tests/test_keras_applications.py``.
+              Then at small width, each on the card against the CPU: the
+              TFLite MLP and CNN (committed files, against their TF
+              Interpreter goldens), the zoo's LeNet as a DL4J zip through
+              ``init_pretrained`` and ``OmniHub.load``, and 20 LeNet
+              ``fit`` steps under ``StatsListener``s (memory and file
+              storage, a ``UIServer`` on an ephemeral port read back over
+              HTTP), with the listener's host ms a step against the same
+              steps without its work. No kernel of the five runs here.
    seq2seq  — BASELINE config 4's Seq2Seq LSTM at bench.py's widths
               (``models.seq2seq``: vocab 8000, embed 256, hidden 512,
               f32 without TF32, B=128, S=32, ids from ``RandomState(0)``,
@@ -1814,14 +1834,21 @@ def http_generate(base, prompt, kw, max_tokens=64, stream=False,
 def http_clients(base, requests):
     """``requests`` ({"prompt", "kw", "stream"} each) sent at once from
     client threads; returns (the ``http_generate`` results in order, the
-    wall seconds from the first send to the last answer)."""
+    wall seconds from the first send to the last answer). A request that
+    raises (a refused or reset connection, a torn stream) gives status
+    None and its exception as the error."""
     import threading
     results = [None] * len(requests)
 
     def client(i):
         r = requests[i]
-        results[i] = http_generate(base, r["prompt"], r["kw"],
-                                   stream=r["stream"])
+        t0 = time.perf_counter()
+        try:
+            results[i] = http_generate(base, r["prompt"], r["kw"],
+                                       stream=r["stream"])
+        except Exception as e:  # named in the phase's failure
+            results[i] = (None, {"error": f"{type(e).__name__}: {e}"},
+                          None, time.perf_counter() - t0)
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(requests))]
     t0 = time.perf_counter()
@@ -5803,6 +5830,325 @@ def phase_modelimport():
         raise RuntimeError(f"a small graph differs on the card: {small}")
 
 
+# the keras_import phase: Keras's ResNet50V2 (weights=None, 25.6 M
+# parameters, tests/test_keras_applications.py's stock model) from the
+# committed h5 skeleton filled from a seed, imported onto the card and run
+# with output() at B=8, 224 x 224, NCHW, KERAS_CALLS timed calls; held to
+# Keras's committed golden of the same file and to the same file imported
+# on the CPU at the JAX test's own tolerance (atol and rtol 1e-4, TF32
+# off). Then at small width: the TFLite MLP and CNN (their committed
+# files and TF Interpreter goldens, KERAS_TFLITE_* tolerances), the zoo's
+# LeNet as a DL4J zip through init_pretrained and OmniHub, and
+# KERAS_UI_STEPS LeNet fit steps under StatsListeners, each on the card
+# against the CPU
+KERAS_CALLS = 5
+KERAS_TFLITE_ATOL, KERAS_TFLITE_RTOL = 1e-4, 1e-4
+KERAS_SMALL_ATOL = 1e-5
+KERAS_UI_STEPS, KERAS_UI_B = 20, 64
+# the UI records of the card's steps against the CPU's: each param's l2
+# and mean magnitude, relative (the same 20 Adam steps, f32, TF32 off),
+# and each step's update ratio, relative
+KERAS_UI_RTOL, KERAS_UI_RATIO_RTOL = 1e-3, 2e-2
+
+
+def phase_keras_import():
+    """The Keras h5 importer, the TFLite runner, DL4J zips, OmniHub and
+    the training UI on the card (see the module docstring); one line a
+    part, every check raises on failure."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_keras_cases as kc
+    from deeplearning4j_tpu_torch.modelimport import \
+        import_keras_model_and_weights
+    from deeplearning4j_tpu_torch.modelimport.keras import importer
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+    tmp = tempfile.mkdtemp(prefix="keras-import-")
+    try:
+        path = os.path.join(tmp, "resnet50v2.h5")
+        t0 = time.perf_counter()
+        kc.write_filled(path)
+        rec = {"phase": "keras_import", "part": "resnet50v2",
+               "B": kc.RESNET_B, "tf32": tf32,
+               "fill_s": time.perf_counter() - t0,
+               "h5_mb": os.path.getsize(path) / 2 ** 20}
+        t0 = time.perf_counter()
+        _, weights = importer._read_h5(path)
+        rec["read_s"] = time.perf_counter() - t0
+        del weights
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net = import_keras_model_and_weights(path, device="cuda")
+        torch.cuda.synchronize()
+        rec["import_s"] = time.perf_counter() - t0
+        vertices = net.conf.vertices
+        rec["vertices"] = len(vertices)
+        rec["layers"] = sum(1 for v in vertices.values()
+                            if hasattr(v, "layer"))
+        rec["parameters"] = int(sum(t.numel() for p in net._params.values()
+                                    for t in p.values()))
+        x = kc.resnet_batch()
+        xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).cuda()
+        got = net.output(xt)[0].numpy()        # the first call captures
+        host = []
+        for _ in range(KERAS_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.output(xt)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        rec["host_ms_per_call"] = float(np.median(host))
+        rec["host_ms_calls"] = host
+        windows = sorted((device_ms_by_kernel(lambda: net.output(xt), 1)
+                          for _ in range(KERAS_CALLS)),
+                         key=lambda w: sum(w.values()))
+        by_name = windows[KERAS_CALLS // 2]
+        rec["device_ms_per_call"] = sum(by_name.values())
+        rec["device_ms_calls"] = [sum(w.values()) for w in windows]
+        rec["device_busy_share"] = rec["device_ms_per_call"] \
+            / rec["host_ms_per_call"]
+        rec["top_kernels_ms_per_call"] = [
+            [k[:80], v] for k, v in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:6]]
+        rec["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        rec["graphs"] = [{k: g[k] for k in ("cache", "error")}
+                         for g in net._output_fn(False).graphs.report()]
+        with np.load(kc.GOLDEN) as z:
+            golden = z["golden"]
+        rec["vs_golden_max_abs_err"] = float(np.abs(got - golden).max())
+        rec["vs_golden_max_rel_err"] = float(
+            (np.abs(got - golden) / np.abs(golden).clip(1e-30)).max())
+        rec["golden_top1"] = [float(v) for v in golden.max(1)]
+        rec["atol"], rec["rtol"] = kc.RESNET_ATOL, kc.RESNET_RTOL
+        del net
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu = import_keras_model_and_weights(path, device="cpu")
+        rec["cpu_import_s"] = time.perf_counter() - t0
+        ref = cpu.output(x.transpose(0, 3, 1, 2).copy())[0].numpy()
+        del cpu
+        rec["vs_cpu_max_abs_err"] = float(np.abs(got - ref).max())
+        rec["vs_cpu_max_rel_err"] = float(
+            (np.abs(got - ref) / np.abs(ref).clip(1e-30)).max())
+        finite = bool(np.isfinite(got).all()) and got.shape == golden.shape
+        emit(rec)
+        if rec["parameters"] != kc.RESNET50V2_PARAMS:
+            raise RuntimeError(f"the imported ResNet50V2 holds "
+                               f"{rec['parameters']} parameters, want "
+                               f"{kc.RESNET50V2_PARAMS}")
+        if not finite:
+            raise RuntimeError("the imported ResNet50V2's output is not "
+                               "finite values of the golden's shape")
+        if not kc.check_against_golden(got, golden):
+            raise RuntimeError("a golden row's top-2 margin is inside the "
+                               "tolerance: the argmax was not held")
+        np.testing.assert_allclose(got, ref, atol=kc.RESNET_ATOL,
+                                   rtol=kc.RESNET_RTOL)
+        keras_import_small(tmp)
+        keras_import_ui(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def keras_import_small(tmp):
+    """The TFLite MLP and CNN, and the zoo's LeNet as a DL4J zip through
+    ``init_pretrained`` and ``OmniHub``, on the card against the CPU and
+    the committed goldens."""
+    import hashlib
+    import shutil
+    import numpy as np
+    import torch_keras_cases as kc
+    from deeplearning4j_tpu_torch.interop import TfliteRunner
+    from deeplearning4j_tpu_torch.omnihub import OmniHub
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    rec = {"phase": "keras_import", "part": "small",
+           "tflite_atol": KERAS_TFLITE_ATOL,
+           "tflite_rtol": KERAS_TFLITE_RTOL, "atol": KERAS_SMALL_ATOL}
+    xs, goldens = kc.tflite_inputs(), kc.tflite_goldens()
+    for name, path in kc.TFLITE.items():
+        runs = {}
+        for device in ("cuda", "cpu"):
+            r = TfliteRunner(path, device=device)
+            r.run([xs[name]])                 # the first call captures
+            runs[device] = r.run([xs[name]])[r.output_names[0]].numpy()
+            if device == "cuda":
+                rec[f"tflite_{name}_graphs"] = [
+                    g["cache"] for g in r._run.graphs.report()]
+        rec[f"tflite_{name}_vs_cpu"] = float(
+            np.abs(runs["cuda"] - runs["cpu"]).max())
+        rec[f"tflite_{name}_vs_golden"] = float(
+            np.abs(runs["cuda"] - goldens[name]).max())
+        np.testing.assert_allclose(runs["cuda"], goldens[name],
+                                   atol=KERAS_TFLITE_ATOL,
+                                   rtol=KERAS_TFLITE_RTOL)
+        np.testing.assert_allclose(runs["cuda"], runs["cpu"],
+                                   atol=KERAS_SMALL_ATOL, rtol=0)
+    zpath = os.path.join(tmp, "lenet.zip")
+    want = kc.write_dl4j_lenet_zip(zpath, seed=0)
+    x = kc.lenet_batch()
+    card = LeNet().init_pretrained(path=zpath, device="cuda")
+    rec["dl4j_params_exact"] = all(
+        np.array_equal(card._params[i][k].cpu().numpy(), v)
+        for i, p in enumerate(want) for k, v in p.items())
+    out = card.output(x).numpy()
+    host = LeNet().init_pretrained(path=zpath, device="cpu").output(x)
+    rec["dl4j_vs_cpu"] = float(np.abs(out - host.numpy()).max())
+    hub_dir = os.path.join(tmp, "omnihub")
+    os.makedirs(hub_dir)
+    shutil.copyfile(zpath, os.path.join(hub_dir, "lenet.zip"))
+    with open(zpath, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    # cache first: no fetcher is installed, so nothing can be fetched
+    hub = OmniHub(hub_dir).register("lenet", "dl4j", "lenet.zip", digest)
+    rec["omnihub_same_bits"] = bool(np.array_equal(
+        hub.load("lenet", device="cuda").output(x).numpy(), out))
+    emit(rec)
+    if not rec["dl4j_params_exact"]:
+        raise RuntimeError("the DL4J zip's params changed on the card")
+    if rec["dl4j_vs_cpu"] > KERAS_SMALL_ATOL:
+        raise RuntimeError(f"the restored LeNet differs on the card: "
+                           f"{rec['dl4j_vs_cpu']}")
+    if not rec["omnihub_same_bits"]:
+        raise RuntimeError("OmniHub's LeNet differs from init_pretrained's")
+
+
+class _NullListener:
+    """Overrides ``iteration_done`` and does nothing: ``fit``'s per-step
+    path without a listener's own work."""
+
+    def iteration_done(self, model, iteration, loss=None):
+        pass
+
+
+def keras_import_ui(tmp):
+    """KERAS_UI_STEPS LeNet fit steps on the card under two
+    ``StatsListener``s (an ``InMemoryStatsStorage`` behind a ``UIServer``
+    on an ephemeral port, and a ``FileStatsStorage``), read back over
+    HTTP, and the same steps on the CPU from the same weights; then the
+    listener's host ms a step against the per-step path without its
+    work and against no listener."""
+    import json as _json
+    import urllib.request
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                             InMemoryStatsStorage,
+                                             StatsListener, UIServer)
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    rs = np.random.RandomState(3)
+    data = []
+    for _ in range(KERAS_UI_STEPS):
+        x = rs.randn(KERAS_UI_B, 1, 28, 28).astype(np.float32)
+        y = np.zeros((KERAS_UI_B, 10), np.float32)
+        y[np.arange(KERAS_UI_B), rs.randint(0, 10, KERAS_UI_B)] = 1.0
+        data.append((x, y))
+
+    def batches(device):
+        return [DataSet(torch.from_numpy(x).to(device),
+                        torch.from_numpy(y).to(device)) for x, y in data]
+
+    card = LeNet().init_model(device="cuda")
+    host = LeNet().init_model(device="cpu")
+    host.init(params=[{k: v.cpu().clone() for k, v in p.items()}
+                      for p in card._params])
+    mem = InMemoryStatsStorage()
+    fpath = os.path.join(tmp, "stats.jsonl")
+    server = UIServer(port=0).attach(mem)
+    port = server.start()
+    try:
+        card._listeners = [StatsListener(mem, session_id="card",
+                                         histogram_frequency=5),
+                           StatsListener(FileStatsStorage(fpath),
+                                         session_id="card",
+                                         histogram_frequency=5)]
+        card_batches = batches("cuda")
+        card.fit(card_batches)
+        torch.cuda.synchronize()
+        base = f"http://127.0.0.1:{port}"
+
+        def get(p):
+            with urllib.request.urlopen(base + p, timeout=10) as r:
+                return r.read()
+
+        sessions = _json.loads(get("/train/sessions"))
+        overview = _json.loads(get("/train/overview?sid=card"))
+        metrics = _json.loads(get("/metrics.json"))
+    finally:
+        server.stop()
+    cpu_mem = InMemoryStatsStorage()
+    host._listeners = [StatsListener(cpu_mem, session_id="cpu",
+                                     histogram_frequency=5)]
+    host.fit(batches("cpu"))
+    ups, refs = overview["updates"], cpu_mem.get_updates("cpu")
+    from_file = FileStatsStorage(fpath).get_updates("card")
+    err = {"l2": 0.0, "mean_mag": 0.0, "update_param_ratio": 0.0}
+    for u, r in zip(ups, refs):
+        for name, s in r["params"].items():
+            for k in ("l2", "mean_mag"):
+                err[k] = max(err[k], abs(u["params"][name][k] - s[k])
+                             / max(abs(s[k]), 1e-12))
+        if "update_param_ratio" in r:
+            err["update_param_ratio"] = max(
+                err["update_param_ratio"],
+                abs(u["update_param_ratio"] - r["update_param_ratio"])
+                / r["update_param_ratio"])
+    static = overview["static"] or {}
+    mem_ok = all(u.get("memory", {}).get("bytes_in_use", 0) > 0
+                 and u["memory"]["peak_bytes_in_use"]
+                 >= u["memory"]["bytes_in_use"] for u in ups)
+    rec = {"phase": "keras_import", "part": "ui", "steps": KERAS_UI_STEPS,
+           "B": KERAS_UI_B, "sessions": sessions,
+           "updates": len(ups), "file_updates": len(from_file),
+           "static": {k: static.get(k) for k in
+                      ("model_class", "n_params", "backend",
+                       "device_count")},
+           "memory_last": ups[-1].get("memory") if ups else None,
+           "memory_is_the_cards": mem_ok,
+           "metrics_json_families": len(metrics),
+           "vs_cpu_max_rel_err": err,
+           "rtol": KERAS_UI_RTOL, "ratio_rtol": KERAS_UI_RATIO_RTOL,
+           "census": [{k: g[k] for k in ("tag", "cache")}
+                      for g in card.train_graphs_report()]}
+    # the listener's host cost: the same steps with it, with a listener
+    # doing nothing (the same per-step path) and with none (the staged
+    # path); each run warmed once on the same batches first
+    timing = {}
+    for label, listeners in (
+            ("stats_listener", [StatsListener(InMemoryStatsStorage(),
+                                              session_id="t",
+                                              histogram_frequency=5)]),
+            ("null_listener", [_NullListener()]), ("none", [])):
+        card._listeners = listeners
+        card.fit(card_batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.fit(card_batches)
+        torch.cuda.synchronize()
+        timing[label] = (time.perf_counter() - t0) * 1e3 / KERAS_UI_STEPS
+    rec["host_ms_per_step"] = timing
+    rec["listener_ms_per_step"] = timing["stats_listener"] \
+        - timing["null_listener"]
+    emit(rec)
+    if sessions != ["card"] or len(ups) != KERAS_UI_STEPS \
+            or len(from_file) != KERAS_UI_STEPS:
+        raise RuntimeError(f"the UI served {sessions} with {len(ups)} "
+                           f"updates ({len(from_file)} in the file), want "
+                           f"['card'] with {KERAS_UI_STEPS}")
+    if static.get("backend") != "cuda" or not mem_ok:
+        raise RuntimeError("the records do not carry the card's backend "
+                           "and memory")
+    if max(err["l2"], err["mean_mag"]) > KERAS_UI_RTOL \
+            or err["update_param_ratio"] > KERAS_UI_RATIO_RTOL:
+        raise RuntimeError(f"the card's records differ from the CPU's: "
+                           f"{err}")
+
+
 # the precision phase: the samediff_bert phase's trained QA graph and
 # batches, PRECISION_STEPS fit steps from the same weights at each
 # matmul_precision level after one warm step at it; the first losses of
@@ -8221,6 +8567,8 @@ def main():
     del qa_graph, qa_batches
     free_card()
     phase_modelimport()
+    free_card()
+    phase_keras_import()
     free_card()
     phase_seq2seq()
     phase_text_lstm()

@@ -3,7 +3,7 @@
 A copy of the JAX package's ``common/httpserver.py`` (the port imports
 nothing from that package), so the HTTP hygiene (Content-Length on every
 response, client disconnects handled without stack traces, debug-gated
-request logging) is the reference's.
+request logging) is the reference's; only the listen backlog is larger.
 
 - ``QuietThreadingHTTPServer`` — ThreadingHTTPServer whose
   ``handle_error`` treats client disconnects (``BrokenPipeError`` /
@@ -46,9 +46,16 @@ CLIENT_DISCONNECTS = (BrokenPipeError, ConnectionResetError,
 
 class QuietThreadingHTTPServer(ThreadingHTTPServer):
     """ThreadingHTTPServer that logs client disconnects instead of
-    printing a traceback for every impatient curl."""
+    printing a traceback for every impatient curl.
+
+    Its listen backlog is 128, not socketserver's 5: a burst of clients
+    (16 generate requests sent at once) overflows a backlog of 5 while
+    the accept loop waits for the GIL, and the kernel then drops the
+    extra SYNs, so those clients connect only after their first SYN
+    retransmission, a second later."""
 
     daemon_threads = True
+    request_queue_size = 128
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

@@ -1,25 +1,16 @@
-"""Foreign-runtime interop: run TF graphs and ONNX models on NDArrays.
+"""Foreign-runtime interop: run TF graphs, ONNX and TFLite models on NDArrays.
 
 Counterpart of ``deeplearning4j_tpu/interop/`` (the reference's
-``nd4j-tensorflow`` ``GraphRunner``, ``nd4j-onnxruntime``):
+``nd4j-tensorflow`` ``GraphRunner``, ``nd4j-onnxruntime``, ``nd4j-tvm``):
 - `GraphRunner`: executes a frozen TF GraphDef through the tensorflow
   runtime when installed, else through the port's own TF importer on
   ``device`` (the card by default);
-- `OnnxRunner`: executes ONNX models through the port's importer.
-
-`TfliteRunner` (the JAX package's ``interop/tflite.py``) is not ported
-yet (``ROADMAP.md`` queue 1 item 11c-ii) and raises.
+- `OnnxRunner`: executes ONNX models through the port's importer;
+- `TfliteRunner`: executes float .tflite files directly (the port's own
+  FlatBuffers reader, one CUDA graph per input signature on the card; no
+  TFLite runtime needed).
 """
 from .graph_runner import GraphRunner, OnnxRunner
-
-
-class TfliteRunner:
-    """The float ``.tflite`` runner: not ported yet (item 11c-ii)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TfliteRunner is not ported yet; it waits for ROADMAP.md queue "
-            "1 item 11c-ii")
-
+from .tflite import TfliteRunner
 
 __all__ = ["GraphRunner", "OnnxRunner", "TfliteRunner"]

@@ -9,9 +9,9 @@ weights from ``seed``. ``init_pretrained`` is cache-first: an explicit
 artifact's copy in ``cache_dir()`` (under the ``home`` property),
 Adler32-verified; ``download_to_cache`` reads ``file://`` URLs and
 nothing over the network. No pretrained weights ship with the port. A
-serde zip restores through ``nn.serde.restore_model``; a DL4J
-``coefficients.bin`` zip waits for ``zoo/dl4j_import.py`` (``ROADMAP.md``
-queue 1 item 11c-ii).
+serde zip restores through ``nn.serde.restore_model``, a DL4J
+ModelSerializer zip (``coefficients.bin``) through
+``zoo/dl4j_import.py``, both onto ``device``.
 """
 from __future__ import annotations
 
@@ -264,10 +264,10 @@ class ZooModel:
         with zipfile.ZipFile(path) as z:
             names = set(z.namelist())
         if "coefficients.bin" in names:
-            raise NotImplementedError(
-                f"{path} is a DL4J ModelSerializer zip (coefficients.bin); "
-                "its reader, zoo/dl4j_import.py, waits for ROADMAP.md queue "
-                "1 item 11c-ii")
+            # a reference-published DL4J zip (configuration.json +
+            # coefficients.bin) converts via the ModelSerializer reader
+            from .dl4j_import import restore_multi_layer_network
+            return restore_multi_layer_network(path, device=device)
         from ..nn import serde
         # the artifact carries the config and every param, the state_*
         # running stats (batch-norm means and variances) included

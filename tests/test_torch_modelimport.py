@@ -46,6 +46,8 @@ from deeplearning4j_tpu_torch.modelimport.tf.importer import \
     TFGraphImporter  # noqa: E402
 from deeplearning4j_tpu_torch.modelimport.tf.parser import \
     parse_graphdef  # noqa: E402
+from deeplearning4j_tpu_torch.omnihub import OmniHub  # noqa: E402
+from deeplearning4j_tpu_torch.zoo import dl4j_import  # noqa: E402
 
 import torch_import_cases as cases  # noqa: E402
 from torch_import_check import (PORT_VS_JAX, both_tf,  # noqa: E402
@@ -384,14 +386,31 @@ def test_graph_runner_and_onnx_runner_against_jax():
     np.testing.assert_allclose(t, np.asarray(j), **PORT_VS_JAX)
 
 
-def test_unported_entry_points_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 11c-ii"):
-        modelimport.import_keras_model_and_weights("m.h5")
-    with pytest.raises(NotImplementedError, match="item 11c-ii"):
-        modelimport.KerasModelImport.import_keras_sequential_model_and_weights(
-            "m.h5")
-    with pytest.raises(NotImplementedError, match="item 11c-ii"):
-        interop.TfliteRunner(b"")
+def test_unported_entry_points_name_their_item(tmp_path):
+    """The Keras and TFLite entry points (ported since item 11c-ii) fail
+    as the JAX package's do on a missing path and on empty bytes: a
+    missing h5 is ``FileNotFoundError``, an empty one ``OSError`` (h5py's
+    "file signature not found"), an empty or missing .tflite
+    ``ValueError`` / ``FileNotFoundError``."""
+    from deeplearning4j_tpu import interop as jinterop
+    from deeplearning4j_tpu import modelimport as jmodelimport
+    empty = tmp_path / "empty.h5"
+    empty.write_bytes(b"")
+    missing = str(tmp_path / "m.h5")
+    for mi, kw in ((modelimport, {"device": "cpu"}), (jmodelimport, {})):
+        for entry in (mi.import_keras_model_and_weights,
+                      mi.KerasModelImport
+                      .import_keras_sequential_model_and_weights):
+            with pytest.raises(FileNotFoundError):
+                entry(missing, **kw)
+            with pytest.raises(OSError, match="signature not found"):
+                entry(str(empty), **kw)
+    for runner, kw in ((interop.TfliteRunner, {"device": "cpu"}),
+                       (jinterop.TfliteRunner, {})):
+        with pytest.raises(ValueError, match="not a parseable .tflite"):
+            runner(b"", **kw)
+        with pytest.raises(FileNotFoundError):
+            runner(str(tmp_path / "m.tflite"), **kw)
 
 
 ENTRY_POINTS = [modelimport.import_tf_graph, modelimport.import_onnx_model,
@@ -399,7 +418,14 @@ ENTRY_POINTS = [modelimport.import_tf_graph, modelimport.import_onnx_model,
                 samediff_fb.load_samediff_fb,
                 samediff_fb.SameDiffFbImport.__init__,
                 ir.ImportContext.__init__, ir.run_import,
-                interop.GraphRunner.__init__, interop.OnnxRunner.__init__]
+                interop.GraphRunner.__init__, interop.OnnxRunner.__init__,
+                modelimport.import_keras_model_and_weights,
+                modelimport.import_keras_sequential_model_and_weights,
+                modelimport.KerasModelImport.import_keras_model_and_weights,
+                modelimport.KerasModelImport
+                .import_keras_sequential_model_and_weights,
+                interop.TfliteRunner.__init__,
+                dl4j_import.restore_multi_layer_network, OmniHub.load]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -409,12 +435,14 @@ def test_entry_point_defaults_to_cuda(fn):
 
 def test_no_third_party_import_at_import_time():
     """A fresh interpreter in which flatbuffers, ml_dtypes, tensorflow,
-    onnx, JAX and the JAX package cannot be imported loads every module
-    of the slice and imports, writes and reads a graph on the CPU."""
+    onnx, h5py, keras, JAX and the JAX package cannot be imported loads
+    every module of the import slices (``modelimport``, ``interop``,
+    ``zoo``, ``omnihub``, ``ui``, ``analysis``), imports, writes and reads
+    a graph on the CPU, and imports the Keras ResNet50V2 skeleton."""
     code = r'''
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ("flatbuffers", "ml_dtypes", "tensorflow", "onnx", "jax",
-           "jaxlib", "deeplearning4j_tpu")
+BLOCKED = ("flatbuffers", "ml_dtypes", "tensorflow", "onnx", "h5py",
+           "keras", "jax", "jaxlib", "deeplearning4j_tpu")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -422,7 +450,11 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import deeplearning4j_tpu_torch.modelimport as mi
 import deeplearning4j_tpu_torch.interop as io
-for pkg in (mi, io):
+import deeplearning4j_tpu_torch.zoo as zoo
+import deeplearning4j_tpu_torch.omnihub as hub
+import deeplearning4j_tpu_torch.ui as ui
+import deeplearning4j_tpu_torch.analysis as an
+for pkg in (mi, io, zoo, hub, ui, an):
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         importlib.import_module(m.name)
 import numpy as np, tempfile, os
@@ -438,6 +470,9 @@ sd = load_samediff_fb(path, device="cpu")
 out = imp.outputs["y"]
 assert np.array_equal(sd.output({"x": np.ones((4, 8), np.float32)},
                                 [out])[out].numpy(), y)
+import torch_keras_cases as kc
+net = mi.import_keras_model_and_weights(kc.SKELETON, device="cpu")
+assert len(net.conf.vertices) == 191
 print("ok")
 '''
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

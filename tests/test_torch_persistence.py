@@ -617,13 +617,23 @@ def test_init_pretrained_fails_cleanly_without_network(zoo_home):
                                  device="cpu")
 
 
-def test_dl4j_zip_waits_for_item_11(zoo_home):
-    path = zoo_home / "dl4j.zip"
-    with zipfile.ZipFile(path, "w") as z:
-        z.writestr("configuration.json", "{}")
-        z.writestr("coefficients.bin", b"")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TLeNet().init_pretrained(path=str(path), device="cpu")
+def test_dl4j_zip_restores_through_init_pretrained(zoo_home):
+    """A DL4J ModelSerializer zip (``coefficients.bin``) restores through
+    ``zoo/dl4j_import.py`` onto the device asked for, as the JAX
+    ``init_pretrained`` does (the zoo's LeNet, written from a seed)."""
+    import torch_keras_cases as kc
+    path = str(zoo_home / "dl4j.zip")
+    want = kc.write_dl4j_lenet_zip(path, seed=4)
+    net = TLeNet().init_pretrained(path=path, device="cpu")
+    assert type(net).__name__ == "MultiLayerNetwork"
+    for i, p in enumerate(want):
+        for k, v in p.items():
+            assert np.array_equal(net._params[i][k].numpy(), v), (i, k)
+    from deeplearning4j_tpu.zoo import LeNet as JLeNet
+    jnet = JLeNet().init_pretrained(path=path)
+    for i, p in enumerate(jnet._params):
+        for k, v in p.items():
+            assert np.array_equal(net._params[i][k].numpy(), np.asarray(v))
 
 
 def test_registry_matches_jax():

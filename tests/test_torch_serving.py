@@ -479,6 +479,43 @@ class TestPortOnlyLifecycle:
         assert doc["decode"][0]["model"] == "lm"
 
 
+def test_listen_backlog_takes_a_burst_of_16_clients():
+    """16 connections opened while the accept loop is not running all
+    complete their handshake at once: the port's server listens with a
+    backlog of 128, where socketserver's 5 makes the kernel drop the
+    extra SYNs and those clients wait a second for the retransmission."""
+    from deeplearning4j_tpu_torch.common.httpserver import (
+        JsonRequestHandler, QuietThreadingHTTPServer)
+    httpd = QuietThreadingHTTPServer(("127.0.0.1", 0), JsonRequestHandler)
+    socks = []
+    try:
+        for _ in range(16):
+            s = socket.socket()
+            s.settimeout(0.5)
+            socks.append(s)
+            s.connect(httpd.server_address)
+    finally:
+        for s in socks:
+            s.close()
+        httpd.server_close()
+    assert len(socks) == 16
+
+
+def test_http_burst_round_on_the_cpu(capsys):
+    """``benchmarks/http_burst`` at the server's own backlog: one round
+    of 16 concurrent generate clients, each answered 200, none raising,
+    none waiting for a SYN retransmission."""
+    from deeplearning4j_tpu_torch.benchmarks import http_burst
+    http_burst.main(["--device", "cpu", "--backlogs", "128",
+                     "--rounds", "1"])
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.splitlines()]
+    assert len(rows) == 1
+    row = rows[0]
+    assert (row["backlog"], row["exceptions"], row["not_ok"]) == (128, [], 0)
+    assert row["connects_over_0.9s"] == 0
+
+
 def test_drain_all_and_graceful_lifecycle(sides):
     """The SIGTERM sequence, called directly, on both sides: readiness
     flips, engines drain, late work fails fast, the socket closes."""
